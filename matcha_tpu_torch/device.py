@@ -16,3 +16,10 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+def to_device(host, device) -> torch.Tensor:
+    """A small host array or tensor -> ``device`` without waiting for the
+    device: a blocking copy from pageable host memory synchronises the
+    stream first; a non-blocking one stages the bytes and returns."""
+    return torch.as_tensor(host).to(device, non_blocking=True)

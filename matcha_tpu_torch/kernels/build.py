@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("hyperedge_attention_fwd",)
+KERNELS = ("hyperedge_attention_fwd", "hyperedge_attention_bwd",
+           "table_scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,16 +1,20 @@
-"""The Hyper-SAGNN hyperedge classifier, eval mode.
+"""The Hyper-SAGNN hyperedge classifier.
 
 Port of ``matcha_tpu/models/hypersagnn.py``: the whole frozen feature table
 is encoded once (per-chromosome tied autoencoders) into a node-embedding
 table H of shape (N+1, dim), and a batch is scored from one gather H[x].
 The reference's quirks are kept: the encoder's static output is the
 pre-attention embedding, the score is the masked mean over positions of
-pff_classifier((dynamic - static)^2) with a +1e-15 guard, and forward
-returns raw logits.
+pff_classifier((dynamic - static)^2) with a +1e-15 guard, forward returns
+raw logits, and the inter-chromosome reconstruction loss decodes the node
+embeddings of one random chromosome's complement, x100.
 
 Parameters are the JAX package's param tree with tensors as leaves (see
-``interop.py``).  Training (dropout, the recon loss) comes in a later slice:
-``train=True`` and ``return_recon`` raise.
+``interop.py``).  Train mode draws its dropout masks from an explicit CPU
+``torch.Generator`` (see ``models/modules.py``); the recon loss's chromosome
+is drawn from it on the host, or passed in as ``recon_chrom``.  Not ported
+yet: the ``per_occurrence`` feature-dropout mode, the sharded (n_shards)
+stream layout and the fused classifier tail.
 """
 
 from __future__ import annotations
@@ -20,12 +24,14 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from matcha_tpu_torch.device import resolve_device
-from matcha_tpu_torch.models.modules import (encoder_layer,
+from matcha_tpu_torch.device import resolve_device, to_device
+from matcha_tpu_torch.models.modules import (dropout, encoder_layer,
                                              encoder_layer_init, feed_forward,
                                              feed_forward_init, layer_norm,
                                              layer_norm_init, linear,
-                                             linear_init, pff, pff_init)
+                                             linear_init, mha_dynamic, pff,
+                                             pff_init, rand, split_generator)
+from matcha_tpu_torch.ops.table_scatter import bincount, table_gather
 
 
 class ModelDims(NamedTuple):
@@ -166,23 +172,28 @@ def build_frozen_tables(genome, intra_adj: np.ndarray, inter_adj: np.ndarray,
 
 # ---------------------------------------------------------------- embedding
 def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
-                      *, train: bool = False) -> torch.Tensor:
+                      *, generator: Optional[torch.Generator] = None,
+                      train: bool = False) -> torch.Tensor:
     """Encode every chromosome's frozen feature table through its tied
     autoencoder -> node embedding table H (N+1, dim), row 0 zeros.
     H = tanh(X @ W1) @ W2 per chromosome; in "table" mode the trainable
-    table is the node table."""
-    if train:
-        raise NotImplementedError("train-mode encode (feature dropout) comes "
-                                  "with the training slice of the port")
+    table is the node table.  In train mode with a generator, feature
+    dropout (rate ``dims.feature_dropout``) is drawn once per node row per
+    step."""
     cdt = dims.cdt
     if "table" in params["embed"]:
         table = params["embed"]["table"].clone()
         table[0] = 0.0
         return table.to(cdt)
+    if train and dims.feature_dropout_mode == "per_occurrence":
+        raise NotImplementedError("the per_occurrence feature-dropout mode "
+                                  "is not ported yet")
     feats = frozen.features
     widths = [f.shape[1] for f in feats]     # true row counts = col counts
     rows = [f.shape[0] for f in feats]
     R, W = max(rows), max(widths)
+    rate = dims.feature_dropout
+    drop = train and generator is not None and rate > 0.0
     zero_row = torch.zeros((1, dims.dim), dtype=cdt, device=feats[0].device)
     # the JAX package's gate (pad-independent table volume): all chromosomes
     # as one zero-padded batched chain, else a per-chromosome loop
@@ -190,6 +201,14 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
         x = torch.stack([torch.nn.functional.pad(
             f.to(cdt), (0, W - f.shape[1], 0, R - f.shape[0]))
             for f in feats])                                     # (C, R, W)
+        if drop:
+            # the mask is drawn at the pad-independent shape (C, W, W) (a
+            # corrcoef table's true row count is its width) and padded
+            # with keep, as the JAX package draws it
+            keep = rand(generator, (len(feats), W, W), x.device) < 1.0 - rate
+            keep = torch.nn.functional.pad(keep, (0, 0, 0, R - W), value=True)
+            x = torch.where(keep, x / (1.0 - rate),
+                            torch.zeros((), dtype=cdt, device=x.device))
         w1 = torch.stack([torch.nn.functional.pad(
             p["w1"].to(cdt), (0, 0, 0, W - p["w1"].shape[0]))
             for p in params["embed"]["ae"]])                     # (C, W, d)
@@ -197,34 +216,133 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
                           for p in params["embed"]["ae"]])       # (C, d, d)
         h = torch.bmm(torch.tanh(torch.bmm(x, w1)), w2)          # (C, R, d)
         # row gather: node id i (1-based) -> (chrom c, local row) in h
-        flat_idx = torch.from_numpy(np.concatenate(
-            [c * R + np.arange(w) for c, w in enumerate(widths)])).to(
-                h.device)
+        flat_idx = to_device(np.concatenate(
+            [c * R + np.arange(w) for c, w in enumerate(widths)]), h.device)
         table = h.reshape(len(feats) * R, dims.dim)[flat_idx]
         return torch.cat([zero_row, table], dim=0)
+    gens = split_generator(generator if drop else None, len(feats))
     blocks = [zero_row]
     for c, x in enumerate(feats):
         ae = params["embed"]["ae"][c]
-        x = x.to(cdt)
+        x = dropout(x.to(cdt), rate, train, gens[c])
         h = torch.tanh(x @ ae["w1"].to(cdt)) @ ae["w2"].to(cdt)
         blocks.append(h[:x.shape[1]])
     return torch.cat(blocks, dim=0)
 
 
+# -------------------------------------------------------------- recon loss
+def recon_loss_fn(params: Dict, frozen: FrozenTables, dims: ModelDims,
+                  x_flat: torch.Tensor, node_table: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  r: Optional[int] = None) -> torch.Tensor:
+    """Inter-chromosomal reconstruction auxiliary loss: pick one random
+    chromosome r (from ``generator`` on the host, unless given); for batch
+    nodes NOT on r, decode FF_r(tanh(embed)) and MSE against the z-scored
+    inter-contact row restricted to r's columns; x100.  Computed per node
+    (``recon_loss_node``)."""
+    if "table" in params["embed"]:
+        return torch.zeros((), device=node_table.device)   # no recon
+    if r is None:
+        if generator is None:
+            raise ValueError("recon_loss_fn needs a generator or r")
+        r = int(torch.randint(0, dims.num_chroms, (1,), generator=generator))
+    return recon_loss_node(params, frozen, dims, x_flat, node_table, r)
+
+
+def _padded_recon_parts(params, frozen, r: int):
+    """Chromosome r's decoder padded to the max feature width F, and its
+    target columns.  -> (w_r (d, F), b_r (F,), cols (F,) clipped into
+    inter_z, col_ok (F,), width_r)."""
+    widths = [f.shape[1] for f in frozen.features]
+    f_max = int(max(widths))
+    w_r = params["embed"]["recon"][r]["w"]
+    b_r = params["embed"]["recon"][r]["b"]
+    pad = f_max - w_r.shape[1]
+    dev = w_r.device
+    ar = torch.arange(f_max, device=dev)
+    cols = (int(sum(widths[:r])) + ar).clamp_max(frozen.inter_z.shape[1] - 1)
+    return (torch.nn.functional.pad(w_r, (0, pad)),
+            torch.nn.functional.pad(b_r, (0, pad)), cols,
+            ar < widths[r], widths[r])
+
+
+def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
+                    x_flat: torch.Tensor, node_table: torch.Tensor,
+                    r: int) -> torch.Tensor:
+    """Per-node form of ``recon_loss_with_chrom`` (equal up to f32 summation
+    order): every token of a node shares its embedding row, so the
+    token-mean MSE is the node MSE weighted by the node's token count (K4
+    on a CUDA tensor).  Decodes N node rows instead of T token rows."""
+    R = int(min(node_table.shape[0], frozen.inter_z.shape[0],
+                frozen.chrom_of_node.shape[0]))
+    cnt = bincount(x_flat.reshape(-1), R)                       # (R,) f32
+    node_ids = torch.arange(R, device=cnt.device)
+    w_n = cnt * ((frozen.chrom_of_node[:R] != r) & (node_ids != 0))
+
+    w_r, b_r, cols, col_ok, width_r = _padded_recon_parts(params, frozen, r)
+    widths = [f.shape[1] for f in frozen.features]
+    f_max = int(max(widths))
+    if frozen.inter_z.shape[1] >= sum(widths) + f_max:
+        # inter_z carries >= f_max zero pad columns (the Trainer adds them):
+        # the target is a contiguous slice; the pad columns are masked
+        start = int(sum(widths[:r]))
+        target = frozen.inter_z[:R, start:start + f_max].float()
+    else:
+        target = frozen.inter_z[:R][:, cols].float()             # (R, F)
+    recon = torch.tanh(node_table[:R].float()) @ w_r + b_r      # (R, F)
+    sq = torch.where(col_ok[None, :], (target - recon) ** 2,
+                     torch.zeros((), device=recon.device))
+    per_node = sq.sum(dim=-1) / width_r
+    denom = w_n.sum()
+    loss = torch.where(denom > 0,
+                       (per_node * w_n).sum() / denom.clamp_min(1.0),
+                       torch.zeros((), device=denom.device))
+    return loss * 100.0
+
+
+def recon_loss_with_chrom(params: Dict, frozen: FrozenTables,
+                          dims: ModelDims, x_flat: torch.Tensor,
+                          emb_flat: torch.Tensor, r: int) -> torch.Tensor:
+    """The per-token recon loss (the oracle ``recon_loss_node`` is held
+    against): token rows of x_flat not on chromosome r and not pads."""
+    x_flat = x_flat.long()
+    chrom = frozen.chrom_of_node[x_flat]
+    mask = ((chrom != r) & (x_flat != 0)).float()
+    w_r, b_r, cols, col_ok, width_r = _padded_recon_parts(params, frozen, r)
+    target = frozen.inter_z[:, cols][x_flat].float()            # (M, F)
+    recon = torch.tanh(emb_flat.float()) @ w_r + b_r            # (M, F)
+    sq = torch.where(col_ok[None, :], (target - recon) ** 2,
+                     torch.zeros((), device=recon.device))
+    per_row = sq.sum(dim=-1) / width_r
+    denom = mask.sum()
+    loss = torch.where(denom > 0,
+                       (per_row * mask).sum() / denom.clamp_min(1.0),
+                       torch.zeros((), device=denom.device))
+    return loss * 100.0
+
+
 # ------------------------------------------------------------------ forward
+def _streams(generator: Optional[torch.Generator]):
+    """(table, recon, encoder) generators of one forward, split as the JAX
+    package splits its key."""
+    _, g_tab, g_rec, g_enc = split_generator(generator, 4)
+    return g_tab, g_rec, g_enc
+
+
 def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
-            x: torch.Tensor, *, train: bool = False,
-            return_recon: bool = False,
+            x: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+            train: bool = False, return_recon: bool = False,
             node_table: Optional[torch.Tensor] = None,
-            return_positions: bool = False):
+            return_positions: bool = False,
+            recon_chrom: Optional[int] = None):
     """Score a padded hyperedge batch x (B, L) of node ids (0 = pad) -> raw
-    logits (B, 1) f32; with ``return_positions`` also the per-position
-    scores (B, L) before the masked mean."""
-    if train or return_recon:
-        raise NotImplementedError("train mode and the recon loss come with "
-                                  "the training slice of the port")
+    logits (B, 1) f32; with ``return_recon`` also the recon loss, with
+    ``return_positions`` also the per-position scores (B, L) before the
+    masked mean."""
+    g_tab, g_rec, g_enc = _streams(generator)
     if node_table is None:
-        node_table = encode_node_table(params, frozen, dims)
+        node_table = encode_node_table(params, frozen, dims,
+                                       generator=g_tab, train=train)
     x = x.long()
     npm = (x != 0).to(torch.float32)[..., None]          # (B, L, 1)
 
@@ -236,7 +354,7 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
 
     dynamic, static = encoder_layer(
         params["encoder"], h, npm.to(h.dtype), dims.n_head, dims.dim,
-        dims.dim, diag_mask=dims.diag_mask)
+        dims.dim, diag_mask=dims.diag_mask, generator=g_enc, train=train)
 
     dynamic = layer_norm(params["ln_dynamic"], dynamic)
     static = layer_norm(params["ln_static"], static)
@@ -244,9 +362,111 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
     per_pos = pff(params["pff_classifier"], out).to(torch.float32)
     out = ((per_pos * npm).sum(dim=-2)                   # logits in f32
            / (npm.sum(dim=-2) + 1e-15))
+    rest = ()
+    if return_recon:
+        rest += (recon_loss_fn(params, frozen, dims, x.reshape(-1),
+                               node_table, g_rec, recon_chrom),)
     if return_positions:
-        return out, per_pos[..., 0]
-    return out
+        rest += (per_pos[..., 0],)
+    return (out,) + rest if rest else out
+
+
+def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
+                    xs: Dict[int, torch.Tensor], *,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False, return_recon: bool = False,
+                    node_table: Optional[torch.Tensor] = None,
+                    attention_mode: str = "per-k",
+                    recon_chrom: Optional[int] = None):
+    """Forward over several per-k buckets (no padding) as one merged token
+    stream: every per-token stage (the gather, next_w, pff_n1, the
+    LayerNorms, the classifier, recon) runs once over the concatenated
+    buckets; only the attention runs per k.  The gather's gradient is K3
+    (``table_gather``) on a CUDA tensor.
+
+    attention_mode "per-k": one attention per bucket (k = 2 closed form);
+    "pad-max": k = 2 closed form, every k >= 3 bucket padded to the largest
+    k with the pad token's h and run as one attention (pads take part as
+    keys, the reference's training-time semantics).
+
+    -> {k: (n_k, 1) logits}, and the recon loss with ``return_recon``."""
+    if attention_mode not in ("per-k", "pad-max"):
+        raise ValueError(f"attention_mode must be 'per-k' or 'pad-max', "
+                         f"got {attention_mode!r}")
+    g_tab, g_rec, g_enc = _streams(generator)
+    if node_table is None:
+        node_table = encode_node_table(params, frozen, dims,
+                                       generator=g_tab, train=train)
+    ks = sorted(xs.keys())
+    shapes = [(int(xs[k].shape[0]), int(k)) for k in ks]
+    tok_sizes = [n_k * k for (n_k, k) in shapes]
+    flat = torch.cat([xs[k].reshape(-1) for k in ks])            # (T,)
+
+    # node + projected-attribute tables combined per node, then ONE (T, d)
+    # gather of the combined table
+    attr_proj = linear(params["attr_nn"], frozen.attr_table.to(dims.cdt))
+    combined = node_table + attr_proj
+    h = torch.tanh(feed_forward(params["next_w"],
+                                table_gather(combined, flat)))   # (T, d)
+
+    gens = split_generator(g_enc, len(ks) + 1)
+    mha = params["encoder"]["mha"]
+    if attention_mode == "pad-max" and len(shapes) > 1:
+        dyn = _attention_pad_max(params, dims, h, shapes, gens, train,
+                                 combined)
+    else:
+        dyn = torch.cat([
+            mha_dynamic(mha, hk.reshape(n_k, k, -1), dims.n_head, dims.dim,
+                        dims.dim, diag_mask=dims.diag_mask, generator=gen,
+                        drop_rate=0.3, train=train).reshape(n_k * k, -1)
+            for (n_k, k), hk, gen in zip(shapes, h.split(tok_sizes), gens)])
+    dyn = pff(params["encoder"]["pff_n1"], dyn, residual=True,
+              generator=gens[-1], drop_rate=0.4, train=train)
+    dynamic = layer_norm(params["ln_dynamic"], dyn)
+    static = layer_norm(params["ln_static"], h)
+    out = (dynamic - static) ** 2 if dims.diag_mask else dynamic
+    per_pos = pff(params["pff_classifier"], out).to(torch.float32)  # (T, 1)
+
+    logits = {k: pp.reshape(n_k, k).mean(dim=-1, keepdim=True)
+              for k, (n_k, _), pp in zip(ks, shapes,
+                                         per_pos[:, 0].split(tok_sizes))}
+    if return_recon:
+        return logits, recon_loss_fn(params, frozen, dims, flat, node_table,
+                                     g_rec, recon_chrom)
+    return logits
+
+
+def _attention_pad_max(params, dims, h, shapes, gens, train, combined):
+    """pad-max attention over the merged stream (see forward_buckets):
+    k = 2 closed form; k >= 3 padded to L with the pad token's h (node id 0:
+    zero embedding + attribute row 0, through next_w) and run as one
+    attention; the real positions go back into the stream."""
+    mha = params["encoder"]["mha"]
+    L = max(k for _, k in shapes)
+    h_pad = torch.tanh(feed_forward(params["next_w"], combined[0][None, :]))
+    parts = h.split([n_k * k for (n_k, k) in shapes])
+    dyn_parts = [None] * len(shapes)
+    padded = []
+    for i, ((n_k, k), hk) in enumerate(zip(shapes, parts)):
+        hk = hk.reshape(n_k, k, -1)
+        if k == 2:
+            dyn_parts[i] = mha_dynamic(
+                mha, hk, dims.n_head, dims.dim, dims.dim,
+                diag_mask=dims.diag_mask, generator=gens[i], drop_rate=0.3,
+                train=train).reshape(n_k * k, -1)
+        else:
+            pad = h_pad[None].expand(n_k, L - k, h.shape[-1]).to(hk.dtype)
+            padded.append((i, n_k, k, torch.cat([hk, pad], dim=1)))
+    if padded:
+        dynp = mha_dynamic(mha, torch.cat([p[3] for p in padded]),
+                           dims.n_head, dims.dim, dims.dim,
+                           diag_mask=dims.diag_mask,
+                           generator=gens[padded[0][0]], drop_rate=0.3,
+                           train=train)
+        for (i, n_k, k, _), dk in zip(padded,
+                                      dynp.split([p[1] for p in padded])):
+            dyn_parts[i] = dk[:, :k, :].reshape(n_k * k, -1)
+    return torch.cat(dyn_parts)
 
 
 def node_embeddings(params: Dict, frozen: FrozenTables,

@@ -1,4 +1,4 @@
-"""Functional neural-net building blocks on tensors (eval mode).
+"""Functional neural-net building blocks on tensors.
 
 Port of ``matcha_tpu/models/modules.py``.  Parameters are plain nested dicts
 of tensors in the JAX ``(in, out)`` layout, so ``x @ w`` compares like with
@@ -6,9 +6,14 @@ like; applies are plain functions.  All activations are tanh and LayerNorm
 eps is 1e-5 with f32 statistics.  Weights follow the activation dtype (bf16
 compute keeps f32 master params; the casts are no-ops in full f32).
 
-Initializers draw from an explicit ``torch.Generator`` with the same
-distributions as the JAX package (the numbers differ: the two frameworks'
-random streams are not the same):
+Randomness comes from explicit CPU ``torch.Generator``s, the counterpart of
+JAX keys: ``split_generator`` derives independent child generators (as
+``jax.random.split`` derives keys), and a dropout draws its mask on the
+tensor's device from a seed taken from its generator, so no draw ever waits
+on the device.  A ``None`` generator disables dropout, as a ``None`` key does
+in the JAX package.  Initializers draw with the same distributions as the
+JAX package (the numbers differ: the two frameworks' random streams are not
+the same):
   * linear: U(±1/sqrt(fan_in)) for weight and bias
   * attention projections: Normal(0, sqrt(2/(d_model+d_k)))
 """
@@ -16,7 +21,7 @@ random streams are not the same):
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -70,12 +75,34 @@ def layer_norm(p: Params, x, eps: float = 1e-5):
 
 
 # ----------------------------------------------------------------- dropout
-def dropout(x, rate: float, train: bool = False):
-    """Inverted dropout; eval mode only in this slice of the port."""
-    if not train or rate <= 0.0:
+def split_generator(gen: Optional[torch.Generator],
+                    n: int) -> List[Optional[torch.Generator]]:
+    """n independent CPU child generators seeded from ``gen`` (the
+    counterpart of ``jax.random.split``); ``None`` gives n ``None``s."""
+    if gen is None:
+        return [None] * n
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen).tolist()
+    return [torch.Generator().manual_seed(int(s)) for s in seeds]
+
+
+def rand(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """U[0, 1) f32 of ``shape`` drawn on ``device`` by a generator there,
+    seeded from the CPU generator ``gen``."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    return torch.rand(shape, device=device,
+                      generator=torch.Generator(device=device).manual_seed(
+                          seed))
+
+
+def dropout(x, rate: float, train: bool = False,
+            generator: Optional[torch.Generator] = None):
+    """Inverted dropout (torch semantics).  No-op in eval, at rate 0, or
+    without a generator."""
+    if not train or generator is None or rate <= 0.0:
         return x
-    raise NotImplementedError("train-mode dropout comes with the training "
-                              "slice of the port")
+    keep = rand(generator, x.shape, x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
 
 
 # ------------------------------------------------------- feed-forward MLPs
@@ -85,10 +112,14 @@ def feed_forward_init(gen: torch.Generator, dims: Sequence[int],
                        for i in range(len(dims) - 1)]}
 
 
-def feed_forward(p: Params, x):
+def feed_forward(p: Params, x, *, generator=None, drop_rate: float = 0.0,
+                 train: bool = False):
     layers = p["layers"]
     for lp in layers[:-1]:
         x = tanh(linear(lp, x))
+        if drop_rate > 0.0:
+            generator, gd = split_generator(generator, 2)
+            x = dropout(x, drop_rate, train, gd)
     return linear(layers[-1], x)
 
 
@@ -100,12 +131,16 @@ def pff_init(gen: torch.Generator, dims: Sequence[int], use_bias: bool = True,
     return p
 
 
-def pff(p: Params, x, *, residual: bool = False):
-    """tanh-MLP, then (iff dims[0] == dims[-1]) residual add and LayerNorm."""
+def pff(p: Params, x, *, residual: bool = False, generator=None,
+        drop_rate: float = 0.0, train: bool = False):
+    """tanh-MLP with dropout between layers, then (iff dims[0] == dims[-1])
+    residual add and LayerNorm."""
     out = x
     layers = p["layers"]
     for lp in layers[:-1]:
         out = tanh(linear(lp, out))
+        generator, gd = split_generator(generator, 2)
+        out = dropout(out, drop_rate, train, gd)
     out = linear(layers[-1], out)
     if layers[0]["w"].shape[0] == layers[-1]["w"].shape[1]:
         if residual:
@@ -132,22 +167,26 @@ def mha_init(gen: torch.Generator, n_head: int, d_model: int, d_k: int,
 
 
 def mha_dynamic(p: Params, x, n_head: int, d_k: int, d_v: int, *,
-                diag_mask: bool = True):
+                diag_mask: bool = True, generator=None,
+                drop_rate: float = 0.0, train: bool = False):
     """Self-excluding (diag-masked) self-attention over one hyperedge.
 
     Pads take part as keys and values: the reference never applies its
     key-pad mask (see ``matcha_tpu/models/modules.py:mha_dynamic``).
     k=2 with the diagonal masked has a closed form and never reaches the
     kernel; every other shape goes to the fused hyperedge attention, which
-    on a CUDA tensor launches the Hopper kernel for any batch size."""
+    on a CUDA tensor launches the Hopper kernel for any batch size.  The
+    output takes dropout ``drop_rate`` in train mode."""
     if diag_mask and x.shape[1] == 2:
         # each row of the softmax has one unmasked key: weight 1 on the other
         # member, so the output is fc1(v_other)
         v = layer_norm(p["ln_v"], x) @ p["wv"].to(x.dtype)
-        return linear(p["fc1"], v.flip(1))
-    return hyperedge_attention(x, pack_ln(p), p["wq"], p["wk"], p["wv"],
-                               p["fc1"]["w"], p["fc1"]["b"], n_head,
-                               diag_mask)
+        out = linear(p["fc1"], v.flip(1))
+    else:
+        out = hyperedge_attention(x, pack_ln(p), p["wq"], p["wk"], p["wv"],
+                                  p["fc1"]["w"], p["fc1"]["b"], n_head,
+                                  diag_mask)
+    return dropout(out, drop_rate, train, generator)
 
 
 def encoder_layer_init(gen: torch.Generator, n_head: int, d_model: int,
@@ -160,9 +199,14 @@ def encoder_layer_init(gen: torch.Generator, n_head: int, d_model: int,
 
 
 def encoder_layer(p: Params, x, non_pad_mask, n_head: int, d_k: int,
-                  d_v: int, *, diag_mask: bool = True):
+                  d_v: int, *, diag_mask: bool = True, generator=None,
+                  train: bool = False):
     """Returns (dynamic, static); static is the unmodified input, as in the
-    reference (Code/Modules.py:611-617).  Eval mode: dropouts are no-ops."""
-    dyn = mha_dynamic(p["mha"], x, n_head, d_k, d_v, diag_mask=diag_mask)
-    dyn = pff(p["pff_n1"], dyn * non_pad_mask, residual=True) * non_pad_mask
+    reference (Code/Modules.py:611-617).  Dropouts: 0.3 after attention fc1,
+    0.4 inside pff_n1."""
+    ga, gp = split_generator(generator, 2)
+    dyn = mha_dynamic(p["mha"], x, n_head, d_k, d_v, diag_mask=diag_mask,
+                      generator=ga, drop_rate=0.3, train=train)
+    dyn = pff(p["pff_n1"], dyn * non_pad_mask, residual=True, generator=gp,
+              drop_rate=0.4, train=train) * non_pad_mask
     return dyn, x

@@ -1,23 +1,32 @@
 """Fused Hyper-SAGNN hyperedge attention: LN -> q/k/v -> diag-masked softmax
 attention -> fc1, for x of shape (E, L, d).
 
-Port of ``matcha_tpu/ops/hyperedge_attention.py`` (forward only).  Three
+Port of ``matcha_tpu/ops/hyperedge_attention.py``.  The forward has three
 functions:
 
   * ``hyperedge_attention_plain`` — the plain PyTorch version.  It follows
     the JAX package's XLA oracle ``_fwd_xla``: q, k, v and the attention
     weights are rounded to x's dtype, scores and the a@v sums run in f32.
   * ``hyperedge_attention_cuda`` — the wrapper of the hand-written Hopper
-    kernel ``csrc/hyperedge_attention_fwd.cu`` (the port of the TPU kernel
-    ``_fwd_kernel_fm`` and its lane-major twin ``_fwd_kernel``).  It rounds
-    where the TPU kernel rounds: q and k to x's dtype, v kept in f32, the
-    attention output to x's dtype before fc1, and the output.  In bf16 the
-    two therefore differ by a few bf16 ulps (tolerance 2e-2 on the card).
+    kernel ``csrc/hyperedge_attention_fwd.cu`` (K1, the port of the TPU
+    kernel ``_fwd_kernel_fm`` and its lane-major twin ``_fwd_kernel``).  It
+    rounds where the TPU kernel rounds: q and k to x's dtype, v kept in f32,
+    the attention output to x's dtype before fc1, and the output.  In bf16
+    the two therefore differ by a few bf16 ulps (tolerance 2e-2 on the card).
   * ``hyperedge_attention`` — the dispatcher.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.  No fallback.
+    version (its backward is autograd of it); a CUDA tensor launches the
+    kernel or raises.  No fallback.
 
-``hyperedge_attention.launches`` counts kernel launches: the wrapper adds one
-where it launches the kernel and nowhere else.
+The backward has two: ``hyperedge_attention_bwd_plain`` (autograd of the
+plain version, the counterpart of ``jax.vjp(_fwd_xla)``) and
+``hyperedge_attention_bwd_cuda``, the wrapper of
+``csrc/hyperedge_attention_bwd.cu`` (K2, the port of ``_bwd_kernel_fm`` /
+``_bwd_kernel``), which ``_FusedAttention.backward`` launches for a CUDA
+tensor.
+
+``hyperedge_attention.launches`` counts K1 launches and
+``hyperedge_attention_bwd_cuda.launches`` K2 launches: each wrapper adds one
+where it launches its kernel and nowhere else.
 
 Semantics match ``models.modules.mha_dynamic``, including the reference's
 never-applied key-pad mask: the softmax runs over all L positions with only
@@ -103,6 +112,54 @@ def hyperedge_attention_cuda(x, ln, wq, wk, wv, fw, fb, n_head: int,
     (64, n_head*64), fw (n_head*64, 64) and fb (64,), all f32 (the master
     params, as the TPU kernel reads them), contiguous and on x's device.
     Raises on anything else."""
+    _check_attention_args(x, ln, wq, wk, wv, fw, fb, n_head)
+    E, L, d = x.shape
+    out = torch.empty_like(x)
+    fn, err_str = _kernel_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), ln.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+                 wv.data_ptr(), fw.data_ptr(), fb.data_ptr(), out.data_ptr(),
+                 E, L, n_head, int(diag_mask),
+                 int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError("hyperedge_attention_fwd kernel launch failed: "
+                           f"{err_str(err).decode()} (cudaError {err})")
+    hyperedge_attention.launches += 1
+    return out
+
+
+def hyperedge_attention_bwd_plain(x, ln, wq, wk, wv, fw, fb, g,
+                                  n_head: int, diag_mask: bool = True):
+    """Plain backward: autograd of ``hyperedge_attention_plain`` (the
+    counterpart of ``jax.vjp(_fwd_xla)``) -> (gx, gln, gwq, gwk, gwv, gfw,
+    gfb), each in its input's dtype."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x, ln, wq, wk, wv, fw, fb)]
+        y = hyperedge_attention_plain(*ins, n_head, diag_mask)
+        return torch.autograd.grad(y, ins, g)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    from matcha_tpu_torch.kernels.build import load_library
+    lib = load_library("hyperedge_attention_bwd")
+    lib.matcha_hyperedge_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.matcha_hyperedge_attention_bwd.restype = ctypes.c_int
+    lib.matcha_hyperedge_attention_bwd_blocks.argtypes = [ctypes.c_int] * 2
+    lib.matcha_hyperedge_attention_bwd_blocks.restype = ctypes.c_int
+    lib.matcha_hyperedge_attention_bwd_slice_floats.argtypes = [ctypes.c_int]
+    lib.matcha_hyperedge_attention_bwd_slice_floats.restype = (
+        ctypes.c_longlong)
+    lib.matcha_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.matcha_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_attention_args(x, ln, wq, wk, wv, fw, fb, n_head):
+    """The argument checks both kernels share; -> hd = n_head * 64."""
     _check(x.is_cuda, "x must be a CUDA tensor")
     _check(x.dtype in (torch.float32, torch.bfloat16),
            f"x must be float32 or bfloat16, got {x.dtype}")
@@ -121,35 +178,72 @@ def hyperedge_attention_cuda(x, ln, wq, wk, wv, fw, fb, n_head: int,
     for name, t in [("x", x)] + [(n, t) for n, (t, _) in shapes.items()]:
         _check(t.is_contiguous(), f"{name} must be contiguous")
         _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    out = torch.empty_like(x)
-    fn, err_str = _kernel_fn()
+    return hd
+
+
+def hyperedge_attention_bwd_cuda(x, ln, wq, wk, wv, fw, fb, g, n_head: int,
+                                 diag_mask: bool = True):
+    """Launch the backward kernel (K2) on ``torch.cuda.current_stream()``.
+
+    Takes the forward's arguments (as ``hyperedge_attention_cuda`` checks
+    them) and g, the cotangent of its output, of x's shape, dtype and
+    device, contiguous.  -> (gx in x's dtype, gln, gwq, gwk, gwv, gfw, gfb in
+    f32).  The weight grads are summed deterministically: each block of the
+    persistent grid adds into its own scratch slice and a second kernel sums
+    the slices in block order."""
+    hd = _check_attention_args(x, ln, wq, wk, wv, fw, fb, n_head)
+    _check(g.shape == x.shape and g.dtype == x.dtype
+           and g.device == x.device,
+           f"g must match x ({tuple(x.shape)}, {x.dtype}), got "
+           f"{tuple(g.shape)}, {g.dtype}")
+    _check(g.is_contiguous(), "g must be contiguous")
+    E, L, d = x.shape
+    lib = _bwd_lib()
     with torch.cuda.device(x.device):
+        n_blocks = lib.matcha_hyperedge_attention_bwd_blocks(E, L)
+        n = lib.matcha_hyperedge_attention_bwd_slice_floats(n_head)
+        gx = torch.empty_like(x)
+        scratch = torch.empty((n_blocks, n), dtype=torch.float32,
+                              device=x.device)
+        grads = torch.empty((n,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), ln.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-                 wv.data_ptr(), fw.data_ptr(), fb.data_ptr(), out.data_ptr(),
-                 E, L, n_head, int(diag_mask),
-                 int(x.dtype == torch.bfloat16), stream)
+        err = lib.matcha_hyperedge_attention_bwd(
+            x.data_ptr(), ln.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+            wv.data_ptr(), fw.data_ptr(), g.data_ptr(), gx.data_ptr(),
+            scratch.data_ptr(), grads.data_ptr(), E, L, n_head,
+            int(diag_mask), int(x.dtype == torch.bfloat16), n_blocks, stream)
     if err != 0:
-        raise RuntimeError("hyperedge_attention_fwd kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
-    hyperedge_attention.launches += 1
-    return out
+        raise RuntimeError("hyperedge_attention_bwd kernel launch failed: "
+                           f"{lib.matcha_cuda_error_string(err).decode()} "
+                           f"(cudaError {err})")
+    hyperedge_attention_bwd_cuda.launches += 1
+    w = d * hd
+    gwq, gwk, gwv, gfw, gln, gfb = torch.split(grads, [w, w, w, w, 6 * d, d])
+    return (gx, gln.view(6, d), gwq.view(d, hd), gwk.view(d, hd),
+            gwv.view(d, hd), gfw.view(hd, d), gfb)
+
+
+hyperedge_attention_bwd_cuda.launches = 0
 
 
 class _FusedAttention(torch.autograd.Function):
-    """The CUDA forward; its backward (the TPU kernel K2) is not ported yet."""
+    """The CUDA forward (K1) whose backward is the CUDA backward (K2).  The
+    inputs are saved and the forward recomputed inside K2, as the JAX
+    package's custom VJP does (``_vjp_fwd`` / ``_vjp_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, ln, wq, wk, wv, fw, fb, n_head, diag_mask):
+        ctx.save_for_backward(x, ln, wq, wk, wv, fw, fb)
+        ctx.n_head, ctx.diag_mask = n_head, diag_mask
         return hyperedge_attention_cuda(x, ln, wq, wk, wv, fw, fb, n_head,
                                         diag_mask)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of the fused hyperedge attention (K2: "
-            "matcha_tpu/ops/hyperedge_attention.py:_bwd_kernel_fm) is not "
-            "ported to CUDA yet")
+        grads = hyperedge_attention_bwd_cuda(*ctx.saved_tensors,
+                                             g.contiguous(), ctx.n_head,
+                                             ctx.diag_mask)
+        return (*grads, None, None)
 
 
 def hyperedge_attention(x, ln, wq, wk, wv, fw, fb, n_head: int,

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+K1 (attention forward), K2 (its backward), K3 (scatter-add) and K4
+(bincount).
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -6,9 +8,11 @@ imports no JAX, so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: f32 with TF32 off differs by summation order only (1e-4).  In
-bf16 the kernel rounds where the TPU kernel rounds (f32 weights, v kept in
-f32) and the plain version where the XLA oracle rounds, so the two differ by
-a few bf16 ulps of outputs up to ~2 (atol = rtol = 2e-2).
+bf16 the attention kernels round where the TPU kernels round (f32 weights, v
+kept in f32) and the plain version where the XLA oracle rounds, so the
+forward outputs differ by a few bf16 ulps of values up to ~2 (atol = rtol =
+2e-2) and the backward's by up to 3e-2 of each gradient's largest entry.  K3
+sums in f32 (1e-5); K4 counts exactly.
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 from matcha_tpu_torch.models.modules import mha_init
 from matcha_tpu_torch.ops import hyperedge_attention as ta
+from matcha_tpu_torch.ops import table_scatter as ts
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -57,12 +62,87 @@ def test_kernel_matches_plain(cuda, dtype, E, L, diag):
                                atol=TOL[dtype])
 
 
+def _max_rel_err(got, ref):
+    """max |got - ref| relative to max |ref|."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
 @pytest.mark.cuda
-def test_backward_names_k2(cuda):
-    x, args = _inputs(cuda, 16, 3, torch.float32)
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        ta.hyperedge_attention(x, *args, 8, True).sum().backward()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,L,diag", [(1037, 5, True), (37, 3, True),
+                                      (500, 4, False), (64, 8, True)])
+def test_k2_matches_plain_autograd(cuda, dtype, E, L, diag):
+    x, args = _inputs(cuda, E, L, dtype)
+    g = torch.tensor(np.random.default_rng(1).standard_normal(x.shape),
+                     dtype=dtype, device=cuda)
+    ins = [t.clone().requires_grad_(True) for t in [x] + args]
+    before = ta.hyperedge_attention_bwd_cuda.launches
+    ta.hyperedge_attention(*ins, 8, diag).backward(g)
+    assert ta.hyperedge_attention_bwd_cuda.launches == before + 1
+    ref = ta.hyperedge_attention_bwd_plain(x, *args, g, 8, diag)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    names = ["gx", "gln", "gwq", "gwk", "gwv", "gfw", "gfb"]
+    for name, t, r in zip(names, ins, ref):
+        assert t.grad.dtype == t.dtype and t.grad.shape == t.shape
+        assert _max_rel_err(t.grad, r) <= tol, name
+
+
+@pytest.mark.cuda
+def test_k2_is_deterministic(cuda):
+    x, args = _inputs(cuda, 3000, 5, torch.bfloat16)
+    g = torch.randn(x.shape, device=cuda).to(torch.bfloat16)
+    a = ta.hyperedge_attention_bwd_cuda(x, *args, g, 8, True)
+    b = ta.hyperedge_attention_bwd_cuda(x, *args, g, 8, True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,n,d", [(114_688, 3068, 64), (1001, 300, 64),
+                                   (3, 5, 16), (0, 7, 64)])
+def test_k3_matches_index_add(cuda, dtype, T, n, d):
+    rng = np.random.default_rng(T + n)
+    g = torch.tensor(rng.standard_normal((T, d)), dtype=dtype, device=cuda)
+    idx = torch.tensor(rng.integers(0, n, T), dtype=torch.int32, device=cuda)
+    before = ts.scatter_add.launches
+    got = ts.scatter_add(g, idx, n)
+    assert ts.scatter_add.launches == before + 1
+    ref = torch.zeros((n, d), device=cuda).index_add_(0, idx.long(),
+                                                      g.float())
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ts.scatter_add(g, idx, n))   # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,n", [(114_688, 3068), (1001, 300), (0, 7),
+                                 (5000, 60_000)])
+def test_k4_matches_bincount(cuda, T, n):
+    idx = torch.tensor(np.random.default_rng(T).integers(0, n, T),
+                       dtype=torch.int32, device=cuda)
+    before = ts.bincount.launches
+    got = ts.bincount(idx, n)
+    assert ts.bincount.launches == before + 1
+    ref = torch.bincount(idx.long(), minlength=n).float()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_table_gather_backward_launches_k3(cuda):
+    rng = np.random.default_rng(3)
+    table = torch.tensor(rng.standard_normal((300, 64)), dtype=torch.bfloat16,
+                         device=cuda, requires_grad=True)
+    idx = torch.tensor(rng.integers(0, 300, 4096), device=cuda)
+    w = torch.randn((4096, 64), device=cuda).to(torch.bfloat16)
+    before = ts.scatter_add.launches
+    (ts.table_gather(table, idx) * w).sum().backward()
+    assert ts.scatter_add.launches == before + 1
+    assert table.grad.dtype == torch.bfloat16
+    ref = ts.scatter_add_plain(w, idx, 300)
+    torch.testing.assert_close(table.grad.float(), ref, rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.cuda

@@ -137,14 +137,19 @@ def test_node_embeddings(tiny_genome, rng):
 
 
 def test_training_paths_raise(tiny_genome, rng):
+    """What the training slice leaves out raises: per-occurrence feature
+    dropout in train mode, and a recon loss with neither a generator nor a
+    chromosome to draw r from."""
     (_, _, _), (tp, tf, td) = _model(tiny_genome, rng)
     x = torch.from_numpy(_batch(rng, tiny_genome.num_nodes))
-    with pytest.raises(NotImplementedError):
-        th.forward(tp, tf, td, x, train=True)
-    with pytest.raises(NotImplementedError):
+    gen = torch.Generator().manual_seed(0)
+    occ = td._replace(feature_dropout_mode="per_occurrence")
+    with pytest.raises(NotImplementedError, match="per_occurrence"):
+        th.forward(tp, tf, occ, x, train=True, generator=gen)
+    with pytest.raises(NotImplementedError, match="per_occurrence"):
+        th.encode_node_table(tp, tf, occ, train=True, generator=gen)
+    with pytest.raises(ValueError, match="generator or r"):
         th.forward(tp, tf, td, x, return_recon=True)
-    with pytest.raises(NotImplementedError):
-        th.encode_node_table(tp, tf, td, train=True)
 
 
 @pytest.mark.parametrize("mode", ["corrcoef-ae", "table"])

@@ -82,10 +82,14 @@ def test_pff(rng, dims, residual, ln):
 
 
 def test_dropout_eval_is_identity(rng):
+    """Eval, rate 0 and a missing generator (the JAX package's None key)
+    are identities; train-mode statistics are in
+    test_torch_forward_buckets.py."""
     x = torch.from_numpy(rng.standard_normal((4, D)).astype(np.float32))
-    assert tm.dropout(x, 0.3, train=False) is x
-    with pytest.raises(NotImplementedError):
-        tm.dropout(x, 0.3, train=True)
+    gen = torch.Generator().manual_seed(0)
+    assert tm.dropout(x, 0.3, train=False, generator=gen) is x
+    assert tm.dropout(x, 0.0, train=True, generator=gen) is x
+    assert tm.dropout(x, 0.3, train=True) is x
 
 
 def _mha(rng, L, E=12):
