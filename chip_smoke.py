@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and training step on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, training step and Trainer.fit on
+one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a GPU
 
@@ -7,11 +8,14 @@ Phases, all in this process; any failure exits non-zero before the last line:
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile every kernel from csrc/ with nvcc (sm_90a), one nvcc per
      source, all at once: K1 (attention forward), K2 (attention backward),
-     K3 (scatter-add) and K4 (bincount).
+     K3 (scatter-add) and K4 (bincount), K5 (phase-1 proposals), K6 (the
+     fused classifier tail, forward and backward).
   3. kernels vs plain: each kernel's wrapper against its plain PyTorch version
      on the card, over the shapes the main paths give it (f32 with TF32 off,
      and bf16), with the tolerances stated below; the Bloom hashes computed
-     on the card against an independent numpy build, bit for bit.
+     on the card against an independent numpy build, bit for bit; K5 bit for
+     bit at k = 1..6; K6 in eval and train mode (the same mask bits on both
+     sides), and its masks' keep shares and seed determinism.
   4. serving end to end at full width: the hg38 1 Mb genome (23 chromosomes,
      3,067 nodes), random weights from a seed at dim 64 / 8 heads in bf16,
      saved as a bundle; run_predict_multiway over 20,000 candidates for each
@@ -25,19 +29,39 @@ Phases, all in this process; any failure exits non-zero before the last line:
   6. training at full width, the configuration of the JAX package's bench.py
      (dim 64, 8 heads, bf16 compute with f32 master params, k = 2..5, 2,048
      positives per k, neg_num 3, Bloom filters from the buckets, alpha 1,
-     beta 0.001, the "merged" token stream): Trainer -> pin_base_buckets ->
-     train_epoch_indexed; one stage-1 step, then a warm-up epoch and a timed
-     epoch of 20 stage-2 steps.  The counts are zeroed just before the timed
-     epoch and read just after: each step must launch K1 x3, K2 x3, K3 x1 and
-     K4 x1.  Losses finite, params changed; a deterministic step (dropout
-     off, the same negatives and recon chromosome) as f32 on the card against
-     f32 on the CPU (the plain path), and as bf16 on the card.
+     beta 0.001, the "merged" token stream, the unfused tail and the "xla"
+     proposals): Trainer -> pin_base_buckets -> train_epoch_indexed; one
+     stage-1 step, then a warm-up epoch and a timed epoch of 10 stage-2
+     steps.  The counts are zeroed just before the timed epoch and read just
+     after: each step must launch K1 x3, K2 x3, K3 x1 and K4 x1.  Losses
+     finite, params changed; a deterministic step (dropout off, the same
+     negatives and recon chromosome) as f32 on the card against f32 on the
+     CPU (the plain path), and as bf16 on the card.
   7. training times: the median step, hyperedges scored per second, the
      step's parts (host clock, synchronised after each, median of 5), the
      host synchronisations of one step (PyTorch's sync debug mode), a
      torch.profiler summary of one step, and K2, K3 and K4 by CUDA events at
      their main-path shapes beside their bounds, their plain versions and,
      for K3 and K4, the one PyTorch call that computes the same function.
+  8. Trainer.fit at full width, this slice's main path: phase 6's
+     configuration with the fused tail on (configure_fuse_tail) and
+     propose_impl="pallas"; stage 1 (1 epoch of 10 steps, no filters), then
+     stage 2 (3 epochs of 10 steps against the filters) with the mixed-size
+     eval after each epoch (10,000 pooled test rows -> 4 batches of 2,048),
+     the best-AUPRC checkpoint, a resume snapshot per epoch and the embedding
+     export.  The counts are zeroed just before stage 2 and read after each
+     epoch: each step must launch K1 x3, K2 x3, K3 x1, K4 x1, K5 x4 and K6
+     forward and backward x1, each eval batch K1 x1, K4 x1 (the recon loss's
+     counts) and K5 x4.  Losses finite, per-k metrics printed; then a fresh
+     Trainer resumes from the epoch-1 snapshot and its epoch 2 must equal the
+     uninterrupted epoch 2.
+  9. times: K5 at each k and K6 forward / backward at the main-path shapes
+     (CUDA events around the wrapper, and the kernels' device time from
+     torch.profiler) beside their bounds and plain versions (and the unfused
+     eager tail), the stage-2 step with the fused tail on / off and the
+     proposals "pallas" / "xla" (in turns; per route also a profiled step,
+     its host synchronisations and the negatives alone), and the fit's
+     epoch and eval walls.
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -46,6 +70,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,11 +89,16 @@ from matcha_tpu_torch.apps.predict_multiway import (parse_interaction_file,
 from matcha_tpu_torch.data.batcher import BucketedBatcher
 from matcha_tpu_torch.genome import GenomeBins
 from matcha_tpu_torch.kernels.build import build
+from matcha_tpu_torch.models import hypersagnn as hs
 from matcha_tpu_torch.models.hypersagnn import (ModelDims,
                                                 build_frozen_tables,
+                                                configure_fuse_tail,
                                                 encode_node_table,
                                                 forward_buckets, init_model)
-from matcha_tpu_torch.models.modules import mha_init, split_generator
+from matcha_tpu_torch.models.modules import (dropout, layer_norm, mha_init,
+                                             pff, split_generator)
+from matcha_tpu_torch.ops import fused_tail as ft
+from matcha_tpu_torch.ops import propose as tp
 from matcha_tpu_torch.ops import table_scatter as ts
 from matcha_tpu_torch.ops.hyperedge_attention import (
     hyperedge_attention, hyperedge_attention_bwd_cuda,
@@ -80,6 +110,7 @@ from matcha_tpu_torch.sampler.negative import ChromTable, sample_negatives
 from matcha_tpu_torch.train.runtime import (Trainer, TrainSettings,
                                             _bucket_bce_and_preds, _leaves,
                                             _sample_all_negatives, _tree_map,
+                                            load_checkpoint,
                                             load_model_bundle,
                                             save_model_bundle)
 
@@ -110,7 +141,21 @@ TOL_PROBA_F32, TOL_PROBA_BF16 = 1e-4, 3e-2
 TOL_K2 = {"float32": 1e-4, "bfloat16": 3e-2}
 # training: positives per k (bench.py's BATCH), steps per epoch, positives
 # per k of the deterministic card-vs-CPU step
-TRAIN_KS, TRAIN_BATCH, TRAIN_STEPS, CHECK_BATCH = (2, 3, 4, 5), 2048, 20, 512
+TRAIN_KS, TRAIN_BATCH, TRAIN_STEPS, CHECK_BATCH = (2, 3, 4, 5), 2048, 10, 512
+# Trainer.fit: stage-2 epochs, test rows per k (pooled 16,000; eval takes
+# 10,000 -> 4 batches of 2,048)
+FIT_EPOCHS, TEST_PER_K, EVAL_SAMPLES = 3, 4_000, 10_000
+# K6 vs plain: both sides round at the same places and draw the same mask
+# bits, so f32 differs by summation order (1e-4 relative to each output's
+# max); in bf16 one rounding flip of an intermediate moves the rest of the
+# chain by a bf16 ulp (2e-2 relative to each output's max, the scale floored
+# at 1e-3 of the largest gradient, as in phase 6)
+TOL_K6 = {"float32": 1e-4, "bfloat16": 2e-2}
+# resume on the card: every kernel of the step is deterministic and the
+# resumed Trainer replays the snapshot's generator state, so epoch 2 should
+# repeat bit for bit; 1e-6 relative leaves room for a library reduction that
+# chose another order
+TOL_RESUME = 1e-6
 # deterministic step: f32 card vs f32 CPU loss (relative) and grads
 # (relative to each gradient's max); bf16 card vs f32 CPU loss (relative)
 TOL_STEP_LOSS_F32, TOL_STEP_GRAD_F32, TOL_STEP_LOSS_BF16 = 1e-5, 1e-4, 2e-2
@@ -337,6 +382,141 @@ def check_bloom(device):
           f"({int(got.sum())} hits)", flush=True)
 
 
+def propose_inputs(device, k, n, seed, T=8):
+    """Phase-1 inputs as the sampler builds them at full width: members on
+    the 3,067 nodes of hg38, at least one corrupted position per row,
+    chromosome-like [lo, hi) ranges, uniforms with the top one on the
+    f32-rounding guard."""
+    rng = np.random.default_rng(seed)
+    orig = np.sort(rng.integers(1, 3_068, size=(n, k)), axis=1)
+    change = rng.random((n, k)) < 0.5
+    change[np.arange(n), rng.integers(0, k, n)] = True
+    lo = rng.integers(1, 2_800, size=(n, k)).astype(np.float32)
+    hi = lo + rng.integers(1, 250, size=(n, k)).astype(np.float32)
+    u = rng.random((T, k, n), dtype=np.float32)
+    u[0, :, :5] = np.nextafter(np.float32(1), np.float32(0))
+    return [torch.tensor(np.ascontiguousarray(a), device=device) for a in
+            (orig.T.astype(np.int32), change.T.astype(np.int32), lo.T, hi.T,
+             u)]
+
+
+def check_propose(device):
+    """Phase 3: K5 against its plain version, bit for bit, at the sampler's
+    shape (n = 2,048 x 3) and a ragged one, for every k its networks
+    cover."""
+    for k in range(1, 7):
+        for n in (6_144, 1_000):
+            args = propose_inputs(device, k, n, seed=SEED + 31 * k + n)
+            for md, S in ((0, 4 if k == 2 else 2), (1, 8)):
+                probe, has = tp.propose_phase1_cuda(*args, min_distance=md,
+                                                    max_probes=S)
+                rp, rh = tp.propose_phase1_plain(*args, min_distance=md,
+                                                 max_probes=S)
+                torch.cuda.synchronize()
+                if not (torch.equal(probe, rp) and torch.equal(has, rh)):
+                    fail(f"K5 differs from its plain version at k={k} n={n} "
+                         f"min_distance={md} S={S}")
+    print("K5 vs plain: k = 1..6, n = 6,144 and 1,000, two (min_distance, "
+          "S) each: probe and has bit-equal ok", flush=True)
+
+
+def tail_inputs(device, T, dtype, seed):
+    """y and h like the attention output and the static stream, and the
+    tail's params at full width (d = 64) with LayerNorms off 1/0."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen) * scale + shift
+    y = r(T, DIM).to(device, dtype)
+    h = torch.tanh(r(T, DIM)).to(device, dtype)
+    ln6 = torch.stack([r(DIM, scale=0.1, shift=s) for s in (1, 0) * 3])
+    params = [ln6, r(DIM, DIM, scale=0.125), r(DIM, scale=0.1),
+              r(DIM, DIM, scale=0.125), r(DIM, scale=0.1),
+              r(DIM, 1, scale=0.3), r(1, scale=0.1)]
+    return y, h, [p.to(device) for p in params]
+
+
+def rel_errs(got, ref) -> list:
+    """Each output's max abs error relative to its max |ref|, the scale
+    floored at 1e-3 of the largest |ref| of all outputs."""
+    top = max(float(r.float().abs().max()) for r in ref)
+    return [float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), 1e-3 * top)
+            for a, b in zip(got, ref)]
+
+
+def check_fused_tail(device) -> dict:
+    """Phase 3: K6 forward and backward against the plain versions at the
+    step's T = 114,688 and a ragged T, f32 and bf16, eval and train mode;
+    -> the worst forward abs error and the worst gy abs error in bf16, and
+    the worst relative error per dtype."""
+    worst = {"fwd_abs_bf16": 0.0, "gy_abs_bf16": 0.0, "float32": 0.0,
+             "bfloat16": 0.0}
+    for T in (114_688, 1_000):
+        for dt in ("float32", "bfloat16"):
+            for train in (False, True):
+                y, h, p = tail_inputs(device, T, getattr(torch, dt),
+                                      SEED + T + len(dt))
+                g = torch.randn((T, 1), generator=torch.Generator()
+                                .manual_seed(T)).to(device)
+                seed = 4242
+                out = ft.fused_tail_fwd_cuda(y, h, *p, seed, 0.3, 0.4, train)
+                ref = ft.fused_tail_plain(y, h, *p, seed, 0.3, 0.4, train)
+                grads = ft.fused_tail_bwd_cuda(y, h, *p, g, seed, 0.3, 0.4,
+                                               train)
+                refs = ft.fused_tail_bwd_plain(y, h, *p, g, seed, 0.3, 0.4,
+                                               train)
+                torch.cuda.synchronize()
+                errs = rel_errs([out, *grads], [ref, *refs])
+                finite = all(bool(torch.isfinite(t).all())
+                             for t in (out, *grads))
+                ok = finite and max(errs) <= TOL_K6[dt]
+                fwd_abs = float((out - ref).abs().max())
+                gy_abs = float((grads[0].float() - refs[0].float()).abs()
+                               .max())
+                print(f"K6 vs plain: T={T} {dt} train={train} fwd max_abs_err"
+                      f"={fwd_abs:.3e} gy max_abs_err={gy_abs:.3e} worst "
+                      f"rel-to-max {max(errs):.3e} (output "
+                      f"{int(np.argmax(errs))}) tol={TOL_K6[dt]} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"K6 disagrees with its plain version at T={T} {dt} "
+                         f"train={train}: {errs}")
+                worst[dt] = max(worst[dt], max(errs))
+                if dt == "bfloat16":
+                    worst["fwd_abs_bf16"] = max(worst["fwd_abs_bf16"],
+                                                fwd_abs)
+                    worst["gy_abs_bf16"] = max(worst["gy_abs_bf16"], gy_abs)
+    y, h, p = tail_inputs(device, 4_096, torch.bfloat16, SEED + 9)
+    g = torch.ones((4_096, 1), device=device)
+    a = ft.fused_tail_bwd_cuda(y, h, *p, g, 5, 0.3, 0.4, True)
+    b = ft.fused_tail_bwd_cuda(y, h, *p, g, 5, 0.3, 0.4, True)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        fail("K6 backward is not deterministic")
+    return worst
+
+
+def check_tail_masks(device):
+    """Phase 3: the K6 masks over 114,688 x 64 = 7.3M draws: keep shares,
+    the same masks for the same seed (in the kernel: the same train-mode
+    logits), other masks for seed + 1."""
+    m0, m1 = ft.tail_masks(SEED + 77, 114_688, DIM, 0.3, 0.4, True, device)
+    k0 = float((m0 > 0).float().mean())
+    k1 = float((m1 > 0).float().mean())
+    y, h, p = tail_inputs(device, 114_688, torch.bfloat16, SEED + 8)
+    a = ft.fused_tail_fwd_cuda(y, h, *p, 77, 0.3, 0.4, True)
+    same = torch.equal(a, ft.fused_tail_fwd_cuda(y, h, *p, 77, 0.3, 0.4,
+                                                 True))
+    other = not torch.equal(a, ft.fused_tail_fwd_cuda(y, h, *p, 78, 0.3,
+                                                      0.4, True))
+    ok = 0.69 <= k0 <= 0.71 and 0.59 <= k1 <= 0.61 and same and other
+    print(f"K6 masks: keep share {k0:.5f} at rate 0.3, {k1:.5f} at rate 0.4 "
+          f"over {m0.numel()} draws; same seed same logits {same}; seed + 1 "
+          f"other logits {other} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the K6 masks fail their checks")
+
+
 def hg38_genome():
     return GenomeBins(HG38_NAMES, HG38, 1_000_000)
 
@@ -440,6 +620,15 @@ def device_profile(fn) -> dict:
                             for n, t, c in top]}
 
 
+def device_ms_per_call(fn, iters=20):
+    """Device time per call of fn from torch.profiler over ``iters`` calls:
+    its kernels alone, without the host work of its wrapper (which CUDA
+    events around a launch-bound call measure instead)."""
+    busy = device_profile(lambda: [fn() for _ in range(iters)])[
+        "device_busy_ms"]
+    return busy / iters if isinstance(busy, float) else busy
+
+
 def profile_scoring(params, frozen, dims, samples) -> dict:
     """torch.profiler over one predict_proba call."""
     return device_profile(
@@ -450,7 +639,10 @@ def profile_scoring(params, frozen, dims, samples) -> dict:
 def launch_counts() -> dict:
     return {"K1": hyperedge_attention.launches,
             "K2": hyperedge_attention_bwd_cuda.launches,
-            "K3": ts.scatter_add.launches, "K4": ts.bincount.launches}
+            "K3": ts.scatter_add.launches, "K4": ts.bincount.launches,
+            "K5": tp.propose_phase1.launches,
+            "K6_fwd": ft.fused_tail_fwd_cuda.launches,
+            "K6_bwd": ft.fused_tail_bwd_cuda.launches}
 
 
 def zero_launch_counts():
@@ -458,16 +650,36 @@ def zero_launch_counts():
     hyperedge_attention_bwd_cuda.launches = 0
     ts.scatter_add.launches = 0
     ts.bincount.launches = 0
+    tp.propose_phase1.launches = 0
+    ft.fused_tail_fwd_cuda.launches = 0
+    ft.fused_tail_bwd_cuda.launches = 0
+
+
+def step_counts(fused: bool, pallas: bool) -> dict:
+    """One training step's launches: K1 and K2 once per k >= 3, K3 and K4
+    once, K5 once per k with the "pallas" proposals against filters, K6
+    forward and backward once with the fused tail."""
+    n_attn = sum(1 for k in TRAIN_KS if k >= 3)
+    return {"K1": n_attn, "K2": n_attn, "K3": 1, "K4": 1,
+            "K5": len(TRAIN_KS) if pallas else 0,
+            "K6_fwd": int(fused), "K6_bwd": int(fused)}
 
 
 def check_counts(counts: dict, steps: int, what: str):
-    """Each step launches K1 and K2 once per k >= 3, K3 and K4 once."""
-    n_attn = sum(1 for k in TRAIN_KS if k >= 3)
-    want = {"K1": n_attn * steps, "K2": n_attn * steps, "K3": steps,
-            "K4": steps}
+    """Phase 6's path: the unfused tail and the "xla" proposals."""
+    want = {k: v * steps for k, v in step_counts(False, False).items()}
     print(f"{what}: launches {counts} (expected {want})", flush=True)
     if counts != want:
         fail(f"{what} launched {counts}, expected {want}")
+
+
+def set_fuse_tail(on: bool):
+    """Set the fused-tail gate for the next phase.  The gate refuses to
+    flip once read, so that one training run never mixes the two tails;
+    each phase here builds its own Trainers, so the gate is cleared between
+    phases (never inside a run) and set anew."""
+    hs._FUSE_TAIL = None
+    configure_fuse_tail(on)
 
 
 def random_buckets(genome, rng, n_edges):
@@ -731,7 +943,8 @@ def train_phase(genome, device, card) -> dict:
     print(json.dumps(metrics), flush=True)
     print(json.dumps({"metric": "train_step_profile", **trace,
                       "card": card}), flush=True)
-    return {"counts": counts, "step_check": step_check}
+    return {"counts": counts, "step_check": step_check,
+            "problem": (dims, params, frozen, buckets, blooms, table)}
 
 
 def time_training_kernels(device, card) -> dict:
@@ -778,6 +991,322 @@ def time_training_kernels(device, card) -> dict:
     return out
 
 
+def scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def added(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def eval_counts(with_filters: bool) -> dict:
+    """One eval batch's launches: K1 once (the padded forward, L = 5), K4
+    once (the recon loss's counts), K5 once per k against filters."""
+    return {"K1": 1, "K2": 0, "K3": 0, "K4": 1,
+            "K5": len(TRAIN_KS) if with_filters else 0, "K6_fwd": 0,
+            "K6_bwd": 0}
+
+
+def same(a: dict, b: dict, keys=("bce", "recon")) -> float:
+    """Largest relative difference of two epoch results' losses."""
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in keys)
+
+
+def fit_phase(problem, genome, card) -> dict:
+    """Phase 8: Trainer.fit at full width with the fused tail and the
+    "pallas" proposals (stage 1, then stage 2 with eval, checkpoints and
+    the embedding export), its launches per epoch, and a resume from the
+    epoch-1 snapshot; -> the stage-2 launch counts, the walls and the
+    results."""
+    set_fuse_tail(True)
+    dims, params, frozen, buckets, blooms, table = problem
+    test = random_buckets(genome, np.random.default_rng(SEED + 12),
+                          TEST_PER_K)
+    common = dict(neg_num=3, max_trials=8, token_stream="merged",
+                  propose_impl="pallas")
+    fit_kw = dict(batch_size=TRAIN_BATCH, num_batch_per_iter=TRAIN_STEPS,
+                  seed=SEED)
+    n_eval = EVAL_SAMPLES // TRAIN_BATCH
+    marks = []
+
+    def log(msg):
+        marks.append((msg, time.perf_counter(), launch_counts()))
+        print(msg, flush=True)
+
+    # stage 1: alpha 0 / beta 1, no filters
+    s1 = Trainer(params, frozen, dims, table,
+                 TrainSettings(alpha=0.0, beta=1.0, **common), seed=SEED)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    h1 = s1.fit(buckets, test, epochs=1, log=log, **fit_kw)
+    stage1_s = time.perf_counter() - t0
+    want1 = added(scaled(step_counts(True, False), TRAIN_STEPS),
+                  scaled(eval_counts(False), n_eval))
+    got1 = launch_counts()
+    print(f"fit stage 1: launches {got1} (expected {want1})", flush=True)
+    if got1 != want1:
+        fail(f"fit stage 1 launched {got1}, expected {want1}")
+    p1 = _tree_map(lambda t: t.detach().clone(), s1.params)
+
+    # stage 2, the main path's run: counts zeroed just before, read after
+    # every epoch (at its valid line)
+    tmp = tempfile.mkdtemp()
+    ck = os.path.join(tmp, "model.chkpt")
+    emb = os.path.join(tmp, "embeddings.npy")
+    s2 = TrainSettings(alpha=1.0, beta=0.001, **common)
+    trainer = Trainer(p1, frozen, dims, table, s2, blooms=blooms,
+                      seed=SEED + 1)
+    eval_walls = []
+    eval_epoch = trainer.eval_epoch
+
+    def timed_eval(*args, **kw):
+        """eval_epoch under a host clock (it ends in its result fetch)"""
+        t = time.perf_counter()
+        res = eval_epoch(*args, **kw)
+        eval_walls.append(time.perf_counter() - t)
+        return res
+    trainer.eval_epoch = timed_eval
+    marks.clear()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit(buckets, test, epochs=FIT_EPOCHS, log=log,
+                       checkpoint_path=ck,
+                       resume_path=os.path.join(tmp, "resume_a.snap"),
+                       embeddings_path=emb, **fit_kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want_epoch = added(scaled(step_counts(True, True), TRAIN_STEPS),
+                       scaled(eval_counts(True), n_eval))
+    valid = [(t, c) for m, t, c in marks if "] valid bce" in m]
+    prev_t, prev_c = t0, {k: 0 for k in counts}
+    epoch_walls = []
+    for i, (t, c) in enumerate(valid):
+        got = {k: c[k] - prev_c[k] for k in c}
+        print(f"fit stage 2 epoch {i}: launches {got} (expected "
+              f"{want_epoch})", flush=True)
+        if got != want_epoch:
+            fail(f"fit stage-2 epoch {i} launched {got}, expected "
+                 f"{want_epoch}")
+        epoch_walls.append(t - prev_t)
+        prev_t, prev_c = t, c
+    if len(hist) != FIT_EPOCHS or len(valid) != FIT_EPOCHS:
+        fail(f"fit ran {len(hist)} epochs, expected {FIT_EPOCHS}")
+    for i, h in enumerate(h1 + hist):
+        vals = [h[p][k] for p in ("train", "valid") for k in ("bce",
+                                                              "recon")]
+        if not np.isfinite(vals).all():
+            fail(f"fit epoch results are not finite: {vals}")
+        if set(h["valid"]["metrics"]) != {"all", *TRAIN_KS}:
+            fail(f"fit valid metrics miss a size: {h['valid']['metrics']}")
+    best = load_checkpoint(ck, full=True,
+                           device=_leaves(trainer.params)[0].device)
+    if not all(torch.equal(a, b) for a, b in zip(_leaves(best["params"]),
+                                                 _leaves(trainer.params))):
+        fail("the params after fit are not the best checkpoint's")
+    emb_shape = np.load(emb).shape
+    if emb_shape != (genome.num_nodes, DIM):
+        fail(f"embeddings of shape {emb_shape}")
+
+    # resume: a fresh Trainer from the same stage-1 params runs epochs 0-1
+    # with snapshots, another resumes from the epoch-1 snapshot
+    snap = os.path.join(tmp, "resume_b.snap")
+    quiet = lambda msg: None                                   # noqa: E731
+    hb = Trainer(p1, frozen, dims, table, s2, blooms=blooms,
+                 seed=SEED + 1).fit(buckets, test, epochs=2, log=quiet,
+                                    resume_path=snap, **fit_kw)
+    hc = Trainer(p1, frozen, dims, table, s2, blooms=blooms,
+                 seed=SEED + 1).fit(buckets, test, epochs=FIT_EPOCHS,
+                                    log=quiet, resume_path=snap, resume=True,
+                                    **fit_kw)
+    diffs = {"epochs_0_1_rerun": max(same(a[p], b[p]) for a, b in
+                                     zip(hist[:2], hb)
+                                     for p in ("train", "valid")),
+             "epoch_2_resumed": max(same(hist[2][p], hc[0][p])
+                                    for p in ("train", "valid"))}
+    shutil.rmtree(tmp)
+    print(f"fit resume: {len(hc)} epoch run after the epoch-1 snapshot; "
+          f"largest relative loss difference {json.dumps(diffs)} (tol "
+          f"{TOL_RESUME})", flush=True)
+    if len(hc) != 1 or max(diffs.values()) > TOL_RESUME:
+        fail("the resumed epoch 2 differs from the uninterrupted one")
+
+    result = {
+        "metric": "fit_stage2", "epochs": FIT_EPOCHS,
+        "steps_per_epoch": TRAIN_STEPS, "eval_batches": n_eval,
+        "stage1_s": stage1_s, "stage2_fit_s": fit_s,
+        "epoch_wall_s": epoch_walls, "eval_wall_s": eval_walls,
+        "train_elapsed_s": [h["train"]["elapsed"] for h in hist],
+        "train_hyperedges_per_s": [h["train"]["hyperedges_per_sec"]
+                                   for h in hist],
+        "fallback_bloom_rate": [h["train"]["fallback_bloom_rate"]
+                                for h in hist],
+        "fallback_orig_rate": [h["train"]["fallback_orig_rate"]
+                               for h in hist],
+        "valid": [{str(k): {m: v[m] for m in ("auroc", "auprc")}
+                   for k, v in h["valid"]["metrics"].items()} for h in hist],
+        "train": [{str(k): {m: v[m] for m in ("auroc", "auprc")}
+                   for k, v in h["train"]["metrics"].items()} for h in hist],
+        "best_epoch": best["epoch"], "resume": diffs, "card": card}
+    print(json.dumps(result), flush=True)
+    return {"counts": counts, "result": result}
+
+
+def k5_bytes(args, S: int, md: int) -> int:
+    """Bytes K5 needs for this run's data: orig and change whole, lo and hi
+    at the changed members, u at the changed members for the rounds up to
+    each row's S-th valid candidate (the kernel stops there), probe and has
+    written once."""
+    orig, change, lo, hi, u = args
+    k, n = orig.shape
+    T = u.shape[0]
+    need = torch.full((n,), T, device=orig.device)
+    for t in range(T, S - 1, -1):        # the smallest t that finds S wins
+        _, has = tp.propose_phase1_plain(orig, change, lo, hi, u[:t],
+                                         min_distance=md, max_probes=S)
+        need = torch.where(has[S - 1], torch.full_like(need, t), need)
+    n_changed = change.sum(dim=0)
+    return (4 * 2 * k * n + 4 * 2 * int(n_changed.sum())
+            + 4 * int((n_changed * need).sum()) + S * k * n * 4 + S * n)
+
+
+def unfused_tail(y, h, params, gens, train=True):
+    """The eager tail forward_buckets runs with the fused tail off: the
+    attention output's dropout, pff_n1, the LayerNorms, (dyn - static)^2
+    and the classifier."""
+    ln6, w1, b1, w2, b2, wc, bc = params
+    pn = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}],
+          "ln": {"g": ln6[0], "b": ln6[1]}}
+    g_a, g_p = gens
+    dyn = pff(pn, dropout(y, 0.3, train, g_a), residual=True, generator=g_p,
+              drop_rate=0.4, train=train)
+    out = (layer_norm({"g": ln6[2], "b": ln6[3]}, dyn)
+           - layer_norm({"g": ln6[4], "b": ln6[5]}, h)) ** 2
+    return pff({"layers": [{"w": wc, "b": bc}]}, out).to(torch.float32)
+
+
+def time_new_kernels(device, card) -> dict:
+    """Phase 9: K5 per k and K6 forward / backward by CUDA events at the
+    main-path shapes, beside their bounds from this run's inputs and their
+    plain versions; the unfused eager tail beside K6 as a finding."""
+    out = {}
+    for k in TRAIN_KS:
+        n, S = TRAIN_BATCH * 3, 4 if k == 2 else 2
+        args = propose_inputs(device, k, n, seed=SEED + 50 + k)
+        nbytes = k5_bytes(args, S, 0)
+
+        def k5():
+            return tp.propose_phase1_cuda(*args, min_distance=0,
+                                          max_probes=S)
+        out[f"K5_k{k}"] = {
+            "k": k, "n": n, "T": 8, "S": S, "ms": cuda_ms(k5),
+            "device_ms": device_ms_per_call(k5),
+            "plain_ms": cuda_ms(lambda: tp.propose_phase1_plain(
+                *args, min_distance=0, max_probes=S), iters=5),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "mbytes": nbytes / 1e6}
+    T, d = 4 * TRAIN_BATCH * sum(TRAIN_KS), DIM
+    y, h, p = tail_inputs(device, T, torch.bfloat16, SEED + 60)
+    g = torch.randn((T, 1), device=device)
+    param_bytes = 4 * (6 * d + 2 * d * d + 3 * d + 1)
+    fwd_bytes = 2 * T * d * 2 + T * 4 + param_bytes
+    bwd_bytes = 4 * T * d * 2 + T * 4 + 2 * param_bytes
+    for name, fn, plain, nbytes, flops in (
+            ("K6_fwd",
+             lambda: ft.fused_tail_fwd_cuda(y, h, *p, 99, 0.3, 0.4, True),
+             lambda: ft.fused_tail_plain(y, h, *p, 99, 0.3, 0.4, True),
+             fwd_bytes, 4 * T * d * d),
+            ("K6_bwd",
+             lambda: ft.fused_tail_bwd_cuda(y, h, *p, g, 99, 0.3, 0.4, True),
+             lambda: ft.fused_tail_bwd_plain(y, h, *p, g, 99, 0.3, 0.4,
+                                             True),
+             bwd_bytes, 12 * T * d * d)):
+        b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+        out[name] = {"T": T, "d": d, "dtype": "bfloat16", "train": True,
+                     "ms": cuda_ms(fn), "device_ms": device_ms_per_call(fn),
+                     "plain_ms": cuda_ms(plain, iters=5),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
+    yg, hg = (t.clone().requires_grad_(True) for t in (y, h))
+    pg = [t.clone().requires_grad_(True) for t in p]
+    gen = torch.Generator().manual_seed(SEED)
+
+    def unfused_step():
+        unfused_tail(yg, hg, pg, split_generator(gen, 2)).backward(g)
+
+    def fused_step():
+        ft.fused_tail(yg, hg, *pg, 99, 0.3, 0.4, True).backward(g)
+    out["tail_finding"] = {
+        "T": T, "unfused_fwd_ms": cuda_ms(lambda: unfused_tail(
+            y, h, p, split_generator(gen, 2)), iters=10),
+        "unfused_fwd_bwd_ms": cuda_ms(unfused_step, iters=10),
+        "fused_fwd_bwd_ms": cuda_ms(fused_step, iters=10)}
+    print(json.dumps({"metric": "new_kernels", **out, "card": card}),
+          flush=True)
+    return out
+
+
+def step_ab(problem, card) -> dict:
+    """Phase 9: the stage-2 step (synchronised, host clock) with the fused
+    tail on / off and the proposals "pallas" / "xla", in turns (ABCD DCBA),
+    medians of 12 steps each."""
+    dims, params, frozen, buckets, blooms, table = problem
+    trainer = Trainer(params, frozen, dims, table,
+                      TrainSettings(alpha=1.0, beta=0.001, neg_num=3,
+                                    max_trials=8, token_stream="merged"),
+                      blooms=blooms, seed=SEED + 3)
+    dev = _leaves(trainer.params)[0].device
+    idx = torch.as_tensor(np.random.default_rng(SEED + 7).permutation(
+        len(buckets[2][0]))[:TRAIN_BATCH], device=dev)
+    batch = {k: (torch.as_tensor(e, device=dev)[idx],
+                 torch.as_tensor(w, device=dev)[idx])
+             for k, (e, w) in buckets.items()}
+    combos = [(True, "pallas"), (False, "pallas"), (True, "xla"),
+              (False, "xla")]
+    times = {c: [] for c in combos}
+    for order in (combos, combos[::-1]):
+        for fused, impl in order:
+            set_fuse_tail(fused)
+            trainer.settings = trainer.settings._replace(propose_impl=impl)
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            for _ in range(6):
+                t0 = time.perf_counter()
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+                times[(fused, impl)].append((time.perf_counter() - t0) * 1e3)
+    set_fuse_tail(True)
+    out = {f"{'fused' if f else 'unfused'}_tail_{impl}_ms":
+           statistics.median(v) for (f, impl), v in times.items()}
+    out["runs"] = {f"{'fused' if f else 'unfused'}_tail_{impl}": v
+                   for (f, impl), v in times.items()}
+    # where the two proposal routes differ, fused tail on: one profiled
+    # step, the host synchronisations of one step, and the negatives alone
+    # (all four sizes, synchronised, median of 6)
+    for impl in ("pallas", "xla"):
+        trainer.settings = trainer.settings._replace(propose_impl=impl)
+        prof = device_profile(lambda: trainer.train_step(batch))
+        neg_ms = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            _sample_all_negatives(trainer.chrom_table, trainer.blooms,
+                                  trainer.settings, batch,
+                                  split_generator(trainer.generator, 1)[0])
+            torch.cuda.synchronize()
+            neg_ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"{impl}_detail"] = {
+            "negatives_ms": statistics.median(neg_ms),
+            "host_syncs_per_step": host_syncs(
+                lambda: trainer.train_step(batch)),
+            **{key: prof[key] for key in ("wall_ms_profiled",
+                                          "device_busy_ms",
+                                          "device_idle_share",
+                                          "device_kernel_launches")}}
+    print(json.dumps({"metric": "stage2_step_ab", **out, "card": card}),
+          flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -800,6 +1329,9 @@ def main():
     worst_bwd = check_backward(device)
     worst_scatter = check_scatter_bincount(device)
     check_bloom(device)
+    check_propose(device)
+    worst_tail = check_fused_tail(device)
+    check_tail_masks(device)
 
     # 4. serving end to end, full width
     genome = hg38_genome()
@@ -881,17 +1413,26 @@ def main():
         "library_note": "no single PyTorch call computes K1 (LN + q/k/v + "
                         "attention + fc1)", "card": card}), flush=True)
 
-    # 6. training at full width, 7. training times
+    # 6. training at full width, 7. training times (the unfused tail)
+    set_fuse_tail(False)
     train = train_phase(genome, device, card)
     tk = time_training_kernels(device, card)
-    counts = train["counts"]
+
+    # 8. Trainer.fit, the main path; 9. its kernels' and step's times
+    fit = fit_phase(train["problem"], genome, card)
+    counts = fit["counts"]
+    nk = time_new_kernels(device, card)
+    step_ab(train["problem"], card)
 
     k2 = tk["K2_L5"]
+    k5 = nk["K5_k5"]
+    step_path = train["counts"]
     print(json.dumps({"kernels": [
         {"name": "hyperedge_attention_fwd", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/hyperedge_attention_fwd.cu",
          "replaces": "matcha_tpu/ops/hyperedge_attention.py:454",
          "launches": counts["K1"], "launches_serving": launches,
+         "launches_step_path": step_path["K1"],
          "max_abs_err": worst["bfloat16"],
          "max_abs_err_f32": worst["float32"], "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -899,7 +1440,7 @@ def main():
         {"name": "hyperedge_attention_bwd", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/hyperedge_attention_bwd.cu",
          "replaces": "matcha_tpu/ops/hyperedge_attention.py:672",
-         "launches": counts["K2"],
+         "launches": counts["K2"], "launches_step_path": step_path["K2"],
          "max_abs_err": worst_bwd["bfloat16"]["gx_abs"],
          "max_err_rel_to_max": worst_bwd["bfloat16"]["rel_to_max"],
          "max_err_rel_to_max_f32": worst_bwd["float32"]["rel_to_max"],
@@ -909,17 +1450,48 @@ def main():
         {"name": "scatter_add", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",
          "replaces": "matcha_tpu/ops/table_scatter.py:62",
-         "launches": counts["K3"], "max_abs_err": worst_scatter,
+         "launches": counts["K3"], "launches_step_path": step_path["K3"],
+         "max_abs_err": worst_scatter,
          "ms": tk["K3"]["ms"], "plain_ms": tk["K3"]["plain_ms"],
          "bound_ms": tk["K3"]["bound_ms"], "bound_by": "bytes",
          "library_ms": tk["K3"]["library_ms"]},
         {"name": "bincount", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",
          "replaces": "matcha_tpu/ops/table_scatter.py:112",
-         "launches": counts["K4"], "max_abs_err": 0.0,
+         "launches": counts["K4"], "launches_step_path": step_path["K4"],
+         "max_abs_err": 0.0,
          "ms": tk["K4"]["ms"], "plain_ms": tk["K4"]["plain_ms"],
          "bound_ms": tk["K4"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": tk["K4"]["library_ms"]}]}), flush=True)
+         "library_ms": tk["K4"]["library_ms"]},
+        {"name": "propose_phase1", "route": "cuda",
+         "source": "matcha_tpu_torch/csrc/propose.cu",
+         "replaces": "matcha_tpu/ops/propose.py:94",
+         "launches": counts["K5"], "max_abs_err": 0.0,
+         "ms": k5["ms"], "device_ms": k5["device_ms"],
+         "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "fused_tail_fwd", "route": "cuda",
+         "source": "matcha_tpu_torch/csrc/fused_tail.cu",
+         "replaces": "matcha_tpu/ops/fused_tail.py:240",
+         "launches": counts["K6_fwd"],
+         "max_abs_err": worst_tail["fwd_abs_bf16"],
+         "max_err_rel_to_max_f32": worst_tail["float32"],
+         "ms": nk["K6_fwd"]["ms"], "device_ms": nk["K6_fwd"]["device_ms"],
+         "plain_ms": nk["K6_fwd"]["plain_ms"],
+         "bound_ms": nk["K6_fwd"]["bound_ms"],
+         "bound_by": nk["K6_fwd"]["bound_by"], "library_ms": None},
+        {"name": "fused_tail_bwd", "route": "cuda",
+         "source": "matcha_tpu_torch/csrc/fused_tail.cu",
+         "replaces": "matcha_tpu/ops/fused_tail.py:258",
+         "launches": counts["K6_bwd"],
+         "max_abs_err": worst_tail["gy_abs_bf16"],
+         "max_err_rel_to_max": worst_tail["bfloat16"],
+         "ms": nk["K6_bwd"]["ms"], "device_ms": nk["K6_bwd"]["device_ms"],
+         "plain_ms": nk["K6_bwd"]["plain_ms"],
+         "bound_ms": nk["K6_bwd"]["bound_ms"],
+         "bound_by": nk["K6_bwd"]["bound_by"], "library_ms": None}]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,13 +12,16 @@ embeddings of one random chromosome's complement, x100.
 Parameters are the JAX package's param tree with tensors as leaves (see
 ``interop.py``).  Train mode draws its dropout masks from an explicit CPU
 ``torch.Generator`` (see ``models/modules.py``); the recon loss's chromosome
-is drawn from it on the host, or passed in as ``recon_chrom``.  Not ported
-yet: the ``per_occurrence`` feature-dropout mode, the sharded (n_shards)
-stream layout and the fused classifier tail.
+is drawn from it on the host, or passed in as ``recon_chrom``.  With the
+fused tail on (``configure_fuse_tail`` / ``MATCHA_FUSE_TAIL``),
+``forward_buckets`` runs the classifier tail through ``ops/fused_tail.py``
+(K6 on a CUDA tensor).  Not ported yet: the ``per_occurrence``
+feature-dropout mode and the sharded (n_shards) stream layout.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,6 +34,7 @@ from matcha_tpu_torch.models.modules import (dropout, encoder_layer,
                                              layer_norm_init, linear,
                                              linear_init, mha_dynamic, pff,
                                              pff_init, rand, split_generator)
+from matcha_tpu_torch.ops.fused_tail import fused_tail, pack_ln6
 from matcha_tpu_torch.ops.table_scatter import bincount, table_gather
 
 
@@ -63,6 +67,28 @@ class FrozenTables(NamedTuple):
     inter_z: torch.Tensor               # (N+1, N) row-z-scored inter contacts
     chrom_of_node: torch.Tensor         # (N+1,) int32
     chrom_bounds: torch.Tensor          # (C, 2) node-id [start, end)
+
+
+_FUSE_TAIL: Optional[bool] = None
+
+
+def _fuse_tail_enabled() -> bool:
+    """MATCHA_FUSE_TAIL, read once per process, so a run never mixes the
+    fused and the unfused tail (their dropouts sit in different places)."""
+    global _FUSE_TAIL
+    if _FUSE_TAIL is None:
+        _FUSE_TAIL = os.environ.get("MATCHA_FUSE_TAIL", "0") == "1"
+    return _FUSE_TAIL
+
+
+def configure_fuse_tail(enabled: bool) -> None:
+    """The programmatic form of MATCHA_FUSE_TAIL.  Set it before the first
+    forward: flipping the gate after it has been read raises."""
+    global _FUSE_TAIL
+    if _FUSE_TAIL is not None and _FUSE_TAIL != bool(enabled):
+        raise RuntimeError("fuse_tail gate already consulted with value "
+                           f"{_FUSE_TAIL}; set it before the first forward")
+    _FUSE_TAIL = bool(enabled)
 
 
 # --------------------------------------------------------------------- init
@@ -389,6 +415,11 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     k with the pad token's h and run as one attention (pads take part as
     keys, the reference's training-time semantics).
 
+    With the fused tail on and ``dims.diag_mask``, the attention output's
+    dropout moves into the fused tail (K6), whose masks come from one seed
+    drawn on the host from the tail's generator; the tail trains only with
+    a generator, as the unfused tail's dropouts do.
+
     -> {k: (n_k, 1) logits}, and the recon loss with ``return_recon``."""
     if attention_mode not in ("per-k", "pad-max"):
         raise ValueError(f"attention_mode must be 'per-k' or 'pad-max', "
@@ -411,21 +442,36 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
 
     gens = split_generator(g_enc, len(ks) + 1)
     mha = params["encoder"]["mha"]
+    use_fused_tail = _fuse_tail_enabled() and dims.diag_mask
+    attn_drop = 0.0 if use_fused_tail else 0.3
     if attention_mode == "pad-max" and len(shapes) > 1:
         dyn = _attention_pad_max(params, dims, h, shapes, gens, train,
-                                 combined)
+                                 combined, attn_drop)
     else:
         dyn = torch.cat([
             mha_dynamic(mha, hk.reshape(n_k, k, -1), dims.n_head, dims.dim,
                         dims.dim, diag_mask=dims.diag_mask, generator=gen,
-                        drop_rate=0.3, train=train).reshape(n_k * k, -1)
+                        drop_rate=attn_drop, train=train).reshape(n_k * k, -1)
             for (n_k, k), hk, gen in zip(shapes, h.split(tok_sizes), gens)])
-    dyn = pff(params["encoder"]["pff_n1"], dyn, residual=True,
-              generator=gens[-1], drop_rate=0.4, train=train)
-    dynamic = layer_norm(params["ln_dynamic"], dyn)
-    static = layer_norm(params["ln_static"], h)
-    out = (dynamic - static) ** 2 if dims.diag_mask else dynamic
-    per_pos = pff(params["pff_classifier"], out).to(torch.float32)  # (T, 1)
+    if use_fused_tail:
+        pn = params["encoder"]["pff_n1"]
+        cl = params["pff_classifier"]["layers"][0]
+        ft_train = train and gens[-1] is not None
+        seed = (int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gens[-1]))
+                if ft_train else 0)
+        per_pos = fused_tail(
+            dyn, h, pack_ln6(pn["ln"], params["ln_dynamic"],
+                             params["ln_static"]),
+            pn["layers"][0]["w"], pn["layers"][0]["b"], pn["layers"][1]["w"],
+            pn["layers"][1]["b"], cl["w"], cl["b"], seed, 0.3, 0.4,
+            ft_train)                                            # (T, 1) f32
+    else:
+        dyn = pff(params["encoder"]["pff_n1"], dyn, residual=True,
+                  generator=gens[-1], drop_rate=0.4, train=train)
+        dynamic = layer_norm(params["ln_dynamic"], dyn)
+        static = layer_norm(params["ln_static"], h)
+        out = (dynamic - static) ** 2 if dims.diag_mask else dynamic
+        per_pos = pff(params["pff_classifier"], out).to(torch.float32)
 
     logits = {k: pp.reshape(n_k, k).mean(dim=-1, keepdim=True)
               for k, (n_k, _), pp in zip(ks, shapes,
@@ -436,7 +482,8 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     return logits
 
 
-def _attention_pad_max(params, dims, h, shapes, gens, train, combined):
+def _attention_pad_max(params, dims, h, shapes, gens, train, combined,
+                       drop_rate=0.3):
     """pad-max attention over the merged stream (see forward_buckets):
     k = 2 closed form; k >= 3 padded to L with the pad token's h (node id 0:
     zero embedding + attribute row 0, through next_w) and run as one
@@ -452,8 +499,8 @@ def _attention_pad_max(params, dims, h, shapes, gens, train, combined):
         if k == 2:
             dyn_parts[i] = mha_dynamic(
                 mha, hk, dims.n_head, dims.dim, dims.dim,
-                diag_mask=dims.diag_mask, generator=gens[i], drop_rate=0.3,
-                train=train).reshape(n_k * k, -1)
+                diag_mask=dims.diag_mask, generator=gens[i],
+                drop_rate=drop_rate, train=train).reshape(n_k * k, -1)
         else:
             pad = h_pad[None].expand(n_k, L - k, h.shape[-1]).to(hk.dtype)
             padded.append((i, n_k, k, torch.cat([hk, pad], dim=1)))
@@ -461,7 +508,7 @@ def _attention_pad_max(params, dims, h, shapes, gens, train, combined):
         dynp = mha_dynamic(mha, torch.cat([p[3] for p in padded]),
                            dims.n_head, dims.dim, dims.dim,
                            diag_mask=dims.diag_mask,
-                           generator=gens[padded[0][0]], drop_rate=0.3,
+                           generator=gens[padded[0][0]], drop_rate=drop_rate,
                            train=train)
         for (i, n_k, k, _), dk in zip(padded,
                                       dynp.split([p[1] for p in padded])):

@@ -18,9 +18,11 @@ is left, the condition of the JAX package's while loop).  With no filter
 Random draws come from explicit CPU ``torch.Generator``s (see
 ``models/modules.py``); the streams differ from jax.random's, so the port is
 held to the JAX package exactly where the uniforms are injected (phase 1)
-and by the same invariant and distribution tests elsewhere.  The fused
-phase-1 kernel of the JAX package (``propose_impl="pallas"``, TPU kernel K5)
-is not ported yet.
+and by the same invariant and distribution tests elsewhere.
+``propose_impl="pallas"`` runs phase 1 feature-major through
+``ops/propose.py`` (K5 on a CUDA tensor); its uniforms are drawn (T, k, n),
+so its stream differs from the "xla" branch's and its distribution is the
+same.
 """
 
 from __future__ import annotations
@@ -180,12 +182,7 @@ def sample_negatives_with_stats(
     structurally valid Bloom-hit candidate, ``orig_fallback`` rows that fell
     back to the positive itself, ``rows`` the rows sampled (0-d int32
     tensors on the positives' device)."""
-    if propose_impl == "pallas":
-        raise NotImplementedError(
-            "propose_impl='pallas' is the fused phase-1 kernel (TPU kernel "
-            "K5, matcha_tpu/ops/propose.py:propose_phase1), which is not "
-            "ported to CUDA yet; use propose_impl='xla'")
-    if propose_impl != "xla":
+    if propose_impl not in ("xla", "pallas"):
         raise ValueError(f"propose_impl must be 'xla' or 'pallas', "
                          f"got {propose_impl!r}")
     b, k = positives.shape
@@ -214,11 +211,25 @@ def sample_negatives_with_stats(
 
     T = max(1, min(int(max_trials), 16))
     S = T if max_probes is None else max(1, min(int(max_probes), T))
-    probe, stage_has = _phase1_xla(orig, change, lo, hi,
-                                   rand(g_trial, (T, n, k), dev),
-                                   min_distance, S)
-    acc_stage = stage_has & ~bloom.contains(probe)               # (S, n)
-    chosen, found = _first_accepted(probe, acc_stage, lambda m: m[:, None])
+    if propose_impl == "pallas":
+        if k not in _SORT_NETS:
+            raise ValueError(f"propose_impl='pallas' (the K5 kernel) takes "
+                             f"k <= 6, got k={k}")
+        from matcha_tpu_torch.ops.propose import propose_phase1
+        probe_t, stage_has = propose_phase1(
+            orig.T, change.T, lo.T, hi.T, rand(g_trial, (T, k, n), dev),
+            min_distance=min_distance, max_probes=S)           # (S, k, n)
+        acc_stage = stage_has & ~bloom.contains_cols(probe_t)   # (S, n)
+        chosen_t, found = _first_accepted(probe_t, acc_stage,
+                                          lambda m: m[None, :])
+        chosen = chosen_t.T                                     # (n, k)
+    else:
+        probe, stage_has = _phase1_xla(orig, change, lo, hi,
+                                       rand(g_trial, (T, n, k), dev),
+                                       min_distance, S)
+        acc_stage = stage_has & ~bloom.contains(probe)           # (S, n)
+        chosen, found = _first_accepted(probe, acc_stage,
+                                        lambda m: m[:, None])
     cur_ok = stage_has[0]        # a structurally valid trial exists
 
     for _ in range(max(int(extra_rounds), 0)):

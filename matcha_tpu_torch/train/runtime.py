@@ -9,11 +9,20 @@ positives); stage 2 is alpha = 1, beta = 0.001 against the filters.  The
 indexed epoch (``pin_base_buckets`` + ``train_epoch_indexed``) keeps the
 batcher's base arrays on the card and moves only the host-drawn indices per
 epoch.  PyTorch runs eagerly: an epoch is a Python loop of steps, with no
-host synchronisation inside it except the sampler's phase-2 test.
+host synchronisation inside it except the sampler's phase-2 test; the
+epoch's losses, sampler counters and per-size metrics (computed on the
+predictions' device, ``train/metrics.py``) come back in one fetch.
 
-Not ported yet: ``Trainer.fit``, eval and the per-size metrics, checkpoints
-and resume, the embedding export, the regress task mode and multi-GPU
-meshes.
+``Trainer.fit`` runs one stage: epochs (indexed when the buckets fit the pin
+budget, else the host batcher path), the reference's mixed-size eval after
+each (``eval_epoch``), checkpoints on the best validation AUPRC of the
+largest k, a resume snapshot per epoch (params, AdamW moments, the
+generator's state, epoch and best: a resumed run continues the interrupted
+one exactly), the reload of the best checkpoint at the end and the
+embedding export.  Checkpoints are pickles of numpy arrays and Python
+scalars; their params are the JAX package's tree, so its
+``load_checkpoint`` reads them.  Not ported yet: the overlapped fit
+pipeline, orbax checkpoints, the regress task mode and multi-GPU meshes.
 
 Bundle I/O: ``save_model_bundle`` / ``load_model_bundle``, file for file:
 ``params.pkl`` (the param tree as numpy arrays), ``meta.pkl`` (dims as a
@@ -32,16 +41,21 @@ import numpy as np
 import torch
 
 from matcha_tpu_torch.data.batcher import BucketedBatcher
+from matcha_tpu_torch.device import to_device
 from matcha_tpu_torch.genome import GenomeBins
 from matcha_tpu_torch.interop import params_from_numpy, params_to_numpy
 from matcha_tpu_torch.models.hypersagnn import (FrozenTables, ModelDims,
                                                 build_frozen_tables,
                                                 encode_node_table, forward,
-                                                forward_buckets)
+                                                forward_buckets,
+                                                node_embeddings)
 from matcha_tpu_torch.models.modules import split_generator
 from matcha_tpu_torch.sampler.bloom import DeviceBloomFilter
-from matcha_tpu_torch.sampler.negative import (ChromTable,
+from matcha_tpu_torch.sampler.negative import (ChromTable, sample_negatives,
                                                sample_negatives_with_stats)
+from matcha_tpu_torch.train.metrics import (device_metrics_fn,
+                                            format_metrics,
+                                            metrics_from_device)
 
 
 class TrainSettings(NamedTuple):
@@ -199,6 +213,71 @@ def batch_loss(params, frozen: FrozenTables, dims: ModelDims,
               generator, node_table, train, recon_chrom)
 
 
+def _eval_mixed_loss(params, frozen, dims, table, blooms, settings, ks,
+                     batch, generator, node_table):
+    """One mixed-size eval batch with the reference's eval semantics: rows
+    from the pooled test set, every row padded to the largest size (pads
+    take part as attention keys), negatives of each row within its own size,
+    weighted BCE.  batch: (x (B, L) int32 pad 0, sizes (B,), w (B,)).
+
+    The negatives are sampled per k over the whole batch and each row keeps
+    its own size's (negative row r belongs to positive row r % B).  For a k
+    below L, the rows shorter than k would carry pads into the sampler,
+    never find a valid candidate and keep its re-trial loop running for
+    draws that are discarded; they are replaced by the batch's first row of
+    size k, which changes no kept negative.  One ``forward`` scores every
+    size at once."""
+    x, sizes, w = batch
+    b, L = x.shape
+    neg_num = settings.neg_num
+    g_neg, g_fwd = split_generator(generator, 2)
+    sizes_neg = sizes.repeat(neg_num)
+    neg = x.repeat(neg_num, 1)       # stage 1: copies of the positives
+    if blooms is not None:
+        for gen, k in zip(split_generator(g_neg, len(ks)), ks):
+            rows = x[:, :k]
+            if k < L:
+                first = torch.argmax((sizes == k).to(torch.int32))
+                rows = torch.where((sizes >= k)[:, None], rows, rows[first])
+            neg_k = sample_negatives(
+                gen, rows, table, settings.min_distance, blooms[k],
+                neg_num=neg_num, max_trials=settings.max_trials,
+                extra_rounds=settings.extra_rounds,
+                max_probes=(settings.max_probes_k2 if k == 2
+                            else settings.max_probes),
+                hard_ratio=settings.hard_ratio,
+                chrom_bounds=settings.chrom_bounds,
+                propose_impl=settings.propose_impl)
+            neg_k = torch.nn.functional.pad(neg_k, (0, L - k))
+            neg = torch.where((sizes_neg == k)[:, None], neg_k, neg)
+    x_all = torch.cat([x, neg])
+    logits, recon = forward(params, frozen, dims, x_all, generator=g_fwd,
+                            train=False, return_recon=True,
+                            node_table=node_table)
+    dev = logits.device
+    y = torch.cat([torch.ones(b, device=dev),
+                   torch.zeros(b * neg_num, device=dev)])[:, None]
+    ww = torch.cat([w.reshape(-1).float(),
+                    torch.ones(b * neg_num, device=dev)])[:, None]
+    bce = (ww * torch.nn.functional.binary_cross_entropy_with_logits(
+        logits, y, reduction="none")).mean()
+    return {"bce": bce, "recon": recon,
+            "pred": torch.sigmoid(logits).reshape(-1)}
+
+
+def _fetch(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Several device tensors -> host float64 arrays in one copy (one host
+    synchronisation).  Counts stay exact in float64."""
+    names = list(tensors)
+    flat = [tensors[n].reshape(-1).to(torch.float64) for n in names]
+    host = torch.cat(flat).cpu().numpy()
+    out, i = {}, 0
+    for n, t in zip(names, flat):
+        out[n] = host[i:i + t.numel()].reshape(tuple(tensors[n].shape))
+        i += t.numel()
+    return out
+
+
 def labels_for_batch(batch, settings: TrainSettings):
     """Host-side label and size vectors matching batch_loss's concatenated
     predictions."""
@@ -277,22 +356,33 @@ class Trainer:
 
     def _run_epoch(self, stacked, t0: float):
         """Steps over stacked {k: (edges (S, B, k), weights (S, B))} on the
-        device, then the epoch result (one synchronisation at the end)."""
+        device, then the epoch result: losses, sampler counters and the
+        per-size metrics of the step predictions (computed where they lie),
+        fetched in one synchronisation; ``elapsed`` ends there."""
         steps = next(iter(stacked.values()))[0].shape[0]
         auxs = [self.train_step({k: (e[s], w[s])
                                  for k, (e, w) in stacked.items()})
                 for s in range(steps)]
         aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
-        aux = {k: v.cpu().numpy() for k, v in aux.items()}   # synchronises
+        y, size = labels_for_batch({k: (e[0], w[0]) for k, (e, w) in
+                                    stacked.items()}, self.settings)
+        mfn = device_metrics_fn(y, size)
+        vals = mfn(aux["pred"])
+        host = _fetch({**{k: v for k, v in aux.items() if k != "pred"},
+                       **{f"metric_{g}": v for g, v in vals.items()}})
         elapsed = time.perf_counter() - t0
-        rows = max(int(aux["fallback_rows"].sum()), 1)
-        return {"bce": float(aux["bce"].mean()),
-                "recon": float(aux["recon"].mean()),
+        metrics = metrics_from_device({g: host[f"metric_{g}"] for g in vals},
+                                      mfn.group_sizes, steps)
+        rows = max(int(host["fallback_rows"].sum()), 1)
+        return {"bce": float(host["bce"].mean()),
+                "recon": float(host["recon"].mean()),
+                "metrics": metrics,
                 "fallback_bloom_rate":
-                    float(aux["fallback_bloom"].sum()) / rows,
-                "fallback_orig_rate": float(aux["fallback_orig"].sum()) / rows,
+                    float(host["fallback_bloom"].sum()) / rows,
+                "fallback_orig_rate":
+                    float(host["fallback_orig"].sum()) / rows,
                 "elapsed": elapsed,
-                "hyperedges_per_sec": aux["pred"].size / elapsed}
+                "hyperedges_per_sec": aux["pred"].numel() / elapsed}
 
     def pin_base_buckets(self, batcher: BucketedBatcher,
                          budget_bytes: int = 4096 << 20) -> bool:
@@ -331,6 +421,282 @@ class Trainer:
                        torch.as_tensor(w, device=dev))
                    for k, (e, w) in batcher.next_epoch().items()}
         return self._run_epoch(stacked, t0)
+
+    # ------------------------------------------------------------------ eval
+    def eval_epoch(self, test_buckets, batch_size: int = 96,
+                   max_samples: int = 10_000, seed: int = 0,
+                   indices: Optional[np.ndarray] = None,
+                   return_pred: bool = False) -> Dict:
+        """The reference's eval: draw ``max_samples`` rows from the pooled
+        mixed-size test set (seeded by ``seed``), score them in batches of
+        ``batch_size`` with each row's own-size negatives, and pool the
+        predictions for the per-size metrics.  The negatives and the recon
+        chromosome draw from the Trainer's generator, as a step does.
+
+        indices: an explicit draw (positions into the pooled set, sorted by
+        k), so that a test can feed two implementations the same rows.
+        return_pred: also return the predictions in batch order ([bs
+        positives; neg_num x bs negatives] per batch)."""
+        nan = {"bce": float("nan"), "recon": float("nan"), "metrics": {}}
+        test_buckets = {k: v for k, v in test_buckets.items()
+                        if len(v[0]) > 0}
+        if not test_buckets:
+            return nan
+        if self.settings.task_mode == "regress":
+            raise NotImplementedError("the regress task mode is not ported "
+                                      "yet")
+        ks = tuple(sorted(test_buckets))
+        L = max(ks)
+        xs, szs, ws = [], [], []
+        for k, (e, w) in sorted(test_buckets.items()):
+            e = np.asarray(e, np.int32)
+            xs.append(np.pad(e, ((0, 0), (0, L - k))))
+            szs.append(np.full(len(e), k, np.int32))
+            ws.append(np.asarray(w, np.float32).reshape(-1))
+        xs, szs, ws = np.concatenate(xs), np.concatenate(szs), \
+            np.concatenate(ws)
+        take = min(len(xs), max_samples)
+        bs = min(batch_size, take)
+        if bs == 0:
+            return nan
+        n_batches = take // bs
+        if indices is None:
+            indices = np.random.default_rng(seed).permutation(len(xs))
+        indices = np.asarray(indices)[:n_batches * bs]
+        sizes_drawn = szs[indices].reshape(n_batches, bs)
+        dev = _leaves(self.params)[0].device
+        x = to_device(xs[indices].reshape(n_batches, bs, L), dev)
+        sz = to_device(sizes_drawn, dev)
+        w = to_device(ws[indices].reshape(n_batches, bs), dev)
+        with torch.no_grad():
+            node_table = encode_node_table(self.params, self.frozen,
+                                           self.dims, train=False)
+            auxs = [_eval_mixed_loss(
+                self.params, self.frozen, self.dims, self.chrom_table,
+                self.blooms, self.settings, ks, (x[i], sz[i], w[i]),
+                split_generator(self.generator, 1)[0], node_table)
+                for i in range(n_batches)]
+        pred = torch.stack([a["pred"] for a in auxs])
+        neg_num = self.settings.neg_num
+        y = np.tile(np.concatenate([np.ones(bs), np.zeros(bs * neg_num)]),
+                    n_batches)
+        size_all = np.concatenate([np.concatenate([sb, np.tile(sb, neg_num)])
+                                   for sb in sizes_drawn])
+        mfn = device_metrics_fn(y, size_all)
+        vals = mfn(pred.reshape(1, -1))
+        got = {"bce": torch.stack([a["bce"] for a in auxs]),
+               "recon": torch.stack([a["recon"] for a in auxs]),
+               **{f"metric_{g}": v for g, v in vals.items()}}
+        if return_pred:
+            got["pred"] = pred
+        host = _fetch(got)
+        out = {"bce": float(host["bce"].mean()),
+               "recon": float(host["recon"].mean()),
+               "metrics": metrics_from_device(
+                   {g: host[f"metric_{g}"] for g in vals}, mfn.group_sizes,
+                   1),
+               "fallback_bloom_rate": 0.0, "fallback_orig_rate": 0.0}
+        if return_pred:
+            out["pred"] = host["pred"].astype(np.float32).reshape(-1)
+        return out
+
+    # ----------------------------------------------------------------- stage
+    def fit(self, train_buckets, test_buckets, *, epochs: int,
+            batch_size: int = 96, num_batch_per_iter: int = 1000,
+            checkpoint_path: Optional[str] = None, log=print, seed: int = 0,
+            metrics_logger=None, stage: str = "stage",
+            embeddings_path: Optional[str] = None,
+            checkpoint_format: str = "pickle",
+            resume_path: Optional[str] = None, resume: bool = False,
+            device_epochs: str = "auto") -> List[Dict]:
+        """One stage of the schedule -> the history of {"train", "valid"}
+        results per epoch.
+
+        device_epochs: "auto" pins the buckets' base arrays on the params'
+          device and runs indexed epochs when they fit the pin budget, else
+          the host batcher path; "on" requires the pin; "off" takes the
+          host path.  Both paths draw the same batches.
+        checkpoint_path: a checkpoint (``save_checkpoint``) whenever the
+          validation AUPRC of the largest k is at least the best so far (the
+          first epoch always saves; -bce stands in for a NaN AUPRC); the
+          best is reloaded into the params at the end.
+        resume_path: a full snapshot every epoch; with ``resume`` the stage
+          continues after the last snapshotted epoch, exactly as the
+          uninterrupted run would (the batcher is fast-forwarded and every
+          eval draw is seeded by ``seed + epoch``).
+        embeddings_path: the node embeddings (``export_embeddings``) at the
+          start of every epoch."""
+        if checkpoint_format == "orbax":
+            raise NotImplementedError(
+                "checkpoint_format='orbax' (sharded asynchronous "
+                "checkpoints) is not ported yet; it comes with multi-GPU "
+                "training (ROADMAP.md, Queue 1 item 13)")
+        if checkpoint_format != "pickle":
+            raise ValueError(f"checkpoint_format must be 'pickle', got "
+                             f"{checkpoint_format!r}")
+        if device_epochs not in ("auto", "on", "off"):
+            raise ValueError(f"device_epochs must be 'auto', 'on' or 'off', "
+                             f"got {device_epochs!r}")
+        empty_ks = [k for k, v in train_buckets.items() if len(v[0]) == 0]
+        if empty_ks:
+            # a tiny bucket can land every row in the test split; train on
+            # the rest (eval_epoch skips its empty buckets alike)
+            log(f"dropping empty train buckets: k={empty_ks}")
+            train_buckets = {k: v for k, v in train_buckets.items()
+                             if len(v[0]) > 0}
+        batcher = BucketedBatcher(train_buckets, batch_size,
+                                  num_batch_per_iter, seed=seed)
+        use_indexed = False
+        if device_epochs != "off":
+            use_indexed = self.pin_base_buckets(batcher)
+            if device_epochs == "on" and not use_indexed:
+                raise ValueError("device_epochs='on' but the bucket base "
+                                 "arrays exceed the pin budget")
+            if not use_indexed:
+                log("bucket base arrays exceed the pin budget; using the "
+                    "host batcher path")
+        max_k = max(train_buckets)
+        best = -float("inf")
+        history: List[Dict] = []
+        start_epoch = 0
+        if resume and resume_path:
+            snap = self._load_resume(resume_path)
+            if snap is not None:
+                if snap.get("best") is not None:
+                    best = float(snap["best"])
+                start_epoch = int(snap["epoch"]) + 1
+                for _ in range(start_epoch):
+                    batcher.skip_epoch()
+                log(f"resumed from {resume_path}: continuing at epoch "
+                    f"{start_epoch} (best {best:.4f})")
+        for epoch in range(start_epoch, epochs):
+            if embeddings_path is not None:
+                self.export_embeddings(embeddings_path)
+            tr = (self.train_epoch_indexed(batcher) if use_indexed
+                  else self.train_epoch(batcher))
+            ev = self.eval_epoch(test_buckets, batch_size=batch_size,
+                                 seed=seed + epoch)
+            roc, aupr, _ = format_metrics(tr["metrics"])
+            fb = ""
+            if tr["fallback_bloom_rate"] or tr["fallback_orig_rate"]:
+                fb = (f" sampler-fallback bloom "
+                      f"{tr['fallback_bloom_rate']:.2e}"
+                      f" orig {tr['fallback_orig_rate']:.2e}")
+            log(f"[epoch {epoch}] train bce {tr['bce']:.4f} recon "
+                f"{tr['recon']:.4f} auc: {roc} aupr: {aupr} "
+                f"({tr['hyperedges_per_sec']:.0f} hyperedges/s, "
+                f"{tr['elapsed']:.1f}s){fb}")
+            roc, aupr, _ = format_metrics(ev["metrics"])
+            log(f"[epoch {epoch}] valid bce {ev['bce']:.4f} recon "
+                f"{ev['recon']:.4f} auc: {roc} aupr: {aupr}")
+            history.append({"train": tr, "valid": ev})
+            if metrics_logger is not None:
+                metrics_logger.log_epoch(stage, epoch, tr, ev)
+            val_aupr = ev["metrics"].get(
+                max_k, ev["metrics"].get("all", {"auprc": 0.0}))["auprc"]
+            if np.isnan(val_aupr):
+                val_aupr = -float(ev["bce"])
+            if checkpoint_path and val_aupr >= best:
+                best = val_aupr
+                save_checkpoint(checkpoint_path, self.params, self.optimizer,
+                                epoch)
+            if resume_path:
+                save_checkpoint(resume_path, self.params, self.optimizer,
+                                epoch, generator=self.generator, best=best)
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            self._restore_params(load_checkpoint(
+                checkpoint_path, device=_leaves(self.params)[0].device))
+        return history
+
+    def _restore_params(self, params) -> None:
+        """Copy a param tree's values into the live leaves (the optimizer
+        keeps its state for them)."""
+        with torch.no_grad():
+            for t, v in zip(_leaves(self.params), _leaves(params)):
+                t.copy_(v)
+
+    def _load_resume(self, resume_path: str) -> Optional[Dict]:
+        """Restore a resume snapshot (params, AdamW state, generator) ->
+        the snapshot's dict, or None when there is none yet."""
+        if not os.path.exists(resume_path):
+            return None
+        snap = load_checkpoint(resume_path, full=True,
+                               device=_leaves(self.params)[0].device)
+        if snap.get("epoch") is None:
+            return None
+        self._restore_params(snap["params"])
+        if snap.get("opt_state") is not None:
+            st = snap["opt_state"]
+            sd = self.optimizer.state_dict()
+            sd["state"] = {
+                i: {"step": torch.tensor(float(n)),
+                    "exp_avg": torch.from_numpy(np.asarray(a)),
+                    "exp_avg_sq": torch.from_numpy(np.asarray(b))}
+                for i, (a, b, n) in enumerate(zip(
+                    st["exp_avg"], st["exp_avg_sq"], st["step"]))}
+            self.optimizer.load_state_dict(sd)
+        if snap.get("key") is not None:
+            self.generator.set_state(torch.from_numpy(
+                np.asarray(snap["key"], np.uint8)))
+        return snap
+
+    def export_embeddings(self, path: str, params=None) -> np.ndarray:
+        """The node embeddings (N, dim) of ``params`` (default: the live
+        ones), saved with ``np.save`` as f32."""
+        p = self.params if params is None else params
+        with torch.no_grad():
+            emb = node_embeddings(p, self.frozen, self.dims)
+        emb = emb.float().cpu().numpy()
+        np.save(path, emb)
+        return emb
+
+
+# ------------------------------------------------------------ checkpoints
+def _adamw_state(params, optimizer) -> Dict:
+    """AdamW's moments and step count per leaf, in ``_leaves`` order, as
+    numpy arrays and floats (zeros for a leaf not stepped yet)."""
+    out = {"exp_avg": [], "exp_avg_sq": [], "step": []}
+    for t in _leaves(params):
+        st = optimizer.state.get(t, {})
+        zero = np.zeros(tuple(t.shape), np.float32)
+        out["exp_avg"].append(st["exp_avg"].detach().cpu().numpy()
+                              if "exp_avg" in st else zero)
+        out["exp_avg_sq"].append(st["exp_avg_sq"].detach().cpu().numpy()
+                                 if "exp_avg_sq" in st else zero)
+        out["step"].append(float(st["step"]) if "step" in st else 0.0)
+    return out
+
+
+def save_checkpoint(path: str, params, optimizer=None, epoch=None,
+                    generator: Optional[torch.Generator] = None,
+                    best=None) -> None:
+    """A checkpoint as one pickle of numpy arrays and Python scalars:
+    "params" (the JAX package's param tree, readable by its
+    ``load_checkpoint``), "opt_state" (AdamW's exp_avg / exp_avg_sq / step
+    per leaf in ``_leaves`` order), "epoch", "key" (the Trainer generator's
+    state, for resume snapshots) and "best"."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"params": params_to_numpy(params),
+                     "opt_state": (None if optimizer is None
+                                   else _adamw_state(params, optimizer)),
+                     "epoch": epoch,
+                     "key": (None if generator is None
+                             else generator.get_state().numpy()),
+                     "best": None if best is None else float(best)}, f)
+
+
+def load_checkpoint(path: str, full: bool = False, device="cuda"):
+    """-> the params on ``device`` (or, with ``full``, the whole dict).
+    Reads the port's checkpoints and the JAX package's written without an
+    optimizer state (its optax state needs optax to unpickle).  Unpickles
+    the file: load only checkpoints this project wrote."""
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    if not isinstance(ckpt, dict) or "params" not in ckpt:
+        ckpt = {"params": ckpt, "opt_state": None, "epoch": None}
+    ckpt["params"] = params_from_numpy(ckpt["params"], device)
+    return ckpt if full else ckpt["params"]
 
 
 def save_model_bundle(path: str, params, dims: ModelDims, genome,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-K1 (attention forward), K2 (its backward), K3 (scatter-add) and K4
-(bincount).
+K1 (attention forward), K2 (its backward), K3 (scatter-add), K4 (bincount),
+K5 (phase-1 proposals) and K6 (the fused classifier tail, forward and
+backward).
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -20,7 +21,9 @@ import pytest
 import torch
 
 from matcha_tpu_torch.models.modules import mha_init
+from matcha_tpu_torch.ops import fused_tail as tf
 from matcha_tpu_torch.ops import hyperedge_attention as ta
+from matcha_tpu_torch.ops import propose as tp
 from matcha_tpu_torch.ops import table_scatter as ts
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -156,3 +159,98 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         ta.hyperedge_attention_cuda(x, args[0], args[1].half(), *args[2:], 8,
                                     True)
+
+
+def _propose_inputs(device, k, n, T=8, seed=0):
+    rng = np.random.default_rng(seed)
+    orig = np.sort(rng.integers(1, 3000, size=(n, k)), axis=1)
+    change = rng.random((n, k)) < 0.5
+    change[np.arange(n), rng.integers(0, k, n)] = True
+    lo = rng.integers(1, 1000, size=(n, k)).astype(np.float32)
+    hi = lo + rng.integers(1, 2000, size=(n, k)).astype(np.float32)
+    u = rng.random((T, k, n), dtype=np.float32)
+    u[0, :, :7] = np.nextafter(np.float32(1), np.float32(0))   # the guard
+    return [torch.tensor(np.ascontiguousarray(a), device=device) for a in
+            (orig.T.astype(np.int32), change.T.astype(np.int32), lo.T, hi.T,
+             u)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("n", [6144, 1000, 37])
+def test_k5_matches_plain_bit_for_bit(cuda, k, n):
+    args = _propose_inputs(cuda, k, n, seed=k * n)
+    for md, S in [(0, 2), (1, 4), (3, 8)]:
+        before = tp.propose_phase1.launches
+        probe, has = tp.propose_phase1(*args, min_distance=md, max_probes=S)
+        assert tp.propose_phase1.launches == before + 1
+        rp, rh = tp.propose_phase1_plain(*args, min_distance=md,
+                                         max_probes=S)
+        assert probe.shape == (S, k, n) and has.dtype == torch.bool
+        assert torch.equal(probe, rp) and torch.equal(has, rh)
+
+
+def _tail_inputs(device, T, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0, dt=torch.float32):
+        return torch.tensor(rng.standard_normal(shape) * scale + shift,
+                            dtype=dt, device=device)
+    return [t(T, 64, dt=dtype), t(T, 64, dt=dtype),
+            torch.stack([t(64, scale=0.1, shift=s) for s in
+                         (1, 0, 1, 0, 1, 0)]),
+            t(64, 64, scale=0.1), t(64, scale=0.1), t(64, 64, scale=0.1),
+            t(64, scale=0.1), t(64, 1, scale=0.3), t(1, scale=0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("T", [114_688, 1000, 3])
+def test_k6_matches_plain(cuda, dtype, train, T):
+    args = _tail_inputs(cuda, T, dtype, seed=T)
+    g = torch.tensor(np.random.default_rng(1).standard_normal((T, 1)),
+                     dtype=torch.float32, device=cuda)
+    seed = 12345
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = tf.fused_tail_fwd_cuda.launches
+    got = tf.fused_tail(*args, seed, 0.3, 0.4, train)
+    assert tf.fused_tail_fwd_cuda.launches == before + 1
+    ref = tf.fused_tail_plain(*args, seed, 0.3, 0.4, train)
+    assert got.shape == (T, 1) and got.dtype == torch.float32
+    assert _max_rel_err(got, ref) <= tol
+    before = tf.fused_tail_bwd_cuda.launches
+    grads = tf.fused_tail_bwd_cuda(*args, g, seed, 0.3, 0.4, train)
+    assert tf.fused_tail_bwd_cuda.launches == before + 1
+    refs = tf.fused_tail_bwd_plain(*args, g, seed, 0.3, 0.4, train)
+    for i, (a, b) in enumerate(zip(grads, refs)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        assert _max_rel_err(a, b) <= tol, i
+
+
+@pytest.mark.cuda
+def test_k6_autograd_launches_the_backward_and_is_deterministic(cuda):
+    args = _tail_inputs(cuda, 5000, torch.bfloat16, seed=3)
+    ins = [a.clone().requires_grad_(True) for a in args]
+    before = tf.fused_tail_bwd_cuda.launches
+    tf.fused_tail(*ins, 7, 0.3, 0.4, True).sum().backward()
+    assert tf.fused_tail_bwd_cuda.launches == before + 1
+    g = torch.ones((5000, 1), device=cuda)
+    a = tf.fused_tail_bwd_cuda(*args, g, 7, 0.3, 0.4, True)
+    b = tf.fused_tail_bwd_cuda(*args, g, 7, 0.3, 0.4, True)
+    for t, u, v in zip(ins, a, b):
+        assert torch.equal(u, v)
+        assert torch.equal(t.grad, u)
+
+
+@pytest.mark.cuda
+def test_k6_masks(cuda):
+    """Keep shares over 7.3M draws; the same seed gives the same masks,
+    another seed others (the train-mode forward differs)."""
+    m0, m1 = tf.tail_masks(11, 114_688, 64, 0.3, 0.4, True, cuda)
+    assert 0.69 <= float((m0 > 0).float().mean()) <= 0.71
+    assert 0.59 <= float((m1 > 0).float().mean()) <= 0.61
+    args = _tail_inputs(cuda, 4096, torch.float32, seed=4)
+    a = tf.fused_tail(*args, 11, 0.3, 0.4, True)
+    assert torch.equal(a, tf.fused_tail(*args, 11, 0.3, 0.4, True))
+    assert not torch.equal(a, tf.fused_tail(*args, 12, 0.3, 0.4, True))

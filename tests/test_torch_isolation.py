@@ -1,4 +1,5 @@
-"""matcha_tpu_torch imports neither jax nor anything of matcha_tpu."""
+"""matcha_tpu_torch imports neither jax nor anything of matcha_tpu, nor the
+packages the machine with the card lacks (scikit-learn, optax, orbax)."""
 
 import json
 import os
@@ -14,9 +15,9 @@ mods = sorted(m.name for m in pkgutil.walk_packages(
     matcha_tpu_torch.__path__, "matcha_tpu_torch."))
 for m in mods:
     importlib.import_module(m)
+banned = ("jax", "jaxlib", "matcha_tpu", "sklearn", "optax", "orbax")
 leaked = sorted(n for n in sys.modules
-                if n == "jax" or n.startswith(("jax.", "jaxlib"))
-                or n == "matcha_tpu" or n.startswith("matcha_tpu."))
+                if n.split(".")[0] in banned)
 print(json.dumps({"modules": mods, "leaked": leaked}))
 """
 
@@ -29,4 +30,7 @@ def test_port_imports_no_jax_and_nothing_of_matcha_tpu():
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert "matcha_tpu_torch.ops.hyperedge_attention" in report["modules"]
     assert "matcha_tpu_torch.apps.predict_multiway" in report["modules"]
+    for mod in ("ops.propose", "ops.fused_tail", "train.metrics",
+                "train.logging"):
+        assert f"matcha_tpu_torch.{mod}" in report["modules"]
     assert report["leaked"] == []

@@ -233,11 +233,18 @@ def test_range_draw_never_reaches_hi():
 
 
 def test_propose_pallas_raises_naming_k5(table, rng):
+    """propose_impl="pallas" runs for k <= 6 (any row count) and raises,
+    naming K5, beyond the widths its sorting networks cover."""
     g, tab = table
     pos = torch.from_numpy(_random_positives(g, rng, 8, 3))
     bloom = tb.build_bloom(pos.numpy(), device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
-        tn.sample_negatives(_gen(0), pos, tab, 0, bloom,
+    neg = tn.sample_negatives(_gen(0), pos, tab, 0, bloom,
+                              propose_impl="pallas")
+    assert neg.shape == (24, 3) and (np.diff(neg.numpy(), axis=1) > 0).all()
+    wide = torch.from_numpy(_random_positives(g, rng, 8, 7))
+    with pytest.raises(ValueError, match="K5"):
+        tn.sample_negatives(_gen(0), wide, tab, 0,
+                            tb.build_bloom(wide.numpy(), device="cpu"),
                             propose_impl="pallas")
     with pytest.raises(ValueError, match="propose_impl"):
         tn.sample_negatives(_gen(0), pos, tab, 0, bloom, propose_impl="x")

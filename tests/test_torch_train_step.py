@@ -241,9 +241,10 @@ def test_indexed_epochs_train_on_cpu(prob):
     before = [t.detach().clone() for t in tr._leaves(trainer.params)]
     assert trainer.pin_base_buckets(batcher)
     res = trainer.train_epoch_indexed(batcher)
-    assert set(res) == {"bce", "recon", "fallback_bloom_rate",
+    assert set(res) == {"bce", "recon", "metrics", "fallback_bloom_rate",
                         "fallback_orig_rate", "elapsed",
                         "hyperedges_per_sec"}
+    assert set(res["metrics"]) == {"all", *KS}
     assert np.isfinite(res["bce"]) and np.isfinite(res["recon"])
     assert res["hyperedges_per_sec"] > 0
     after = tr._leaves(trainer.params)
