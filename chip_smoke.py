@@ -15,7 +15,12 @@ Phases, all in this process; any failure exits non-zero before the last line:
      and bf16), with the tolerances stated below; the Bloom hashes computed
      on the card against an independent numpy build, bit for bit; K5 bit for
      bit at k = 1..6; K6 in eval and train mode (the same mask bits on both
-     sides), and its masks' keep shares and seed determinism.
+     sides), and its masks' keep shares and seed determinism.  K2 at every
+     L = 2..8 with E not a multiple of a tile, both diag_mask settings, and
+     its bf16 (tensor-core) route's bits across two calls; K3 on skewed ids
+     (Zipf, one row, a hub row holding half of T), ids outside [0, n), a
+     60,000-row table and d = 1, 48 and 1536, against its plain version and
+     bit-equal across two calls; K4 on the same ids.
   4. serving end to end at full width: the hg38 1 Mb genome (23 chromosomes,
      3,067 nodes), random weights from a seed at dim 64 / 8 heads in bf16,
      saved as a bundle; run_predict_multiway over 20,000 candidates for each
@@ -40,9 +45,12 @@ Phases, all in this process; any failure exits non-zero before the last line:
   7. training times: the median step, hyperedges scored per second, the
      step's parts (host clock, synchronised after each, median of 5), the
      host synchronisations of one step (PyTorch's sync debug mode), a
-     torch.profiler summary of one step, and K2, K3 and K4 by CUDA events at
-     their main-path shapes beside their bounds, their plain versions and,
-     for K3 and K4, the one PyTorch call that computes the same function.
+     torch.profiler summary of one step (device busy and idle share), and
+     K1 and K2 at L = 3, 4, 5, K3 (uniform, Zipf and hub ids) and K4 at
+     their main-path shapes: CUDA events around the wrapper and the
+     profiler's device time, beside their bounds, their plain versions, K2's
+     achieved TFLOP/s and, for K3 and K4, the one PyTorch call that computes
+     the same function.
   8. Trainer.fit at full width, this slice's main path: phase 6's
      configuration with the fused tail on (configure_fuse_tail) and
      propose_impl="pallas"; stage 1 (1 epoch of 10 steps, no filters), then
@@ -276,6 +284,10 @@ def check_backward(device) -> dict:
     cases = [(E, L, dt, True) for dt in ("float32", "bfloat16")
              for L in (3, 4, 5) for E in (8_192, 1_000, 37)]
     cases += [(1_000, 4, "float32", False), (1_000, 3, "bfloat16", False)]
+    # every L the kernels take, E not a multiple of any tile, both masks
+    cases += [(1_003, L, dt, L % 2 == 0) for L in (2, 6, 7, 8)
+              for dt in ("float32", "bfloat16")]
+    cases += [(997, L, "bfloat16", L % 2 == 1) for L in (2, 5, 8)]
     names = ["gx", "gln", "gwq", "gwk", "gwv", "gfw", "gfb"]
     worst = {dt: {"gx_abs": 0.0, "rel_to_max": 0.0}
              for dt in ("float32", "bfloat16")}
@@ -300,6 +312,75 @@ def check_backward(device) -> dict:
         worst[dt]["gx_abs"] = max(worst[dt]["gx_abs"], gx_abs)
         worst[dt]["rel_to_max"] = max(worst[dt]["rel_to_max"],
                                       max(errs.values()))
+    x, args = attention_inputs(device, 8_192, 5, "bfloat16", seed=SEED + 9)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(9),
+                    dtype=torch.float32).to(device, x.dtype)
+    a = hyperedge_attention_bwd_cuda(x, *args, g, N_HEAD, True)
+    b = hyperedge_attention_bwd_cuda(x, *args, g, N_HEAD, True)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        fail("K2 (tensor-core route) is not deterministic")
+    print("K2 bf16 at E=8192 L=5: two calls give the same bits ok",
+          flush=True)
+    return worst
+
+
+def skewed_ids(kind: str, rng, T: int, n: int) -> np.ndarray:
+    """Ids K3 must survive: uniform, Zipf (s = 1.1) over the rows in a
+    random row order, all on one row, a hub row holding half of T, or a
+    quarter of them outside [0, n)."""
+    if kind == "zipf":
+        p = 1.0 / np.arange(1, n + 1) ** 1.1
+        ids = rng.permutation(n)[rng.choice(n, T, p=p / p.sum())]
+    elif kind == "one_row":
+        ids = np.full(T, n // 2)
+    elif kind == "hub":
+        ids = rng.integers(0, n, T)
+        ids[rng.permutation(T)[:T // 2]] = 3
+    elif kind == "out_of_range":
+        ids = rng.integers(0, n, T)
+        pick = rng.permutation(T)[:T // 4]
+        ids[pick] = rng.choice([-1, -7, n, n + 5, 2 ** 31 - 1], len(pick))
+    else:
+        ids = rng.integers(0, n, T)
+    return ids.astype(np.int32)
+
+
+def check_scatter_skewed(device) -> float:
+    """Phase 3: K3 against its plain version on skewed and out-of-range ids,
+    at the step's shape and at table heights and widths the shared paths do
+    not cover (n = 60,000; d = 1, 48, 1536).  g holds multiples of 1/4, so
+    every sum is exact whatever the order (1e-5 is then a bound on a wrong
+    or missing token); two calls on normal g give the same bits.  K4 against
+    its plain version on the same ids, exactly.  -> the worst K3 error."""
+    worst = 0.0
+    cases = [(114_688, 3_068, 64, kind) for kind in
+             ("zipf", "one_row", "hub", "out_of_range")]
+    cases += [(5_000, 60_000, 64, "out_of_range"), (3_000, 300, 1, "hub"),
+              (2_000, 300, 1_536, "zipf"), (4_097, 1_000, 48, "uniform")]
+    for T, n, d, kind in cases:
+        rng = np.random.default_rng(SEED + T + n + d)
+        idx = torch.from_numpy(skewed_ids(kind, rng, T, n)).to(device)
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(rng.integers(-8, 9, (T, d)) / 4).to(device, dt)
+            got = ts.scatter_add_cuda(g, idx, n)
+            ref = ts.scatter_add_plain(g, idx, n)
+            gn = torch.randn((T, d), generator=torch.Generator().manual_seed(T),
+                             dtype=torch.float32).to(device, dt)
+            same = torch.equal(ts.scatter_add_cuda(gn, idx, n),
+                               ts.scatter_add_cuda(gn, idx, n))
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max()) if got.numel() else 0.0
+            ok = same and torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+            print(f"K3 vs plain: {kind} T={T} n={n} d={d} {dt} max_abs_err="
+                  f"{err:.3e} tol=1e-05, same bits twice {same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K3 disagrees with its plain version ({kind}, T={T}, "
+                     f"n={n}, d={d}, {dt})")
+            worst = max(worst, err)
+        if not torch.equal(ts.bincount_cuda(idx, n), ts.bincount_plain(idx, n)):
+            fail(f"K4 disagrees with its plain version ({kind}, T={T}, n={n})")
+    print("K4 vs plain on the same ids: exact ok", flush=True)
     return worst
 
 
@@ -948,44 +1029,74 @@ def train_phase(genome, device, card) -> dict:
 
 
 def time_training_kernels(device, card) -> dict:
-    """K2, K3 and K4 by CUDA events at the training step's shapes, beside
-    their bounds from these shapes, their plain versions and, for K3 and
-    K4, the one PyTorch call that computes the same function."""
+    """K1, K2, K3 and K4 at the training step's shapes: CUDA events around
+    the wrapper and, for K1, K2 and K3, the kernels' device time from
+    torch.profiler, beside their bounds from these shapes, their plain
+    versions and, for K3 and K4, the one PyTorch call that computes the same
+    function; K2's achieved TFLOP/s from its device time; K3 also on skewed
+    ids (Zipf, a hub row holding half of T)."""
     out = {}
     E, dt = 4 * TRAIN_BATCH, "bfloat16"
     for L in (3, 4, 5):
         x, args = attention_inputs(device, E, L, dt)
         g = torch.randn(x.shape, device=device).to(x.dtype)
-        ms = cuda_ms(lambda: hyperedge_attention_bwd_cuda(x, *args, g,
-                                                          N_HEAD, True))
-        plain = cuda_ms(lambda: hyperedge_attention_bwd_plain(
-            x, *args, g, N_HEAD, True))
-        b_ms, b_by = bound_ms(*attention_bwd_work(E, L, dt), dt)
-        out[f"K2_L{L}"] = {"E": E, "L": L, "dtype": dt, "ms": ms,
-                           "plain_ms": plain, "bound_ms": b_ms,
-                           "bound_by": b_by}
+
+        def k2():
+            return hyperedge_attention_bwd_cuda(x, *args, g, N_HEAD, True)
+
+        def k1():
+            return hyperedge_attention_cuda(x, *args, N_HEAD, True)
+        flops, nbytes = attention_bwd_work(E, L, dt)
+        b_ms, b_by = bound_ms(flops, nbytes, dt)
+        dev_ms = device_ms_per_call(k2)
+        out[f"K2_L{L}"] = {
+            "E": E, "L": L, "dtype": dt, "ms": cuda_ms(k2),
+            "device_ms": dev_ms,
+            "plain_ms": cuda_ms(lambda: hyperedge_attention_bwd_plain(
+                x, *args, g, N_HEAD, True)),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "tflops_achieved": flops / (dev_ms * 1e-3) / 1e12
+            if isinstance(dev_ms, float) else "not measured"}
+        f1, n1 = attention_work(E, L, dt)
+        b1, by1 = bound_ms(f1, n1, dt)
+        out[f"K1_L{L}"] = {
+            "E": E, "L": L, "dtype": dt, "ms": cuda_ms(k1),
+            "device_ms": device_ms_per_call(k1),
+            "plain_ms": cuda_ms(lambda: hyperedge_attention_plain(
+                x, *args, N_HEAD, True)),
+            "bound_ms": b1, "bound_by": by1}
     T, n = 4 * TRAIN_BATCH * sum(TRAIN_KS), 3_068
     gen = torch.Generator().manual_seed(SEED + 6)
     g = torch.randn((T, DIM), generator=gen).to(device, torch.bfloat16)
-    idx = torch.randint(0, n, (T,), generator=gen,
-                        dtype=torch.int32).to(device)
-    g32, idx64 = g.float(), idx.long()
+    g32 = g.float()
     acc = torch.zeros((n, DIM), device=device)
-    k3_bytes = T * DIM * 2 + T * 4 + n * DIM * 4
-    out["K3"] = {
-        "T": T, "n": n, "d": DIM, "dtype": "bfloat16",
-        "ms": cuda_ms(lambda: ts.scatter_add_cuda(g, idx, n)),
-        "plain_ms": cuda_ms(lambda: ts.scatter_add_plain(g, idx, n)),
-        "library_ms": cuda_ms(lambda: acc.index_add_(0, idx64, g32)),
-        "library": "torch.Tensor.index_add_",
-        "bound_ms": k3_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
-    out["K4"] = {
-        "T": T, "n": n,
-        "ms": cuda_ms(lambda: ts.bincount_cuda(idx, n)),
-        "plain_ms": cuda_ms(lambda: ts.bincount_plain(idx, n)),
-        "library_ms": cuda_ms(lambda: torch.bincount(idx64, minlength=n)),
-        "library": "torch.bincount",
-        "bound_ms": (T * 4 + n * 4) / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+    for kind in ("uniform", "zipf", "hub"):
+        idx = torch.from_numpy(skewed_ids(
+            kind, np.random.default_rng(SEED + 6), T, n)).to(device)
+        idx64 = idx.long()
+        k3_bytes = T * DIM * 2 + T * 4 + n * DIM * 4
+        name = "K3" if kind == "uniform" else f"K3_{kind}"
+        out[name] = {
+            "T": T, "n": n, "d": DIM, "dtype": "bfloat16", "ids": kind,
+            "ms": cuda_ms(lambda: ts.scatter_add_cuda(g, idx, n)),
+            "device_ms": device_ms_per_call(
+                lambda: ts.scatter_add_cuda(g, idx, n)),
+            "plain_ms": cuda_ms(lambda: ts.scatter_add_plain(g, idx, n)),
+            "library_ms": cuda_ms(lambda: acc.index_add_(0, idx64, g32)),
+            "library_device_ms": device_ms_per_call(
+                lambda: acc.index_add_(0, idx64, g32)),
+            "library": "torch.Tensor.index_add_",
+            "bound_ms": k3_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        if kind == "uniform":
+            out["K4"] = {
+                "T": T, "n": n,
+                "ms": cuda_ms(lambda: ts.bincount_cuda(idx, n)),
+                "plain_ms": cuda_ms(lambda: ts.bincount_plain(idx, n)),
+                "library_ms": cuda_ms(lambda: torch.bincount(idx64,
+                                                             minlength=n)),
+                "library": "torch.bincount",
+                "bound_ms": (T * 4 + n * 4) / PEAK_BYTES * 1e3,
+                "bound_by": "bytes"}
     print(json.dumps({"metric": "training_kernels", **out, "card": card}),
           flush=True)
     return out
@@ -1327,7 +1438,8 @@ def main():
     # 3. kernels vs plain
     worst = check_kernels(device)
     worst_bwd = check_backward(device)
-    worst_scatter = check_scatter_bincount(device)
+    worst_scatter = max(check_scatter_bincount(device),
+                        check_scatter_skewed(device))
     check_bloom(device)
     check_propose(device)
     worst_tail = check_fused_tail(device)
@@ -1433,6 +1545,8 @@ def main():
          "replaces": "matcha_tpu/ops/hyperedge_attention.py:454",
          "launches": counts["K1"], "launches_serving": launches,
          "launches_step_path": step_path["K1"],
+         "device_ms_step_L345": [tk[f"K1_L{L}"]["device_ms"]
+                                 for L in (3, 4, 5)],
          "max_abs_err": worst["bfloat16"],
          "max_abs_err_f32": worst["float32"], "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1444,7 +1558,9 @@ def main():
          "max_abs_err": worst_bwd["bfloat16"]["gx_abs"],
          "max_err_rel_to_max": worst_bwd["bfloat16"]["rel_to_max"],
          "max_err_rel_to_max_f32": worst_bwd["float32"]["rel_to_max"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "ms": k2["ms"], "device_ms": k2["device_ms"],
+         "tflops_achieved": k2["tflops_achieved"],
+         "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},
         {"name": "scatter_add", "route": "cuda",
@@ -1452,9 +1568,11 @@ def main():
          "replaces": "matcha_tpu/ops/table_scatter.py:62",
          "launches": counts["K3"], "launches_step_path": step_path["K3"],
          "max_abs_err": worst_scatter,
-         "ms": tk["K3"]["ms"], "plain_ms": tk["K3"]["plain_ms"],
+         "ms": tk["K3"]["ms"], "device_ms": tk["K3"]["device_ms"],
+         "plain_ms": tk["K3"]["plain_ms"],
          "bound_ms": tk["K3"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": tk["K3"]["library_ms"]},
+         "library_ms": tk["K3"]["library_ms"],
+         "library_device_ms": tk["K3"]["library_device_ms"]},
         {"name": "bincount", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",
          "replaces": "matcha_tpu/ops/table_scatter.py:112",

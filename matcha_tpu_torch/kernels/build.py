@@ -2,8 +2,8 @@
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled for
 Hopper (``sm_90a``) into ``matcha_tpu_torch/_build/lib<name>-<hash>.so``.  The
-hash covers the source and the flags, so an edited source is rebuilt on its
-next use.  Builds start at first use (never at import) or from ``build()``,
+hash covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header is rebuilt on its next use.  Builds start at first use (never at import) or from ``build()``,
 which runs one nvcc per source, all at once.
 """
 
@@ -40,9 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -22,7 +22,9 @@ plain version, the counterpart of ``jax.vjp(_fwd_xla)``) and
 ``hyperedge_attention_bwd_cuda``, the wrapper of
 ``csrc/hyperedge_attention_bwd.cu`` (K2, the port of ``_bwd_kernel_fm`` /
 ``_bwd_kernel``), which ``_FusedAttention.backward`` launches for a CUDA
-tensor.
+tensor.  K2 has two routes: bf16 (the training step's dtype) runs its 64-wide
+products on the tensor cores, rounding the weights to bf16 where the plain
+version rounds them; f32 runs them as f32 FMAs on the CUDA cores.
 
 ``hyperedge_attention.launches`` counts K1 launches and
 ``hyperedge_attention_bwd_cuda.launches`` K2 launches: each wrapper adds one
@@ -148,8 +150,8 @@ def _bwd_lib():
     lib.matcha_hyperedge_attention_bwd.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.matcha_hyperedge_attention_bwd.restype = ctypes.c_int
-    lib.matcha_hyperedge_attention_bwd_blocks.argtypes = [ctypes.c_int] * 2
-    lib.matcha_hyperedge_attention_bwd_blocks.restype = ctypes.c_int
+    lib.matcha_hyperedge_attention_bwd_slices.argtypes = [ctypes.c_int] * 4
+    lib.matcha_hyperedge_attention_bwd_slices.restype = ctypes.c_int
     lib.matcha_hyperedge_attention_bwd_slice_floats.argtypes = [ctypes.c_int]
     lib.matcha_hyperedge_attention_bwd_slice_floats.restype = (
         ctypes.c_longlong)
@@ -188,22 +190,32 @@ def hyperedge_attention_bwd_cuda(x, ln, wq, wk, wv, fw, fb, g, n_head: int,
     Takes the forward's arguments (as ``hyperedge_attention_cuda`` checks
     them) and g, the cotangent of its output, of x's shape, dtype and
     device, contiguous.  -> (gx in x's dtype, gln, gwq, gwk, gwv, gfw, gfb in
-    f32).  The weight grads are summed deterministically: each block of the
-    persistent grid adds into its own scratch slice and a second kernel sums
-    the slices in block order."""
+    f32).  bf16 with n_head <= 8 takes the tensor-core kernel (a cluster of
+    one block per head; its products in bf16 with f32 sums), f32 the
+    CUDA-core kernel (f32 products).  The weight grads are summed
+    deterministically: each persistent block (CUDA-core route) or cluster
+    (tensor-core route) writes its own scratch slice and a second kernel
+    sums the slices in order."""
     hd = _check_attention_args(x, ln, wq, wk, wv, fw, fb, n_head)
     _check(g.shape == x.shape and g.dtype == x.dtype
            and g.device == x.device,
            f"g must match x ({tuple(x.shape)}, {x.dtype}), got "
            f"{tuple(g.shape)}, {g.dtype}")
     _check(g.is_contiguous(), "g must be contiguous")
+    if g.data_ptr() % 16:      # the kernels copy rows of g in 16-byte pieces
+        g = g.clone()
     E, L, d = x.shape
     lib = _bwd_lib()
+    is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        n_blocks = lib.matcha_hyperedge_attention_bwd_blocks(E, L)
+        n_slices = lib.matcha_hyperedge_attention_bwd_slices(E, L, n_head,
+                                                             is_bf16)
+        if n_slices <= 0:
+            raise RuntimeError("hyperedge_attention_bwd: no launch "
+                               f"configuration fits the card ({n_slices})")
         n = lib.matcha_hyperedge_attention_bwd_slice_floats(n_head)
         gx = torch.empty_like(x)
-        scratch = torch.empty((n_blocks, n), dtype=torch.float32,
+        scratch = torch.empty((n_slices, n), dtype=torch.float32,
                               device=x.device)
         grads = torch.empty((n,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -211,7 +223,7 @@ def hyperedge_attention_bwd_cuda(x, ln, wq, wk, wv, fw, fb, g, n_head: int,
             x.data_ptr(), ln.data_ptr(), wq.data_ptr(), wk.data_ptr(),
             wv.data_ptr(), fw.data_ptr(), g.data_ptr(), gx.data_ptr(),
             scratch.data_ptr(), grads.data_ptr(), E, L, n_head,
-            int(diag_mask), int(x.dtype == torch.bfloat16), n_blocks, stream)
+            int(diag_mask), is_bf16, n_slices, stream)
     if err != 0:
         raise RuntimeError("hyperedge_attention_bwd kernel launch failed: "
                            f"{lib.matcha_cuda_error_string(err).decode()} "

@@ -27,27 +27,40 @@ import functools
 import torch
 
 
+def _in_range(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """idx as int64 with every id outside [0, n_rows) sent to the extra row
+    n_rows, which the callers discard: the TPU kernels' one-hot compare
+    matches no row for such an id, so it adds nothing."""
+    idx = idx.reshape(-1).long()
+    return torch.where((idx >= 0) & (idx < n_rows), idx,
+                       torch.full_like(idx, n_rows))
+
+
 def scatter_add_plain(g: torch.Tensor, idx: torch.Tensor,
                       n_rows: int) -> torch.Tensor:
-    """sum_t onehot(idx[t]) x g[t]: (T, d), (T,) -> (n_rows, d) f32."""
-    out = torch.zeros((n_rows, g.shape[1]), dtype=torch.float32,
+    """sum_t onehot(idx[t]) x g[t]: (T, d), (T,) -> (n_rows, d) f32; ids
+    outside [0, n_rows) are dropped."""
+    out = torch.zeros((n_rows + 1, g.shape[1]), dtype=torch.float32,
                       device=g.device)
-    return out.index_add_(0, idx.long(), g.float())
+    return out.index_add_(0, _in_range(idx, n_rows), g.float())[:n_rows]
 
 
 def bincount_plain(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Token counts per id: (T,) -> (n_rows,) f32."""
-    return torch.bincount(idx.reshape(-1).long(),
-                          minlength=n_rows)[:n_rows].float()
+    """Token counts per id: (T,) -> (n_rows,) f32; ids outside [0, n_rows)
+    are dropped."""
+    return torch.bincount(_in_range(idx, n_rows),
+                          minlength=n_rows + 1)[:n_rows].float()
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     from matcha_tpu_torch.kernels.build import load_library
     lib = load_library("table_scatter")
-    lib.matcha_scatter_add.argtypes = [ctypes.c_void_p] * 3 + [
+    lib.matcha_scatter_add.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.matcha_scatter_add.restype = ctypes.c_int
+    lib.matcha_scatter_add_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.matcha_scatter_add_scratch_bytes.restype = ctypes.c_longlong
     lib.matcha_bincount.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.matcha_bincount.restype = ctypes.c_int
@@ -56,15 +69,17 @@ def _lib():
     return lib
 
 
-def _check(cond: bool, msg: str):
+def _check(cond: bool, msg, *args):
+    """Raise ValueError(msg.format(*args)) unless cond; the message is built
+    only on failure, so a passing check costs no formatting."""
     if not cond:
-        raise ValueError(f"table_scatter: {msg}")
+        raise ValueError("table_scatter: " + msg.format(*args))
 
 
 def _check_idx(idx: torch.Tensor, device):
     _check(idx.is_cuda and idx.device == device,
-           f"idx must be a CUDA tensor on {device}")
-    _check(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
+           "idx must be a CUDA tensor on {}", device)
+    _check(idx.dtype == torch.int32, "idx must be int32, got {}", idx.dtype)
     _check(idx.is_contiguous(), "idx must be contiguous")
 
 
@@ -79,25 +94,33 @@ def scatter_add_cuda(g: torch.Tensor, idx: torch.Tensor,
                      n_rows: int) -> torch.Tensor:
     """Launch K3 on ``torch.cuda.current_stream()``: g (T, d) f32 or bf16
     with d <= 1536, idx (T,) int32, both contiguous on one card -> (n_rows,
-    d) f32.  Raises on anything else."""
+    d) f32; ids outside [0, n_rows) are dropped.  The kernel groups the
+    tokens by row (a stable counting sort) and sums each row in token order,
+    so the result is the same bits on every call.  One call runs five CUDA
+    kernels and counts as one launch of K3.  Raises on anything else."""
     _check(g.is_cuda, "g must be a CUDA tensor")
     _check(g.dtype in (torch.float32, torch.bfloat16),
-           f"g must be float32 or bfloat16, got {g.dtype}")
+           "g must be float32 or bfloat16, got {}", g.dtype)
     _check(g.dim() == 2 and 1 <= g.shape[1] <= 1536,
-           f"g must be (T, d) with 1 <= d <= 1536, got {tuple(g.shape)}")
+           "g must be (T, d) with 1 <= d <= 1536, got {}", tuple(g.shape))
     _check(g.is_contiguous(), "g must be contiguous")
     _check_idx(idx, g.device)
-    _check(idx.shape == (g.shape[0],),
-           f"idx must be ({g.shape[0]},), got {tuple(idx.shape)}")
-    _check(n_rows >= 1, f"n_rows must be >= 1, got {n_rows}")
+    _check(idx.shape == (g.shape[0],), "idx must be ({},), got {}",
+           g.shape[0], tuple(idx.shape))
+    _check(n_rows >= 1, "n_rows must be >= 1, got {}", n_rows)
     T, d = g.shape
-    out = torch.empty((n_rows, d), dtype=torch.float32, device=g.device)
+    lib = _lib()
+    # one allocation: out, then the kernel's scratch (16-byte aligned)
+    n_out = -(-n_rows * d // 4) * 4
+    n_scr = lib.matcha_scatter_add_scratch_bytes(T, d, n_rows) // 4
+    buf = torch.empty((n_out + n_scr,), dtype=torch.float32, device=g.device)
+    out, scratch = buf[:n_rows * d].view(n_rows, d), buf[n_out:]
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = _lib().matcha_scatter_add(g.data_ptr(), idx.data_ptr(),
-                                        out.data_ptr(), T, d, n_rows,
-                                        int(g.dtype == torch.bfloat16),
-                                        stream)
+        err = lib.matcha_scatter_add(g.data_ptr(), idx.data_ptr(),
+                                     out.data_ptr(), scratch.data_ptr(), T, d,
+                                     n_rows, int(g.dtype == torch.bfloat16),
+                                     stream)
     _raise_on(err, "scatter_add")
     scatter_add.launches += 1
     return out
@@ -108,8 +131,8 @@ def bincount_cuda(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     contiguous -> (n_rows,) f32 counts.  Raises on anything else."""
     _check(idx.is_cuda, "idx must be a CUDA tensor")
     _check_idx(idx, idx.device)
-    _check(idx.dim() == 1, f"idx must be 1-D, got {tuple(idx.shape)}")
-    _check(n_rows >= 1, f"n_rows must be >= 1, got {n_rows}")
+    _check(idx.dim() == 1, "idx must be 1-D, got {}", tuple(idx.shape))
+    _check(n_rows >= 1, "n_rows must be >= 1, got {}", n_rows)
     counts = torch.empty((n_rows,), dtype=torch.int32, device=idx.device)
     out = torch.empty((n_rows,), dtype=torch.float32, device=idx.device)
     with torch.cuda.device(idx.device):

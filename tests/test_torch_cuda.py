@@ -93,6 +93,27 @@ def test_k2_matches_plain_autograd(cuda, dtype, E, L, diag):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("L", [2, 3, 4, 5, 6, 7, 8])
+def test_k2_every_l_and_ragged_e(cuda, dtype, L, diag):
+    """Each L the kernel takes, E not a multiple of any tile: bf16 (the
+    tensor-core route) at 3e-2 and f32 (the CUDA-core route) at 1e-4 of each
+    gradient's max."""
+    E = 997 + 3 * L
+    x, args = _inputs(cuda, E, L, dtype, seed=L)
+    g = torch.tensor(np.random.default_rng(L).standard_normal(x.shape),
+                     dtype=dtype, device=cuda)
+    got = ta.hyperedge_attention_bwd_cuda(x, *args, g, 8, diag)
+    ref = ta.hyperedge_attention_bwd_plain(x, *args, g, 8, diag)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    names = ["gx", "gln", "gwq", "gwk", "gwv", "gfw", "gfb"]
+    for name, a, r in zip(names, got, ref):
+        assert a.shape == r.shape and bool(torch.isfinite(a).all()), name
+        assert _max_rel_err(a, r) <= tol, name
+
+
+@pytest.mark.cuda
 def test_k2_is_deterministic(cuda):
     x, args = _inputs(cuda, 3000, 5, torch.bfloat16)
     g = torch.randn(x.shape, device=cuda).to(torch.bfloat16)
@@ -118,6 +139,55 @@ def test_k3_matches_index_add(cuda, dtype, T, n, d):
     assert got.dtype == torch.float32 and got.shape == (n, d)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, ts.scatter_add(g, idx, n))   # deterministic
+
+
+def skewed_ids(kind: str, rng, T: int, n: int) -> np.ndarray:
+    """Zipf (s = 1.1) over the rows in a random row order, all on one row, a
+    hub row holding half of T, ids in reverse order, or ids outside [0, n)
+    mixed in; test_torch_table_scatter.py holds the plain versions against
+    JAX on the same ids."""
+    if kind == "zipf":
+        p = 1.0 / np.arange(1, n + 1) ** 1.1
+        ids = rng.permutation(n)[rng.choice(n, T, p=p / p.sum())]
+    elif kind == "one_row":
+        ids = np.full(T, n // 2)
+    elif kind == "hub":
+        ids = rng.integers(0, n, T)
+        ids[rng.permutation(T)[:T // 2]] = 3
+    elif kind == "reverse":
+        ids = np.sort(rng.integers(0, n, T))[::-1].copy()
+    else:                                  # "out_of_range"
+        ids = rng.integers(0, n, T)
+        pick = rng.permutation(T)[:T // 4]
+        ids[pick] = rng.choice([-1, -7, n, n + 5, 2 ** 31 - 1, -2 ** 31],
+                               len(pick))
+    return ids.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["zipf", "one_row", "hub", "reverse",
+                                  "out_of_range"])
+@pytest.mark.parametrize("T,n,d", [(114_688, 3068, 64), (5000, 60_000, 64),
+                                   (3000, 300, 1), (2000, 300, 1536),
+                                   (4097, 1000, 48)])
+def test_k3_skewed_and_out_of_range_ids(cuda, dtype, kind, T, n, d):
+    """g in multiples of 1/4 makes every sum exact in f32, whatever the
+    order, so the kernel meets the plain version (index_add_ with the
+    out-of-range ids dropped) at 1e-5 even on a row of 114,688 tokens; with
+    normal g, two calls give the same bits."""
+    rng = np.random.default_rng(T + n + d)
+    idx = torch.tensor(skewed_ids(kind, rng, T, n), device=cuda)
+    g = torch.tensor(rng.integers(-8, 9, (T, d)) / 4, dtype=dtype,
+                     device=cuda)
+    before = ts.scatter_add.launches
+    got = ts.scatter_add(g, idx, n)
+    assert ts.scatter_add.launches == before + 1
+    ref = ts.scatter_add_plain(g, idx, n)
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    g = torch.tensor(rng.standard_normal((T, d)), dtype=dtype, device=cuda)
+    assert torch.equal(ts.scatter_add(g, idx, n), ts.scatter_add(g, idx, n))
 
 
 @pytest.mark.cuda
