@@ -15,9 +15,11 @@ Phases, all in this process; any failure exits non-zero before the last line:
      and bf16), with the tolerances stated below; the Bloom hashes computed
      on the card against an independent numpy build, bit for bit; K5 bit for
      bit at k = 1..6; K6 in eval and train mode (the same mask bits on both
-     sides), and its masks' keep shares and seed determinism.  K2 at every
-     L = 2..8 with E not a multiple of a tile, both diag_mask settings, and
-     its bf16 (tensor-core) route's bits across two calls; K3 on skewed ids
+     sides; bf16 takes the backward's tensor-core route), its backward's
+     bits across two calls, and its masks' keep shares and seed
+     determinism.  K1 and K2 at every L = 2..8 with E not a multiple of a
+     tile, both diag_mask settings, and their bf16 (tensor-core) routes'
+     bits across two calls; K3 on skewed ids
      (Zipf, one row, a hub row holding half of T), ids outside [0, n), a
      60,000-row table and d = 1, 48 and 1536, against its plain version and
      bit-equal across two calls; K4 on the same ids.
@@ -30,7 +32,8 @@ Phases, all in this process; any failure exits non-zero before the last line:
      card.
   5. serving times: run_predict_multiway wall and its stages (host clock,
      median of 3), a torch.profiler summary of the scoring stage, and K1 by
-     CUDA events beside its bound.
+     CUDA events and its device time (profiler) beside its bound and its
+     achieved TFLOP/s.
   6. training at full width, the configuration of the JAX package's bench.py
      (dim 64, 8 heads, bf16 compute with f32 master params, k = 2..5, 2,048
      positives per k, neg_num 3, Bloom filters from the buckets, alpha 1,
@@ -48,9 +51,9 @@ Phases, all in this process; any failure exits non-zero before the last line:
      torch.profiler summary of one step (device busy and idle share), and
      K1 and K2 at L = 3, 4, 5, K3 (uniform, Zipf and hub ids) and K4 at
      their main-path shapes: CUDA events around the wrapper and the
-     profiler's device time, beside their bounds, their plain versions, K2's
-     achieved TFLOP/s and, for K3 and K4, the one PyTorch call that computes
-     the same function.
+     profiler's device time, beside their bounds, their plain versions, K1's
+     and K2's achieved TFLOP/s and, for K3 and K4, the one PyTorch call that
+     computes the same function.
   8. Trainer.fit at full width, this slice's main path: phase 6's
      configuration with the fused tail on (configure_fuse_tail) and
      propose_impl="pallas"; stage 1 (1 epoch of 10 steps, no filters), then
@@ -65,7 +68,8 @@ Phases, all in this process; any failure exits non-zero before the last line:
      uninterrupted epoch 2.
   9. times: K5 at each k and K6 forward / backward at the main-path shapes
      (CUDA events around the wrapper, and the kernels' device time from
-     torch.profiler) beside their bounds and plain versions (and the unfused
+     torch.profiler and K6's achieved TFLOP/s) beside their bounds and plain
+     versions (and the unfused
      eager tail), the stage-2 step with the fused tail on / off and the
      proposals "pallas" / "xla" (in turns; per route also a profiled step,
      its host synchronisations and the negatives alone), and the fit's
@@ -135,9 +139,9 @@ CHECK_PER_K = 2_000
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-# kernel vs plain: f32 differs by summation order only; bf16 rounds at other
-# places (the kernel where the TPU kernel rounds: f32 weights and v; the
-# plain version where the XLA oracle rounds), a few bf16 ulps of |y| <= ~2
+# K1 vs plain: f32 differs by summation order only; the bf16 (tensor-core)
+# route rounds where the plain version rounds, so it differs by summation
+# order and the rounding flips that causes, a few bf16 ulps of |y| <= ~2
 TOL_KERNEL = {"float32": 1e-4, "bfloat16": 2e-2}
 # probabilities: f32 card vs f32 CPU (summation order); bf16 card vs f32 CPU
 # (bf16 rounding through the encode, next_w, attention and classifier)
@@ -234,10 +238,15 @@ def attention_inputs(device, E, L, dtype, seed=SEED):
 
 
 def check_kernels(device) -> dict:
-    """Phase 3: K1 against its plain version; -> the worst error per dtype."""
+    """Phase 3: K1 against its plain version, both routes (bf16: tensor
+    cores; f32: CUDA cores), at the main paths' shapes and at every L =
+    2..8 with E not a multiple of any tile and both diag_mask settings; the
+    bf16 route's bits across two calls.  -> the worst error per dtype."""
     cases = [(E, L, dt, True) for dt in ("float32", "bfloat16")
              for L in (3, 4, 5) for E in (10_000, 1_000, 37)]
     cases += [(1_000, 4, "float32", False), (1_000, 2, "bfloat16", False)]
+    cases += [(997 + 3 * L, L, "bfloat16", diag) for L in range(2, 9)
+              for diag in (True, False)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for E, L, dt, diag in cases:
         x, args = attention_inputs(device, E, L, dt, seed=SEED + E + L)
@@ -255,6 +264,15 @@ def check_kernels(device) -> dict:
         if not ok:
             fail(f"K1 disagrees with its plain version at E={E} L={L} {dt}")
         worst[dt] = max(worst[dt], err)
+    for E, L in ((8_192, 5), (10_000, 5), (8_192, 3)):
+        x, args = attention_inputs(device, E, L, "bfloat16", seed=SEED + 5)
+        a = hyperedge_attention_cuda(x, *args, N_HEAD, True)
+        if not torch.equal(a, hyperedge_attention_cuda(x, *args, N_HEAD,
+                                                       True)):
+            fail(f"K1 (tensor-core route) is not deterministic at E={E} "
+                 f"L={L}")
+    print("K1 bf16 at E=8192 L=5, E=10000 L=5, E=8192 L=3: two calls give "
+          "the same bits ok", flush=True)
     return worst
 
 
@@ -533,7 +551,7 @@ def check_fused_tail(device) -> dict:
     the worst relative error per dtype."""
     worst = {"fwd_abs_bf16": 0.0, "gy_abs_bf16": 0.0, "float32": 0.0,
              "bfloat16": 0.0}
-    for T in (114_688, 1_000):
+    for T in (114_688, 1_000, 3):
         for dt in ("float32", "bfloat16"):
             for train in (False, True):
                 y, h, p = tail_inputs(device, T, getattr(torch, dt),
@@ -568,12 +586,17 @@ def check_fused_tail(device) -> dict:
                     worst["fwd_abs_bf16"] = max(worst["fwd_abs_bf16"],
                                                 fwd_abs)
                     worst["gy_abs_bf16"] = max(worst["gy_abs_bf16"], gy_abs)
-    y, h, p = tail_inputs(device, 4_096, torch.bfloat16, SEED + 9)
-    g = torch.ones((4_096, 1), device=device)
-    a = ft.fused_tail_bwd_cuda(y, h, *p, g, 5, 0.3, 0.4, True)
-    b = ft.fused_tail_bwd_cuda(y, h, *p, g, 5, 0.3, 0.4, True)
-    if not all(torch.equal(u, v) for u, v in zip(a, b)):
-        fail("K6 backward is not deterministic")
+    for T, train in ((4_096, True), (114_688, False)):
+        y, h, p = tail_inputs(device, T, torch.bfloat16, SEED + 9)
+        g = torch.randn((T, 1), generator=torch.Generator().manual_seed(5)
+                        ).to(device)
+        a = ft.fused_tail_bwd_cuda(y, h, *p, g, 5, 0.3, 0.4, train)
+        b = ft.fused_tail_bwd_cuda(y, h, *p, g, 5, 0.3, 0.4, train)
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            fail(f"K6 backward (tensor-core route) is not deterministic at "
+                 f"T={T}")
+    print("K6 backward bf16 at T=4096 (train) and T=114688 (eval): two calls "
+          "give the same bits ok", flush=True)
     return worst
 
 
@@ -1059,12 +1082,15 @@ def time_training_kernels(device, card) -> dict:
             if isinstance(dev_ms, float) else "not measured"}
         f1, n1 = attention_work(E, L, dt)
         b1, by1 = bound_ms(f1, n1, dt)
+        dev1 = device_ms_per_call(k1)
         out[f"K1_L{L}"] = {
             "E": E, "L": L, "dtype": dt, "ms": cuda_ms(k1),
-            "device_ms": device_ms_per_call(k1),
+            "device_ms": dev1,
             "plain_ms": cuda_ms(lambda: hyperedge_attention_plain(
                 x, *args, N_HEAD, True)),
-            "bound_ms": b1, "bound_by": by1}
+            "bound_ms": b1, "bound_by": by1, "gflop": f1 / 1e9,
+            "tflops_achieved": f1 / (dev1 * 1e-3) / 1e12
+            if isinstance(dev1, float) else "not measured"}
     T, n = 4 * TRAIN_BATCH * sum(TRAIN_KS), 3_068
     gen = torch.Generator().manual_seed(SEED + 6)
     g = torch.randn((T, DIM), generator=gen).to(device, torch.bfloat16)
@@ -1333,11 +1359,14 @@ def time_new_kernels(device, card) -> dict:
                                              True),
              bwd_bytes, 12 * T * d * d)):
         b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
+        dev = device_ms_per_call(fn)
         out[name] = {"T": T, "d": d, "dtype": "bfloat16", "train": True,
-                     "ms": cuda_ms(fn), "device_ms": device_ms_per_call(fn),
+                     "ms": cuda_ms(fn), "device_ms": dev,
                      "plain_ms": cuda_ms(plain, iters=5),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
+                     "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+                     "tflops_achieved": flops / (dev * 1e-3) / 1e12
+                     if isinstance(dev, float) else "not measured"}
     yg, hg = (t.clone().requires_grad_(True) for t in (y, h))
     pg = [t.clone().requires_grad_(True) for t in p]
     gen = torch.Generator().manual_seed(SEED)
@@ -1513,13 +1542,18 @@ def main():
     E, L, dt = BATCH, 5, "bfloat16"
     x, args = attention_inputs(device, E, L, dt)
     ms = cuda_ms(lambda: hyperedge_attention_cuda(x, *args, N_HEAD, True))
+    k1_dev = device_ms_per_call(
+        lambda: hyperedge_attention_cuda(x, *args, N_HEAD, True))
     plain_ms = cuda_ms(lambda: hyperedge_attention_plain(x, *args, N_HEAD,
                                                          True))
     flops, nbytes = attention_work(E, L, dt)
     b_ms, b_by = bound_ms(flops, nbytes, dt)
     print(json.dumps({
         "metric": "k1_hyperedge_attention_fwd", "E": E, "L": L, "dtype": dt,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": ms, "device_ms": k1_dev,
+        "tflops_achieved": flops / (k1_dev * 1e-3) / 1e12
+        if isinstance(k1_dev, float) else "not measured",
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         "launches_per_predict_multiway": launches, "library_ms": None,
         "library_note": "no single PyTorch call computes K1 (LN + q/k/v + "
@@ -1543,10 +1577,15 @@ def main():
         {"name": "hyperedge_attention_fwd", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/hyperedge_attention_fwd.cu",
          "replaces": "matcha_tpu/ops/hyperedge_attention.py:454",
+         "tc_route": "bf16 with <= 8 heads: wgmma, a cluster of one block "
+                     "per head; f32: CUDA cores",
          "launches": counts["K1"], "launches_serving": launches,
          "launches_step_path": step_path["K1"],
+         "device_ms": k1_dev,
          "device_ms_step_L345": [tk[f"K1_L{L}"]["device_ms"]
                                  for L in (3, 4, 5)],
+         "tflops_achieved_step_L345": [tk[f"K1_L{L}"]["tflops_achieved"]
+                                       for L in (3, 4, 5)],
          "max_abs_err": worst["bfloat16"],
          "max_abs_err_f32": worst["float32"], "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1602,7 +1641,10 @@ def main():
         {"name": "fused_tail_bwd", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/fused_tail.cu",
          "replaces": "matcha_tpu/ops/fused_tail.py:258",
+         "tc_route": "bf16: wgmma, two warpgroups per block over tiles of "
+                     "64 tokens; f32: CUDA cores",
          "launches": counts["K6_bwd"],
+         "tflops_achieved": nk["K6_bwd"]["tflops_achieved"],
          "max_abs_err": worst_tail["gy_abs_bf16"],
          "max_err_rel_to_max": worst_tail["bfloat16"],
          "ms": nk["K6_bwd"]["ms"], "device_ms": nk["K6_bwd"]["device_ms"],

@@ -124,13 +124,8 @@ __host__ __device__ inline size_t slice_floats(int H) {
   return (size_t)4 * D * H * D + 7 * D;
 }
 
-// the two halves of cluster.sync(), so that work can run between them
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+using mma_bf16::cluster_arrive;
+using mma_bf16::cluster_wait;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -503,16 +498,7 @@ constexpr int TC_F32 = 4 * TC_ROWS * FS + 2 * TC_ROWS + NWARP * D + 6 * D + NWAR
 constexpr int TC_SMEM_BYTES = N_BT * TILE_ELEMS * 2 + TC_F32 * 4;
 static_assert(TC_SMEM_BYTES <= 232448, "shared memory of one block");
 
-// a warpgroup's 64 x 64 product, rounded to bf16, into a tile
-__device__ __forceinline__ void store_bf16(const float (&d)[32], __nv_bfloat16* t, int q, int fg,
-                                           int fc) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      *reinterpret_cast<__nv_bfloat162*>(t + mma_bf16::blk(16 * q + fg + 8 * hh, 8 * j + 2 * fc)) =
-          __floats2bfloat162_rn(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
-}
+using mma_bf16::store_bf16;
 
 template <int L>
 struct TcTile {

@@ -1,6 +1,7 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a): 64 x 64 bf16 tiles
-// in shared memory, warpgroup products on them (wgmma, f32 sums), and
-// cp.async copies from global to shared memory.
+// in shared memory, warpgroup products on them (wgmma, f32 sums), the
+// warpgroup and cluster barriers the kernels share, and cp.async copies
+// from global to shared memory.
 //
 // Tile layout.  A 64 x 64 bf16 tile is stored as 8 x 8 blocks of 8 x 8
 // elements ("core matrices", 128 contiguous bytes each, rows of 16 bytes):
@@ -121,17 +122,33 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
 }
 
-// Issue d [+]= A @ B[:, n0 : n0 + N] on this warpgroup (q = warp index in
-// the group) as one wgmma group; accumulate = false starts from zero.  a
-// holds the A fragments until the product completes: neither a nor d may be
-// touched before wg_wait.
-template <bool A_KM, bool B_KN, int N>
-__device__ __forceinline__ void wg_issue(float (&d)[N / 2], uint32_t (&a)[4][4],
-                                         const __nv_bfloat16* A, const __nv_bfloat16* B, int n0,
-                                         bool accumulate, int q, int lane) {
-  static_assert(N == 64 || N == 32, "wgmma width");
+// two floats as one bf16x2 register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The accumulator d of a 64 x 64 product, rounded to bf16, as the A
+// fragments of a following product (depth = d's columns): the accumulator
+// and the A operand share the mma.sync fragment layout, so the result stays
+// in registers.
+__device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) load_a<A_KM>(a[ks], A, 16 * ks, 16 * q, lane);
+  for (int ks = 0; ks < 4; ++ks) {
+    a[ks][0] = pack_bf16(d[8 * ks + 0], d[8 * ks + 1]);
+    a[ks][1] = pack_bf16(d[8 * ks + 2], d[8 * ks + 3]);
+    a[ks][2] = pack_bf16(d[8 * ks + 4], d[8 * ks + 5]);
+    a[ks][3] = pack_bf16(d[8 * ks + 6], d[8 * ks + 7]);
+  }
+}
+
+// Issue d [+]= A @ B[:, n0 : n0 + N] with A given as fragments in
+// registers (acc_to_a or load_a), as one wgmma group; neither a nor d may be
+// touched before wg_wait.
+template <bool B_KN, int N>
+__device__ __forceinline__ void wg_issue_a(float (&d)[N / 2], const uint32_t (&a)[4][4],
+                                           const __nv_bfloat16* B, int n0, bool accumulate) {
+  static_assert(N == 64 || N == 32, "wgmma width");
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) fence_operand(d[i]);
   wgmma_fence();
@@ -145,6 +162,19 @@ __device__ __forceinline__ void wg_issue(float (&d)[N / 2], uint32_t (&a)[4][4],
       wgmma_n32<B_KN ? 1 : 0>(d, a[ks], desc, scale_d);
   }
   wgmma_commit();
+}
+
+// Issue d [+]= A @ B[:, n0 : n0 + N] on this warpgroup (q = warp index in
+// the group) as one wgmma group; accumulate = false starts from zero.  a
+// holds the A fragments until the product completes: neither a nor d may be
+// touched before wg_wait.
+template <bool A_KM, bool B_KN, int N>
+__device__ __forceinline__ void wg_issue(float (&d)[N / 2], uint32_t (&a)[4][4],
+                                         const __nv_bfloat16* A, const __nv_bfloat16* B, int n0,
+                                         bool accumulate, int q, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) load_a<A_KM>(a[ks], A, 16 * ks, 16 * q, lane);
+  wg_issue_a<B_KN, N>(d, a, B, n0, accumulate);
 }
 
 // Wait for every product this warpgroup issued; d (one of them) is then
@@ -169,6 +199,32 @@ __device__ __forceinline__ void wg_gemm2(float (&d1)[32], const __nv_bfloat16* A
   wg_wait(d1);
 #pragma unroll
   for (int i = 0; i < 32; ++i) fence_operand(d2[i]);
+}
+
+// A warpgroup's 64 x 64 accumulator (or any values in its layout: thread
+// (warp q, lane) holds rows 16q + fg (+ 8), columns 8j + 2fc (+ 1), fg =
+// lane / 4, fc = lane % 4), rounded to bf16, into a tile
+__device__ __forceinline__ void store_bf16(const float (&d)[32], __nv_bfloat16* t, int q, int fg,
+                                           int fc) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<__nv_bfloat162*>(t + blk(16 * q + fg + 8 * hh, 8 * j + 2 * fc)) =
+          __floats2bfloat162_rn(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
+}
+
+// a barrier of the 128 threads of warpgroup grp (named barrier grp + 1)
+__device__ __forceinline__ void wg_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(grp + 1) : "memory");
+}
+
+// the two halves of cluster.sync(), so that work can run between them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // 16 bytes global -> shared without registers; completes at cp_async_wait_all

@@ -204,7 +204,7 @@ def _lib():
     lib.matcha_fused_tail_bwd.argtypes = (
         [ctypes.c_void_p] * 14 + tail + [ctypes.c_int, ctypes.c_void_p])
     lib.matcha_fused_tail_bwd.restype = ctypes.c_int
-    lib.matcha_fused_tail_bwd_blocks.argtypes = [ctypes.c_int]
+    lib.matcha_fused_tail_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.matcha_fused_tail_bwd_blocks.restype = ctypes.c_int
     lib.matcha_fused_tail_bwd_slice_floats.argtypes = []
     lib.matcha_fused_tail_bwd_slice_floats.restype = ctypes.c_int
@@ -279,7 +279,9 @@ def fused_tail_bwd_cuda(y, h, ln6, w1, b1, w2, b2, wc, bc, g, seed: int,
     """Launch the K6 backward on ``torch.cuda.current_stream()``: the
     forward's arguments (checked as ``fused_tail_fwd_cuda`` checks them) and
     g, the (T, 1) cotangent of the logits -> the grads of
-    ``fused_tail_bwd_plain``.  The param grads are summed deterministically:
+    ``fused_tail_bwd_plain``.  bf16 takes the tensor-core kernel (its
+    products in bf16 with f32 sums, rounded where the plain version rounds),
+    f32 the CUDA-core kernel.  The param grads are summed deterministically:
     each block of the persistent grid adds its tokens' partials in a fixed
     order into its own scratch slice, and a second kernel sums the slices
     in block order."""
@@ -289,8 +291,9 @@ def fused_tail_bwd_cuda(y, h, ln6, w1, b1, w2, b2, wc, bc, g, seed: int,
     _check(g.shape == (T,) and g.device == y.device,
            f"g must hold {T} values on {y.device}")
     lib = _lib()
+    is_bf16 = int(y.dtype == torch.bfloat16)
     with torch.cuda.device(y.device):
-        n_blocks = lib.matcha_fused_tail_bwd_blocks(T)
+        n_blocks = lib.matcha_fused_tail_bwd_blocks(T, is_bf16)
         n = lib.matcha_fused_tail_bwd_slice_floats()
         gy, gh = torch.empty_like(y), torch.empty_like(h)
         scratch = torch.empty((n_blocks, n), dtype=torch.float32,
@@ -299,8 +302,8 @@ def fused_tail_bwd_cuda(y, h, ln6, w1, b1, w2, b2, wc, bc, g, seed: int,
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = lib.matcha_fused_tail_bwd(
             *_ptrs(y, h, ln6, w1, b1, w2, b2, wc, bc, g, gy, gh, scratch,
-                   grads), T, int(y.dtype == torch.bfloat16),
-            *_mask_args(seed, r0, r1, train), n_blocks, stream)
+                   grads), T, is_bf16, *_mask_args(seed, r0, r1, train),
+            n_blocks, stream)
     if err != 0:
         raise RuntimeError("fused_tail_bwd kernel launch failed: "
                            f"{lib.matcha_cuda_error_string(err).decode()} "

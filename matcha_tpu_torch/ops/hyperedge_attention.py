@@ -10,9 +10,13 @@ functions:
   * ``hyperedge_attention_cuda`` — the wrapper of the hand-written Hopper
     kernel ``csrc/hyperedge_attention_fwd.cu`` (K1, the port of the TPU
     kernel ``_fwd_kernel_fm`` and its lane-major twin ``_fwd_kernel``).  It
-    rounds where the TPU kernel rounds: q and k to x's dtype, v kept in f32,
-    the attention output to x's dtype before fc1, and the output.  In bf16
-    the two therefore differ by a few bf16 ulps (tolerance 2e-2 on the card).
+    has two routes, chosen inside the kernel's entry point: bf16 with at
+    most 8 heads runs every 64-wide product on the tensor cores and rounds
+    where the plain version rounds (the weights, q, k, v, a and the
+    attention output in bf16, f32 sums); f32 runs them as f32 FMAs on the
+    CUDA cores and rounds where the TPU kernel rounds.  In bf16 the kernel
+    and the plain version differ by summation order, a few bf16 ulps at
+    most (tolerance 2e-2 on the card).
   * ``hyperedge_attention`` — the dispatcher.  A CPU tensor takes the plain
     version (its backward is autograd of it); a CUDA tensor launches the
     kernel or raises.  No fallback.
@@ -113,7 +117,9 @@ def hyperedge_attention_cuda(x, ln, wq, wk, wv, fw, fb, n_head: int,
     Takes x (E, L, 64) in f32 or bf16 with 2 <= L <= 8, ln (6, 64), wq/wk/wv
     (64, n_head*64), fw (n_head*64, 64) and fb (64,), all f32 (the master
     params, as the TPU kernel reads them), contiguous and on x's device.
-    Raises on anything else."""
+    bf16 with n_head <= 8 takes the tensor-core kernel (a cluster of one
+    block per head, the heads' partials summed in rank order), everything
+    else the CUDA-core kernel.  Raises on anything else."""
     _check_attention_args(x, ln, wq, wk, wv, fw, fb, n_head)
     E, L, d = x.shape
     out = torch.empty_like(x)

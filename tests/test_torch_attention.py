@@ -2,8 +2,10 @@
 
 hyperedge_attention_plain is held against the XLA oracle _fwd_xla and the
 two Pallas layouts run in interpret mode, as tests/test_pallas_attention.py
-runs them on the CPU.  f32 tolerance rtol = atol = 2e-5 (summation order);
-bf16 at 0.05, as tests/test_pallas_attention.py::test_bf16 uses.  The CUDA
+runs them on the CPU, over every edge size the kernels take (L = 2..8).  f32
+tolerance rtol = atol = 2e-5 (summation order); bf16 at 0.05, as
+tests/test_pallas_attention.py::test_bf16 uses (the two round at other
+places: the TPU kernel keeps v in f32).  The CUDA
 kernel is held against the plain version on the card, in test_torch_cuda.py.
 """
 
@@ -38,7 +40,7 @@ def _setup(rng, E, L, d=D, n_head=H):
     return x, jargs, targs
 
 
-@pytest.mark.parametrize("L", [3, 4, 5])
+@pytest.mark.parametrize("L", [2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("diag", [True, False])
 def test_plain_matches_xla(rng, L, diag):
     x, jargs, targs = _setup(rng, 48, L)
@@ -73,10 +75,14 @@ def test_plain_ragged_edges(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-def test_plain_bf16(rng):
-    x, jargs, targs = _setup(rng, 64, 4)
-    ref = _fwd_xla(jnp.asarray(x).astype(jnp.bfloat16), *jargs, n_head=H,
-                   diag_mask=True)
+@pytest.mark.parametrize("L", [2, 5, 8])
+def test_plain_bf16(rng, L):
+    """bf16 against the TPU kernel in interpret mode, over the edge sizes
+    the kernels take: the plain version is the yardstick of the card's bf16
+    routes."""
+    x, jargs, targs = _setup(rng, 64, L)
+    ref = _fwd_pallas_fm(jnp.asarray(x).astype(jnp.bfloat16), *jargs,
+                         n_head=H, diag_mask=True, interpret=True)
     got = ta.hyperedge_attention_plain(
         torch.from_numpy(x).to(torch.bfloat16), *targs, H, True)
     assert got.dtype == torch.bfloat16

@@ -9,11 +9,11 @@ imports no JAX, so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: f32 with TF32 off differs by summation order only (1e-4).  In
-bf16 the attention kernels round where the TPU kernels round (f32 weights, v
-kept in f32) and the plain version where the XLA oracle rounds, so the
-forward outputs differ by a few bf16 ulps of values up to ~2 (atol = rtol =
-2e-2) and the backward's by up to 3e-2 of each gradient's largest entry.  K3
-sums in f32 (1e-5); K4 counts exactly.
+bf16 the kernels' tensor-core routes round product operands where the plain
+versions round them, so the forward outputs differ by summation order and
+the rounding flips it causes, a few bf16 ulps of values up to ~2 (atol =
+rtol = 2e-2), and K2's gradients by up to 3e-2 of each one's largest entry.
+K3 sums in f32 (1e-5); K4 counts exactly.
 """
 
 import numpy as np
@@ -52,17 +52,28 @@ def _inputs(device, E, L, dtype, n_head=8, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E,L,diag", [(1037, 5, True), (37, 3, True),
-                                      (500, 4, False), (64, 8, True)])
-def test_kernel_matches_plain(cuda, dtype, E, L, diag):
-    x, args = _inputs(cuda, E, L, dtype)
+@pytest.mark.parametrize("n_head", [2, 8])
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("L", [2, 3, 4, 5, 6, 7, 8])
+def test_kernel_matches_plain(cuda, dtype, n_head, diag, L):
+    """Each L the kernel takes, E not a multiple of any tile (64 // L edges
+    on the tensor-core route, bf16; 16 or 8 on the CUDA-core route, f32)."""
+    E = 997 + 3 * L
+    x, args = _inputs(cuda, E, L, dtype, n_head=n_head, seed=L)
     before = ta.hyperedge_attention.launches
-    got = ta.hyperedge_attention(x, *args, 8, diag)
+    got = ta.hyperedge_attention(x, *args, n_head, diag)
     assert ta.hyperedge_attention.launches == before + 1
-    ref = ta.hyperedge_attention_plain(x, *args, 8, diag)
+    ref = ta.hyperedge_attention_plain(x, *args, n_head, diag)
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), ref.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_k1_is_deterministic(cuda):
+    x, args = _inputs(cuda, 8192, 5, torch.bfloat16)
+    a = ta.hyperedge_attention_cuda(x, *args, 8, True)
+    assert torch.equal(a, ta.hyperedge_attention_cuda(x, *args, 8, True))
 
 
 def _max_rel_err(got, ref):
