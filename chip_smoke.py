@@ -17,12 +17,16 @@ Phases, all in this process; any failure exits non-zero before the last line:
      bit at k = 1..6; K6 in eval and train mode (the same mask bits on both
      sides; bf16 takes the backward's tensor-core route), its backward's
      bits across two calls, and its masks' keep shares and seed
-     determinism.  K1 and K2 at every L = 2..8 with E not a multiple of a
-     tile, both diag_mask settings, and their bf16 (tensor-core) routes'
-     bits across two calls; K3 on skewed ids
-     (Zipf, one row, a hub row holding half of T), ids outside [0, n), a
-     60,000-row table and d = 1, 48 and 1536, against its plain version and
-     bit-equal across two calls; K4 on the same ids.
+     determinism; K6's forward and backward at T = 114,688 / 1,000 / 65 / 3
+     and the bf16 (tensor-core) forward's bits across two calls.  K1 and K2
+     at every L = 2..8 with E not a multiple of a tile, both diag_mask
+     settings, and their bf16 (tensor-core) routes' bits across two calls;
+     K3 on skewed ids (Zipf, one row, a hub row holding half of T), ids
+     outside [0, n), a 60,000-row table and d = 1, 48 and 1536, against its
+     plain version and bit-equal across two calls; K4 on the same ids, and
+     against torch.bincount on uniform, Zipf, hub and out-of-range ids at n
+     = 3,068, 60,000 and 1,000,000 (both of its routes), its idx starting on
+     and off a 16-byte boundary.
   4. serving end to end at full width: the hg38 1 Mb genome (23 chromosomes,
      3,067 nodes), random weights from a seed at dim 64 / 8 heads in bf16,
      saved as a bundle; run_predict_multiway over 20,000 candidates for each
@@ -53,9 +57,10 @@ Phases, all in this process; any failure exits non-zero before the last line:
      their main-path shapes: CUDA events around the wrapper and the
      profiler's device time, beside their bounds, their plain versions, K1's
      and K2's achieved TFLOP/s and, for K3 and K4, the one PyTorch call that
-     computes the same function.
-  8. Trainer.fit at full width, this slice's main path: phase 6's
-     configuration with the fused tail on (configure_fuse_tail) and
+     computes the same function (its device time too).
+  8. Trainer.fit at full width on the opt-in kernels' path (the JAX
+     package ships with both off, so phase 6 is the shipped path): phase
+     6's configuration with the fused tail on (configure_fuse_tail) and
      propose_impl="pallas"; stage 1 (1 epoch of 10 steps, no filters), then
      stage 2 (3 epochs of 10 steps against the filters) with the mixed-size
      eval after each epoch (10,000 pooled test rows -> 4 batches of 2,048),
@@ -74,6 +79,14 @@ Phases, all in this process; any failure exits non-zero before the last line:
      proposals "pallas" / "xla" (in turns; per route also a profiled step,
      its host synchronisations and the negatives alone), and the fit's
      epoch and eval walls.
+ 10. shapes the kernels do not take: a dim-16, 4-head model (f32, k = 2, 3,
+     the hg38 genome) with the fused tail on; the counts are zeroed just
+     before and read just after one Trainer.train_step ("xla" proposals:
+     K3 and K4 once, K1, K2, K5 and K6 never), one predict_proba (no K1)
+     and one k = 7 sample_negatives with propose_impl="pallas", which must
+     warn and launch no K5; the same step with dropout off on fixed
+     negatives against f32 on the CPU (1e-5 loss, 1e-4 grads), and the
+     probabilities against the CPU's (1e-4).
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -434,6 +447,28 @@ def check_scatter_bincount(device) -> dict:
     return worst
 
 
+def check_bincount(device):
+    """Phase 3: K4 against torch.bincount of the ids in [0, n), exactly, on
+    uniform, Zipf, hub and out-of-range ids at the step's T, for n = 3,068
+    (a whole histogram per block), 60,000 and 1,000,000 (the cluster's
+    shared histogram in bands, one and two passes), its idx starting on
+    and 4 bytes off a 16-byte boundary."""
+    for n in (3_068, 60_000, 1_000_000):
+        for kind in ("uniform", "zipf", "hub", "out_of_range"):
+            rng = np.random.default_rng(SEED + n + len(kind))
+            idx = torch.from_numpy(skewed_ids(kind, rng, 114_688, n)).to(
+                device)
+            for ids in (idx, idx[1:]):
+                keep = ids[(ids >= 0) & (ids < n)].long()
+                if not torch.equal(ts.bincount_cuda(ids, n),
+                                   torch.bincount(keep, minlength=n).float()):
+                    fail(f"K4 differs from torch.bincount ({kind}, n={n}, "
+                         f"T={ids.shape[0]})")
+    print("K4 vs torch.bincount: uniform, Zipf, hub and out-of-range ids, n "
+          "= 3,068 / 60,000 / 1,000,000, aligned and unaligned idx: exact ok",
+          flush=True)
+
+
 def np_hash_rows(rows: np.ndarray):
     """The JAX package's host hash (matcha_tpu/sampler/bloom.py:_hash_rows
     under numpy): uint32 arithmetic with wraparound, over the last axis."""
@@ -546,12 +581,13 @@ def rel_errs(got, ref) -> list:
 
 def check_fused_tail(device) -> dict:
     """Phase 3: K6 forward and backward against the plain versions at the
-    step's T = 114,688 and a ragged T, f32 and bf16, eval and train mode;
+    step's T = 114,688 and ragged T, f32 and bf16, eval and train mode;
+    the bf16 backward's and forward's bits across two calls;
     -> the worst forward abs error and the worst gy abs error in bf16, and
     the worst relative error per dtype."""
     worst = {"fwd_abs_bf16": 0.0, "gy_abs_bf16": 0.0, "float32": 0.0,
              "bfloat16": 0.0}
-    for T in (114_688, 1_000, 3):
+    for T in (114_688, 1_000, 65, 3):
         for dt in ("float32", "bfloat16"):
             for train in (False, True):
                 y, h, p = tail_inputs(device, T, getattr(torch, dt),
@@ -596,6 +632,16 @@ def check_fused_tail(device) -> dict:
             fail(f"K6 backward (tensor-core route) is not deterministic at "
                  f"T={T}")
     print("K6 backward bf16 at T=4096 (train) and T=114688 (eval): two calls "
+          "give the same bits ok", flush=True)
+    for T in (114_688, 65):
+        y, h, p = tail_inputs(device, T, torch.bfloat16, SEED + 10)
+        for train in (False, True):
+            a = ft.fused_tail_fwd_cuda(y, h, *p, 5, 0.3, 0.4, train)
+            if not torch.equal(a, ft.fused_tail_fwd_cuda(y, h, *p, 5, 0.3,
+                                                         0.4, train)):
+                fail(f"K6 forward (tensor-core route) is not deterministic "
+                     f"at T={T} train={train}")
+    print("K6 forward bf16 at T=114688 and T=65, eval and train: two calls "
           "give the same bits ok", flush=True)
     return worst
 
@@ -786,13 +832,13 @@ def set_fuse_tail(on: bool):
     configure_fuse_tail(on)
 
 
-def random_buckets(genome, rng, n_edges):
+def random_buckets(genome, rng, n_edges, ks=TRAIN_KS):
     """n_edges distinct-member hyperedges per k anywhere on the genome with
     quantile-like weights in [0.5, 1.5), as the JAX package's bench draws
     them."""
     n = genome.num_nodes
     out = {}
-    for k in TRAIN_KS:
+    for k in ks:
         e = np.sort(rng.choice(np.arange(1, n + 1), (n_edges * 2, k)), axis=1)
         e = e[(np.diff(e, axis=1) > 0).all(axis=1)][:n_edges]
         out[k] = (e.astype(np.int32),
@@ -853,13 +899,13 @@ def deterministic_step(params, frozen, dims, xs, batch, ws, r, device):
     return float(loss.detach()), [g.float().cpu() for g in grads]
 
 
-def check_deterministic_step(trainer, buckets, device) -> dict:
+def check_deterministic_step(trainer, buckets, device, ks=TRAIN_KS) -> dict:
     """The same step (dropout off, negatives sampled once on the card, the
-    same r) as f32 on the card, f32 on the CPU (the plain path) and bf16 on
-    the card."""
+    same r) as f32 on the card, f32 on the CPU (the plain path) and, for a
+    bf16 Trainer, bf16 on the card."""
     gen = torch.Generator().manual_seed(SEED + 4)
     batch, xs, ws = {}, {}, {}
-    for k in TRAIN_KS:
+    for k in ks:
         e, w = buckets[k]
         pos = torch.from_numpy(e[:CHECK_BATCH]).to(device)
         neg = sample_negatives(gen, pos, trainer.chrom_table, 0,
@@ -879,13 +925,14 @@ def check_deterministic_step(trainer, buckets, device) -> dict:
                                          batch, ws, r, "cpu")
     loss_f32, g_f32 = deterministic_step(trainer.params, fz, f32, xs, batch,
                                          ws, r, device)
-    loss_bf16, _ = deterministic_step(trainer.params, fz, trainer.dims, xs,
-                                      batch, ws, r, device)
     out = {"loss_cpu_f32": loss_cpu, "loss_card_f32": loss_f32,
-           "loss_card_bf16": loss_bf16,
            "loss_rel_err_f32": abs(loss_f32 - loss_cpu) / abs(loss_cpu),
-           "loss_rel_err_bf16": abs(loss_bf16 - loss_cpu) / abs(loss_cpu),
            "positives_per_k": CHECK_BATCH, "recon_chrom": r}
+    if trainer.dims.compute_dtype == "bfloat16":
+        loss_bf16, _ = deterministic_step(trainer.params, fz, trainer.dims,
+                                          xs, batch, ws, r, device)
+        out["loss_card_bf16"] = loss_bf16
+        out["loss_rel_err_bf16"] = abs(loss_bf16 - loss_cpu) / abs(loss_cpu)
     # each gradient's error relative to its largest entry, floored at 1e-3
     # of the largest entry of any gradient: some gradients are zero but for
     # rounding (the key LayerNorm's bias moves every key of an edge by one
@@ -905,7 +952,7 @@ def check_deterministic_step(trainer, buckets, device) -> dict:
           flush=True)
     if (out["loss_rel_err_f32"] > TOL_STEP_LOSS_F32
             or out["grad_rel_to_max_err_f32"] > TOL_STEP_GRAD_F32
-            or out["loss_rel_err_bf16"] > TOL_STEP_LOSS_BF16):
+            or out.get("loss_rel_err_bf16", 0.0) > TOL_STEP_LOSS_BF16):
         fail("the training step on the card disagrees with the CPU")
     return out
 
@@ -1053,11 +1100,11 @@ def train_phase(genome, device, card) -> dict:
 
 def time_training_kernels(device, card) -> dict:
     """K1, K2, K3 and K4 at the training step's shapes: CUDA events around
-    the wrapper and, for K1, K2 and K3, the kernels' device time from
-    torch.profiler, beside their bounds from these shapes, their plain
-    versions and, for K3 and K4, the one PyTorch call that computes the same
-    function; K2's achieved TFLOP/s from its device time; K3 also on skewed
-    ids (Zipf, a hub row holding half of T)."""
+    the wrapper and the kernels' device time from torch.profiler, beside
+    their bounds from these shapes, their plain versions and, for K3 and
+    K4, the one PyTorch call that computes the same function (by events and
+    on the device); K1's and K2's achieved TFLOP/s from their device time;
+    K3 and K4 also on skewed ids (Zipf, a hub row holding half of T)."""
     out = {}
     E, dt = 4 * TRAIN_BATCH, "bfloat16"
     for L in (3, 4, 5):
@@ -1113,16 +1160,20 @@ def time_training_kernels(device, card) -> dict:
                 lambda: acc.index_add_(0, idx64, g32)),
             "library": "torch.Tensor.index_add_",
             "bound_ms": k3_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
-        if kind == "uniform":
-            out["K4"] = {
-                "T": T, "n": n,
-                "ms": cuda_ms(lambda: ts.bincount_cuda(idx, n)),
-                "plain_ms": cuda_ms(lambda: ts.bincount_plain(idx, n)),
-                "library_ms": cuda_ms(lambda: torch.bincount(idx64,
-                                                             minlength=n)),
-                "library": "torch.bincount",
-                "bound_ms": (T * 4 + n * 4) / PEAK_BYTES * 1e3,
-                "bound_by": "bytes"}
+        k4 = "K4" if kind == "uniform" else f"K4_{kind}"
+        out[k4] = {
+            "T": T, "n": n, "ids": kind,
+            "ms": cuda_ms(lambda: ts.bincount_cuda(idx, n)),
+            "device_ms": device_ms_per_call(
+                lambda: ts.bincount_cuda(idx, n)),
+            "plain_ms": cuda_ms(lambda: ts.bincount_plain(idx, n)),
+            "library_ms": cuda_ms(lambda: torch.bincount(idx64,
+                                                         minlength=n)),
+            "library_device_ms": device_ms_per_call(
+                lambda: torch.bincount(idx64, minlength=n)),
+            "library": "torch.bincount",
+            "bound_ms": (T * 4 + n * 4) / PEAK_BYTES * 1e3,
+            "bound_by": "bytes"}
     print(json.dumps({"metric": "training_kernels", **out, "card": card}),
           flush=True)
     return out
@@ -1150,8 +1201,8 @@ def same(a: dict, b: dict, keys=("bce", "recon")) -> float:
 
 
 def fit_phase(problem, genome, card) -> dict:
-    """Phase 8: Trainer.fit at full width with the fused tail and the
-    "pallas" proposals (stage 1, then stage 2 with eval, checkpoints and
+    """Phase 8: Trainer.fit at full width on the opt-in kernels' path, the
+    fused tail and the "pallas" proposals (stage 1, then stage 2 with eval, checkpoints and
     the embedding export), its launches per epoch, and a resume from the
     epoch-1 snapshot; -> the stage-2 launch counts, the walls and the
     results."""
@@ -1185,8 +1236,8 @@ def fit_phase(problem, genome, card) -> dict:
         fail(f"fit stage 1 launched {got1}, expected {want1}")
     p1 = _tree_map(lambda t: t.detach().clone(), s1.params)
 
-    # stage 2, the main path's run: counts zeroed just before, read after
-    # every epoch (at its valid line)
+    # stage 2, the opt-in path's run: counts zeroed just before, read
+    # after every epoch (at its valid line)
     tmp = tempfile.mkdtemp()
     ck = os.path.join(tmp, "model.chkpt")
     emb = os.path.join(tmp, "embeddings.npy")
@@ -1353,6 +1404,10 @@ def time_new_kernels(device, card) -> dict:
              lambda: ft.fused_tail_fwd_cuda(y, h, *p, 99, 0.3, 0.4, True),
              lambda: ft.fused_tail_plain(y, h, *p, 99, 0.3, 0.4, True),
              fwd_bytes, 4 * T * d * d),
+            ("K6_fwd_eval",
+             lambda: ft.fused_tail_fwd_cuda(y, h, *p, 99, 0.3, 0.4, False),
+             lambda: ft.fused_tail_plain(y, h, *p, 99, 0.3, 0.4, False),
+             fwd_bytes, 4 * T * d * d),
             ("K6_bwd",
              lambda: ft.fused_tail_bwd_cuda(y, h, *p, g, 99, 0.3, 0.4, True),
              lambda: ft.fused_tail_bwd_plain(y, h, *p, g, 99, 0.3, 0.4,
@@ -1360,7 +1415,8 @@ def time_new_kernels(device, card) -> dict:
              bwd_bytes, 12 * T * d * d)):
         b_ms, b_by = bound_ms(flops, nbytes, "bfloat16")
         dev = device_ms_per_call(fn)
-        out[name] = {"T": T, "d": d, "dtype": "bfloat16", "train": True,
+        out[name] = {"T": T, "d": d, "dtype": "bfloat16",
+                     "train": not name.endswith("eval"),
                      "ms": cuda_ms(fn), "device_ms": dev,
                      "plain_ms": cuda_ms(plain, iters=5),
                      "bound_ms": b_ms, "bound_by": b_by,
@@ -1447,6 +1503,103 @@ def step_ab(problem, card) -> dict:
     return out
 
 
+def small_model_phase(genome, device, card) -> dict:
+    """Phase 10: a model whose shapes the fixed-width kernels do not take
+    (dim 16, 4 heads, k = 2, 3, f32) with the fused tail on.  One
+    train_step ("xla" proposals), one predict_proba and one k = 7
+    sample_negatives with propose_impl="pallas" on the card, each with the
+    counts zeroed just before and read just after; the same step with
+    dropout off against the CPU, and the probabilities against the
+    CPU's."""
+    set_fuse_tail(True)
+    ks, dim, n_head = (2, 3), 16, 4
+    rng = np.random.default_rng(SEED + 20)
+    n = genome.num_nodes
+    intra = rng.random((n, n)).astype(np.float32)
+    inter = rng.random((n, n)).astype(np.float32)
+    dims = ModelDims(dim=dim, n_head=n_head, num_chroms=genome.num_chroms,
+                     num_nodes=n, compute_dtype="float32")
+    sizes = [int(e - s) for s, e in genome.chrom_range]
+    params = init_model(torch.Generator().manual_seed(SEED), dims, sizes,
+                        device=device)
+    frozen = build_frozen_tables(genome, intra + intra.T, inter,
+                                 device=device)
+    buckets = random_buckets(genome, rng, 4 * TRAIN_BATCH, ks)
+    blooms = build_bloom_dict({k: v[0] for k, v in buckets.items()},
+                              device=device)
+    table = ChromTable.from_genome(genome, device=device)
+    trainer = Trainer(params, frozen, dims, table,
+                      TrainSettings(alpha=1.0, beta=0.001, neg_num=3,
+                                    max_trials=8, token_stream="merged",
+                                    propose_impl="xla"),
+                      blooms=blooms, seed=SEED + 21)
+    batch = {k: (torch.from_numpy(e[:TRAIN_BATCH]).to(device),
+                 torch.from_numpy(w[:TRAIN_BATCH]).to(device))
+             for k, (e, w) in buckets.items()}
+    never = ("K1", "K2", "K5", "K6_fwd", "K6_bwd")
+    zero_launch_counts()
+    aux = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step = launch_counts()
+    want = {k: 0 for k in step}
+    want.update(K3=1, K4=1)
+    losses = [float(aux["bce"]), float(aux["recon"])]
+    print(f"small model (dim {dim}, {n_head} heads, k = {list(ks)}): one "
+          f"train_step launched {step} (expected {want}); bce, recon "
+          f"{losses}", flush=True)
+    if step != want or not np.isfinite(losses).all():
+        fail(f"the dim-{dim} step launched {step} or lost finiteness")
+    check = check_deterministic_step(trainer, buckets, device, ks)
+
+    samples = [list(r) for k in ks for r in buckets[k][0][:CHECK_PER_K]]
+    zero_launch_counts()
+    p_card = predict_proba(params, frozen, dims, samples, BATCH)
+    serve = launch_counts()
+    p_cpu = predict_proba(_tree_map(lambda t: t.cpu(), params),
+                          frozen._replace(
+                              features=tuple(f.cpu() for f in
+                                             frozen.features),
+                              attr_table=frozen.attr_table.cpu(),
+                              inter_z=frozen.inter_z.cpu(),
+                              chrom_of_node=frozen.chrom_of_node.cpu(),
+                              chrom_bounds=frozen.chrom_bounds.cpu()),
+                          dims, samples, BATCH)
+    err = float(np.abs(p_card - p_cpu).max())
+    print(f"small model predict_proba of {len(samples)} candidates: "
+          f"launches {serve}; vs the CPU max_abs_err={err:.3e} (tol "
+          f"{TOL_PROBA_F32})", flush=True)
+    if any(serve[k] for k in never) or not np.isfinite(p_card).all() \
+            or err > TOL_PROBA_F32:
+        fail("the dim-16 model's scoring disagrees with the CPU or "
+             "launched a fixed-width kernel")
+
+    wide = random_buckets(genome, rng, 512, (7,))[7][0]
+    zero_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        neg = sample_negatives(torch.Generator().manual_seed(SEED + 22),
+                               torch.from_numpy(wide).to(device), table, 0,
+                               tb.build_bloom(wide, device=device),
+                               propose_impl="pallas")
+    k7 = launch_counts()
+    warned = [str(w.message) for w in caught
+              if "fell back to XLA" in str(w.message)]
+    valid = bool((neg[:, 1:] > neg[:, :-1]).all())
+    print(f"k = 7 sample_negatives with propose_impl='pallas': warned "
+          f"{warned}; launches {k7}; {neg.shape[0]} sorted negatives "
+          f"{valid}", flush=True)
+    if not warned or k7["K5"] or not valid \
+            or neg.shape != (3 * len(wide), 7):
+        fail("the k = 7 'pallas' sampler call did not warn, launched K5 or "
+             "gave invalid negatives")
+    out = {"metric": "shapes_the_kernels_do_not_take", "dim": dim,
+           "n_head": n_head, "ks": list(ks), "step_launches": step,
+           "predict_launches": serve, "k7_sampler_launches": k7,
+           "step_vs_cpu": check, "proba_max_abs_err": err, "card": card}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1469,6 +1622,7 @@ def main():
     worst_bwd = check_backward(device)
     worst_scatter = max(check_scatter_bincount(device),
                         check_scatter_skewed(device))
+    check_bincount(device)
     check_bloom(device)
     check_propose(device)
     worst_tail = check_fused_tail(device)
@@ -1564,11 +1718,15 @@ def main():
     train = train_phase(genome, device, card)
     tk = time_training_kernels(device, card)
 
-    # 8. Trainer.fit, the main path; 9. its kernels' and step's times
+    # 8. Trainer.fit on the opt-in kernels' path; 9. its kernels' and
+    # step's times
     fit = fit_phase(train["problem"], genome, card)
     counts = fit["counts"]
     nk = time_new_kernels(device, card)
     step_ab(train["problem"], card)
+
+    # 10. shapes the kernels do not take
+    small_model_phase(genome, device, card)
 
     k2 = tk["K2_L5"]
     k5 = nk["K5_k5"]
@@ -1615,11 +1773,16 @@ def main():
         {"name": "bincount", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",
          "replaces": "matcha_tpu/ops/table_scatter.py:112",
+         "route_note": "one thread-block cluster: per-block histograms "
+                       "summed through distributed shared memory (n <= "
+                       "16,384), else one histogram banded over the blocks",
          "launches": counts["K4"], "launches_step_path": step_path["K4"],
          "max_abs_err": 0.0,
-         "ms": tk["K4"]["ms"], "plain_ms": tk["K4"]["plain_ms"],
+         "ms": tk["K4"]["ms"], "device_ms": tk["K4"]["device_ms"],
+         "plain_ms": tk["K4"]["plain_ms"],
          "bound_ms": tk["K4"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": tk["K4"]["library_ms"]},
+         "library_ms": tk["K4"]["library_ms"],
+         "library_device_ms": tk["K4"]["library_device_ms"]},
         {"name": "propose_phase1", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/propose.cu",
          "replaces": "matcha_tpu/ops/propose.py:94",
@@ -1631,7 +1794,11 @@ def main():
         {"name": "fused_tail_fwd", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/fused_tail.cu",
          "replaces": "matcha_tpu/ops/fused_tail.py:240",
+         "tc_route": "bf16: wgmma, two blocks of two warpgroups per SM over "
+                     "tiles of 64 tokens; f32: CUDA cores",
          "launches": counts["K6_fwd"],
+         "tflops_achieved": nk["K6_fwd"]["tflops_achieved"],
+         "device_ms_eval": nk["K6_fwd_eval"]["device_ms"],
          "max_abs_err": worst_tail["fwd_abs_bf16"],
          "max_err_rel_to_max_f32": worst_tail["float32"],
          "ms": nk["K6_fwd"]["ms"], "device_ms": nk["K6_fwd"]["device_ms"],

@@ -28,8 +28,8 @@
 // 1.9 us on the tensor cores).  Backward: y, h, g read, gy, gh written
 // (59 MB) -> 17.7 us (5.6 GFLOP -> 5.7 us).
 //
-// Forward, and the backward's f32 route: one warp works on one token at a
-// time, each lane owning features c = lane and lane + 32; w1, w2 (row stride
+// The f32 routes of the forward and the backward: one warp works on one
+// token at a time, each lane owning features c = lane and lane + 32; w1, w2 (row stride
 // 65, so both W and W^T reads are free of bank conflicts), the LayerNorm
 // params, b1, b2 and wc sit in shared memory, and the token's vectors stay
 // in registers and a per-warp shared row.  The two 64x64 products run as f32
@@ -41,6 +41,17 @@
 // warp order, and writes one f32 scratch slice; a second kernel adds the
 // slices in block order.  No float atomics: the same bits on every run for
 // one card model.
+//
+// The forward's bf16 route (fused_tail_fwd_tc_kernel, chosen inside
+// matcha_fused_tail_fwd by y's dtype) runs both products on the tensor cores
+// through tile_fwd, the same code as the backward's recompute below (so the
+// two cannot drift): a persistent grid, two blocks of two warpgroups per SM,
+// each warpgroup walking tiles of 64 tokens with the next tile's y and h
+// prefetched by cp.async; d0 is rounded and kept as the first product's A
+// fragments, h1 = tanh(d0 w1 + b1) and hd come out of the accumulator as the
+// second product's A fragments, and o, the three LayerNorms and pp stay in
+// the accumulator layout.  Without weight-grad accumulators it fits 128
+// registers a thread, so 16 warps share an SM (the backward has 8).
 //
 // The backward's bf16 route (fused_tail_bwd_tc_kernel, chosen inside
 // matcha_fused_tail_bwd by y's dtype) runs its four products and both
@@ -69,6 +80,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 #include "mma_bf16.cuh"
 
@@ -100,22 +113,17 @@ struct Args {
   const float* bc;
   int T;
   uint32_t key0, key1;
+  uint32_t thr0, thr1;  // keep iff (bits >> 8) >= thr: the integer form of u >= rate
   int use_m0, use_m1;
   float r0, r1, s0, s1;
 };
 
+// The CUDA-core kernels below are the f32 routes (bf16 takes the tensor-core
+// kernels), so their loads, stores and roundings to T are those of f32; rnd
+// marks where the chain rounds to the compute dtype.
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
 __device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
 __device__ __forceinline__ float rnd(float v, const float*) { return v; }
-__device__ __forceinline__ float rnd(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   // butterfly: every lane ends with the same bits (IEEE addition commutes)
@@ -130,6 +138,18 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   return x ^ (x >> 16);
+}
+
+// u = (bits >> 8) * 2^-24 is a 24-bit integer times a power of two, so u >=
+// rate exactly when (bits >> 8) >= ceil(rate * 2^24): the threshold of
+// kept_bit, computed once per launch
+inline uint32_t keep_threshold(float rate) {
+  const double t = std::ceil((double)rate * 16777216.0);
+  return t <= 0.0 ? 0u : (t >= 16777216.0 ? 16777216u : (uint32_t)t);
+}
+
+__device__ __forceinline__ bool kept_bit(uint32_t key, uint32_t idx, uint32_t thr) {
+  return (fmix32(key + idx * 0x9E3779B9u) >> 8) >= thr;
 }
 
 __device__ __forceinline__ float keep(uint32_t key, uint32_t idx, float rate, float scale) {
@@ -556,13 +576,23 @@ __device__ __forceinline__ void normalize(float (&x)[32], const float (&mu)[2],
   for (int k = 0; k < 32; ++k) x[k] = (x[k] - mu[row_of(k)]) * inv[row_of(k)];
 }
 
-// in place: xhat -> round(xhat * g + b) to bf16
+// in place: two floats rounded to bf16 (one conversion for both)
+__device__ __forceinline__ void round_pair(float& x0, float& x1) {
+  const float2 f = __bfloat1622float2(__floats2bfloat162_rn(x0, x1));
+  x0 = f.x;
+  x1 = f.y;
+}
+
+// in place: xhat -> round(xhat * g + b) to bf16 (entries k, k + 1 are
+// columns c, c + 1 of one row)
 __device__ __forceinline__ void affine_bf16(float (&x)[32], const float* g, const float* b,
                                             int fc) {
 #pragma unroll
-  for (int k = 0; k < 32; ++k) {
+  for (int k = 0; k < 32; k += 2) {
     const int c = col_of(k, fc);
-    x[k] = __bfloat162float(__float2bfloat16_rn(x[k] * g[c] + b[c]));
+    x[k] = x[k] * g[c] + b[c];
+    x[k + 1] = x[k + 1] * g[c + 1] + b[c + 1];
+    round_pair(x[k], x[k + 1]);
   }
 }
 
@@ -630,18 +660,230 @@ __device__ __forceinline__ void add2(float2& a, float2 b) {
   a.y += b.y;
 }
 
+// w1 and w2 as bf16 tiles W[k][n] (read as W, B_KN, and as W^T) at w and w
+// + TILE_ELEMS; ln6, b1, b2 and wc (f32) from f on
+__device__ __forceinline__ void load_tc_params(const Args& a, __nv_bfloat16* w, float* f) {
+  for (int i = threadIdx.x; i < 2 * D * (D / 4); i += NT) {
+    const int mat = i / (D * D / 4), rem = i % (D * D / 4);
+    const int row = rem / (D / 4), col = (rem % (D / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>((mat ? a.w2 : a.w1) + row * D + col);
+    __nv_bfloat162* dst =
+        reinterpret_cast<__nv_bfloat162*>(w + mat * TILE_ELEMS + mma_bf16::blk(row, col));
+    dst[0] = __floats2bfloat162_rn(v.x, v.y);
+    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+  for (int i = threadIdx.x; i < 6 * D; i += NT) f[i] = a.ln6[i];
+  for (int i = threadIdx.x; i < D; i += NT) {
+    f[6 * D + i] = a.b1[i];
+    f[7 * D + i] = a.b2[i];
+    f[8 * D + i] = a.wc[i];
+  }
+}
+
+// The dropout masks of this thread's 32 entries of the tile at token t0, one
+// bit each (set = kept; all set where a dropout is off)
+__device__ __forceinline__ void tile_masks(const Args& a, size_t t0, int q, int fg, int fc,
+                                           uint32_t& keep0, uint32_t& keep1) {
+  keep0 = keep1 = 0u;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const uint32_t idx = (uint32_t)((t0 + 16 * q + fg + 8 * row_of(k)) * D + col_of(k, fc));
+    if (!a.use_m0 || kept_bit(a.key0, idx, a.thr0)) keep0 |= 1u << k;
+    if (!a.use_m1 || kept_bit(a.key1, idx, a.thr1)) keep1 |= 1u << k;
+  }
+}
+
+// the LayerNorm statistics of a tile's two rows per thread that the backward
+// uses again
+struct TileStats {
+  float mu_o[2], inv_o[2], mu_d[2], inv_d[2], mu_s[2], inv_s[2];
+};
+
+// The forward chain of one warpgroup's tile of 64 tokens, shared by the
+// forward and the backward (its steps 1-3), in the accumulator layout:
+//   1. d0 = round(y * m0), into td0 (which may be ty itself) and kept as
+//      A fragments;
+//   2. h1 = tanh(d0 w1 + b1), hd = round(h1 * m1);
+//   3. o = round(hd w2 + b2 + d0), dyn = round(LN(o)), dynamic =
+//      round(LN(dyn)), static = round(LN(h)) and diff = dynamic - static
+//      (f32) into diff.
+// Rows of y and h at or past `valid` read as zeros.  Every tile access is to
+// this thread's own entries.  BWD also keeps what the backward needs again:
+// hd in thd, o in to, dyn in tdyn (exact in bf16), 1 - h1^2 in dts (stride
+// 128) and the statistics in st.
+template <bool BWD>
+__device__ __forceinline__ void tile_fwd(const Args& a, const __nv_bfloat16* w1,
+                                         const __nv_bfloat16* w2, const float* ln6,
+                                         const float* b1, const float* b2,
+                                         const __nv_bfloat16* ty, __nv_bfloat16* td0,
+                                         const __nv_bfloat16* th, __nv_bfloat16* thd,
+                                         __nv_bfloat16* to, __nv_bfloat16* tdyn, float* dts,
+                                         uint32_t keep0, uint32_t keep1, int valid, int q,
+                                         int fg, int fc, float (&diff)[32], TileStats& st) {
+  using mma_bf16::acc_to_a;
+  using mma_bf16::store_bf16;
+  using mma_bf16::wg_issue_a;
+  using mma_bf16::wg_wait;
+  auto m0 = [&](int k) { return (keep0 >> k) & 1u ? a.s0 : 0.f; };
+  auto m1 = [&](int k) { return (keep1 >> k) & 1u ? a.s1 : 0.f; };
+  uint32_t fa[4][4];
+  {
+    float d0[32];
+    tile_to_acc(ty, q, fg, fc, valid, d0);
+    if (a.use_m0) {
+#pragma unroll
+      for (int k = 0; k < 32; k += 2) {
+        d0[k] *= m0(k);
+        d0[k + 1] *= m0(k + 1);
+        round_pair(d0[k], d0[k + 1]);
+      }
+    }
+    // without the dropout d0 is y: the forward (td0 == ty) has it already
+    if (BWD || a.use_m0) store_bf16(d0, td0, q, fg, fc);
+    acc_to_a(d0, fa);
+  }
+  {
+    float acc[32];
+    wg_issue_a<true, 64>(acc, fa, w1, 0, false);
+    wg_wait(acc);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const float h1 = tanhf(acc[k] + b1[col_of(k, fc)]);
+      if constexpr (BWD) dts[k * 128] = 1.0f - h1 * h1;
+      acc[k] = a.use_m1 ? h1 * m1(k) : h1;
+    }
+#pragma unroll
+    for (int k = 0; k < 32; k += 2) round_pair(acc[k], acc[k + 1]);
+    if constexpr (BWD) store_bf16(acc, thd, q, fg, fc);
+    acc_to_a(acc, fa);
+  }
+  float o[32];
+  {
+    float d0[32];
+    wg_issue_a<true, 64>(o, fa, w2, 0, false);
+    tile_to_acc(td0, q, fg, fc, valid, d0);
+    wg_wait(o);
+#pragma unroll
+    for (int k = 0; k < 32; k += 2) {
+      o[k] = (o[k] + b2[col_of(k, fc)]) + d0[k];
+      o[k + 1] = (o[k + 1] + b2[col_of(k + 1, fc)]) + d0[k + 1];
+      round_pair(o[k], o[k + 1]);
+    }
+  }
+  if constexpr (BWD) store_bf16(o, to, q, fg, fc);
+  ln_stats(o, st.mu_o, st.inv_o);
+  normalize(o, st.mu_o, st.inv_o);
+  affine_bf16(o, ln6, ln6 + D, fc);  // o <- dyn
+  if constexpr (BWD) store_bf16(o, tdyn, q, fg, fc);
+  ln_stats(o, st.mu_d, st.inv_d);
+  normalize(o, st.mu_d, st.inv_d);
+  affine_bf16(o, ln6 + 2 * D, ln6 + 3 * D, fc);  // o <- dynamic
+  tile_to_acc(th, q, fg, fc, valid, diff);
+  ln_stats(diff, st.mu_s, st.inv_s);
+  normalize(diff, st.mu_s, st.inv_s);
+  affine_bf16(diff, ln6 + 4 * D, ln6 + 5 * D, fc);  // static
+#pragma unroll
+  for (int k = 0; k < 32; ++k) diff[k] = o[k] - diff[k];
+}
+
+// This warp's 16 rows of y and h of the tile at token t0 into the buffers ty
+// and th (rows past T are not copied), with cp.async, as one commit group
+__device__ __forceinline__ void prefetch_rows(const Args& a, size_t t0, __nv_bfloat16* ty,
+                                              __nv_bfloat16* th, int q, int lane) {
+  const __nv_bfloat16* y = static_cast<const __nv_bfloat16*>(a.y);
+  const __nv_bfloat16* h = static_cast<const __nv_bfloat16*>(a.h);
+  for (int i = lane; i < 2 * 16 * (D / 8); i += 32) {
+    const int which = i / (16 * (D / 8)), r = 16 * q + (i / (D / 8)) % 16;
+    const int c = 8 * (i % (D / 8));
+    if (t0 + r < (size_t)a.T)
+      mma_bf16::cp_async16((which ? th : ty) + mma_bf16::blk(r, c),
+                           (which ? h : y) + (t0 + r) * D + c);
+  }
+  mma_bf16::cp_async_commit();
+}
+
+// The forward's bf16 route: tiles of y and h per warpgroup (two buffers
+// each, the next tile's copy in flight) after w1, w2 and the f32 params
+constexpr int FWD_TC_TILES = N_BT + 2 * 4;
+constexpr int FWD_TC_SMEM = FWD_TC_TILES * TILE_ELEMS * 2 + TC_PARAMS * 4;
+static_assert(2 * (FWD_TC_SMEM + 1024) <= 233472, "two forward blocks per SM");
+
+// A persistent grid of blocks of two warpgroups, two blocks per SM (16
+// warps: with no weight-grad accumulators the forward fits 128 registers a
+// thread); each warpgroup walks tiles of 64 tokens of its own, the next
+// tile's y and h prefetched with cp.async.  Every warp reads and writes only
+// its own 16 rows of its tiles (the products read their A operand from
+// registers and only the weights from shared memory), so a tile needs only
+// one warpgroup barrier, where its copy lands.  pp = sum_c diff^2 wc + bc
+// per row: a thread's 16 columns of each of its two rows, the quad's two
+// shuffles, and one lane per token writes.
+__global__ void __launch_bounds__(NT, 2) fused_tail_fwd_tc_kernel(Args a, float* __restrict__ pp) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem4);
+  float* ln6 = reinterpret_cast<float*>(tiles + FWD_TC_TILES * TILE_ELEMS);
+  const float* b1 = ln6 + 6 * D;
+  const float* b2 = b1 + D;
+  const float* wc = b2 + D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = warp & 3, grp = warp >> 2, fg = lane >> 2, fc = lane & 3;
+  bf16* mine = tiles + (N_BT + grp * 4) * TILE_ELEMS;  // y (two buffers), h (two buffers)
+  load_tc_params(a, tiles, ln6);
+  mma_bf16::async_fence();
+  __syncthreads();
+  const float bc = a.bc[0];
+
+  const int n_tiles = (a.T + TC_ROWS - 1) / TC_ROWS;
+  const int n_wg = 2 * gridDim.x, w = 2 * blockIdx.x + grp;
+  if (w < n_tiles) prefetch_rows(a, (size_t)w * TC_ROWS, mine, mine + 2 * TILE_ELEMS, q, lane);
+  int buf = 0;
+  for (int ti = w; ti < n_tiles; ti += n_wg, buf ^= 1) {
+    const size_t t0 = (size_t)ti * TC_ROWS;
+    const int valid = a.T - t0 < (size_t)TC_ROWS ? (int)(a.T - t0) : TC_ROWS;
+    bf16* ty = mine + buf * TILE_ELEMS;
+    bf16* th = mine + (2 + buf) * TILE_ELEMS;
+    mma_bf16::cp_async_wait_all();
+    // the copies are visible, and the warpgroup's warps start the tile's
+    // products together, as in the backward
+    mma_bf16::wg_sync(grp);
+    if (ti + n_wg < n_tiles)
+      prefetch_rows(a, t0 + (size_t)n_wg * TC_ROWS, mine + (buf ^ 1) * TILE_ELEMS,
+                    mine + (3 - buf) * TILE_ELEMS, q, lane);
+    uint32_t keep0, keep1;
+    tile_masks(a, t0, q, fg, fc, keep0, keep1);
+    float diff[32];
+    TileStats st;
+    // d0 overwrites y in place: each thread reads its entries before it
+    // writes them
+    tile_fwd<false>(a, tiles, tiles + TILE_ELEMS, ln6, b1, b2, ty, ty, th, nullptr, nullptr,
+                    nullptr, nullptr, keep0, keep1, valid, q, fg, fc, diff, st);
+    float p[2][8], rs[2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = 4 * j + 2 * hh, c = col_of(k, fc);
+        p[hh][j] = diff[k] * diff[k] * wc[c] + diff[k + 1] * diff[k + 1] * wc[c + 1];
+      }
+    row_sums(p, rs);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * q + fg + 8 * hh;
+      if (fc == 0 && r < valid) pp[t0 + r] = rs[hh] + bc;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(NT, 1)
     fused_tail_bwd_tc_kernel(Args a, const float* __restrict__ g, __nv_bfloat16* __restrict__ gy,
                              __nv_bfloat16* __restrict__ gh, float* __restrict__ scratch) {
   using mma_bf16::acc_to_a;
   using mma_bf16::async_fence;
-  using mma_bf16::blk;
   using mma_bf16::store_bf16;
   using mma_bf16::wg_issue_a;
   using mma_bf16::wg_sync;
   using mma_bf16::wg_wait;
   using bf16 = __nv_bfloat16;
-  using bf162 = __nv_bfloat162;
   extern __shared__ float4 smem4[];
   bf16* tiles = reinterpret_cast<bf16*>(smem4);
   float* ln6 = reinterpret_cast<float*>(tiles + TC_TILES * TILE_ELEMS);
@@ -654,24 +896,8 @@ __global__ void __launch_bounds__(NT, 1)
   bf16* mine = tiles + (N_BT + grp * N_PT) * TILE_ELEMS;
   auto wt = [&](int i) { return tiles + i * TILE_ELEMS; };
   auto pt = [&](int i) { return mine + i * TILE_ELEMS; };
-  const bf16* y = static_cast<const bf16*>(a.y);
-  const bf16* h = static_cast<const bf16*>(a.h);
 
-  // w1 and w2 as bf16 tiles W[k][n], read as W (B_KN) and as W^T
-  for (int i = tid; i < 2 * D * (D / 4); i += NT) {
-    const int mat = i / (D * D / 4), rem = i % (D * D / 4);
-    const int row = rem / (D / 4), col = (rem % (D / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>((mat ? a.w2 : a.w1) + row * D + col);
-    bf162* dst = reinterpret_cast<bf162*>(wt(B_W1 + mat) + blk(row, col));
-    dst[0] = __floats2bfloat162_rn(v.x, v.y);
-    dst[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-  for (int i = tid; i < 6 * D; i += NT) ln6[i] = a.ln6[i];
-  for (int i = tid; i < D; i += NT) {
-    b1[i] = a.b1[i];
-    b2[i] = a.b2[i];
-    wc[i] = a.wc[i];
-  }
+  load_tc_params(a, wt(B_W1), ln6);
   async_fence();
   __syncthreads();
 
@@ -679,15 +905,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int n_wg = 2 * gridDim.x, w = 2 * blockIdx.x + grp;
   // this warp's 16 rows of y and h of tile ti into buffer b, with cp.async
   auto prefetch = [&](int ti, int b) {
-    const size_t t0 = (size_t)ti * TC_ROWS;
-    for (int i = lane; i < 2 * 16 * (D / 8); i += 32) {
-      const int which = i / (16 * (D / 8)), r = 16 * q + (i / (D / 8)) % 16;
-      const int c = 8 * (i % (D / 8));
-      if (t0 + r < (size_t)a.T)
-        mma_bf16::cp_async16(pt((which ? P_H : P_Y) + b) + blk(r, c),
-                             (which ? h : y) + (t0 + r) * D + c);
-    }
-    mma_bf16::cp_async_commit();
+    prefetch_rows(a, (size_t)ti * TC_ROWS, pt(P_Y + b), pt(P_H + b), q, lane);
   };
 
   float gw1[32], gw2[32];  // this warpgroup's gw1 / gw2 over all its tiles
@@ -712,75 +930,19 @@ __global__ void __launch_bounds__(NT, 1)
     if (ti + n_wg < n_tiles) prefetch(ti + n_wg, buf ^ 1);
 
     // masks of this thread's entries, one bit each
-    uint32_t keep0 = 0u, keep1 = 0u;
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const uint32_t idx = (uint32_t)((t0 + 16 * q + fg + 8 * ((k >> 1) & 1)) * D + col_of(k, fc));
-      if (!a.use_m0 || keep(a.key0, idx, a.r0, 1.f) != 0.f) keep0 |= 1u << k;
-      if (!a.use_m1 || keep(a.key1, idx, a.r1, 1.f) != 0.f) keep1 |= 1u << k;
-    }
+    uint32_t keep0, keep1;
+    tile_masks(a, t0, q, fg, fc, keep0, keep1);
     auto m0 = [&](int k) { return (keep0 >> k) & 1u ? a.s0 : 0.f; };
     auto m1 = [&](int k) { return (keep1 >> k) & 1u ? a.s1 : 0.f; };
 
-    // 1. d0 = round(y * m0), staged for gw1 and kept as A fragments
-    uint32_t fa[4][4];
-    {
-      float d0[32];
-      tile_to_acc(pt(P_Y + buf), q, fg, fc, valid, d0);
-      if (a.use_m0) {
-#pragma unroll
-        for (int k = 0; k < 32; ++k) d0[k] = __bfloat162float(__float2bfloat16_rn(d0[k] * m0(k)));
-      }
-      store_bf16(d0, pt(P_D0), q, fg, fc);
-      acc_to_a(d0, fa);
-    }
-    // 2. h1 = tanh(d0 w1 + b1), hd = round(h1 * m1); 1 - h1^2 kept in
-    //    shared memory until step 5
-    {
-      float acc[32];
-      wg_issue_a<true, 64>(acc, fa, wt(B_W1), 0, false);
-      wg_wait(acc);
-#pragma unroll
-      for (int k = 0; k < 32; ++k) {
-        const float h1 = tanhf(acc[k] + b1[col_of(k, fc)]);
-        dts[k * 128] = 1.0f - h1 * h1;
-        acc[k] = __bfloat162float(__float2bfloat16_rn(a.use_m1 ? h1 * m1(k) : h1));
-      }
-      store_bf16(acc, pt(P_HD), q, fg, fc);
-      acc_to_a(acc, fa);
-    }
-    // 3. o = round(hd w2 + b2 + d0), then the three LayerNorms (statistics
-    //    kept; o and dyn, exact in bf16, parked in the g_o and g_a1 tiles
-    //    until their xhat is needed again) and diff = dynamic - static.
-    //    Every tile access here is to this thread's own entries.
+    // 1-3. the forward chain (tile_fwd): d0 staged for gw1, hd for gw2, o
+    //    and dyn parked in the g_o and g_a1 tiles until their xhat is
+    //    needed again, 1 - h1^2 kept until step 5; diff = dynamic - static
     float gd[32];  // diff, then g_diff, then g_dyn, then g_o
-    float mu_o[2], inv_o[2], mu_d[2], inv_d[2], mu_s[2], inv_s[2], gt[2];
-    {
-      float o[32];
-      {
-        float d0[32];
-        wg_issue_a<true, 64>(o, fa, wt(B_W2), 0, false);
-        tile_to_acc(pt(P_D0), q, fg, fc, TC_ROWS, d0);
-        wg_wait(o);
-#pragma unroll
-        for (int k = 0; k < 32; ++k)
-          o[k] = __bfloat162float(__float2bfloat16_rn((o[k] + b2[col_of(k, fc)]) + d0[k]));
-      }
-      store_bf16(o, pt(P_GO), q, fg, fc);
-      ln_stats(o, mu_o, inv_o);
-      normalize(o, mu_o, inv_o);
-      affine_bf16(o, ln6, ln6 + D, fc);  // o <- dyn
-      store_bf16(o, pt(P_GA1), q, fg, fc);
-      ln_stats(o, mu_d, inv_d);
-      normalize(o, mu_d, inv_d);
-      affine_bf16(o, ln6 + 2 * D, ln6 + 3 * D, fc);  // o <- dynamic
-      tile_to_acc(pt(P_H + buf), q, fg, fc, valid, gd);
-      ln_stats(gd, mu_s, inv_s);
-      normalize(gd, mu_s, inv_s);
-      affine_bf16(gd, ln6 + 4 * D, ln6 + 5 * D, fc);  // static
-#pragma unroll
-      for (int k = 0; k < 32; ++k) gd[k] = o[k] - gd[k];
-    }
+    float gt[2];
+    TileStats st;
+    tile_fwd<true>(a, wt(B_W1), wt(B_W2), ln6, b1, b2, pt(P_Y + buf), pt(P_D0), pt(P_H + buf),
+                   pt(P_HD), pt(P_GO), pt(P_GA1), dts, keep0, keep1, valid, q, fg, fc, gd, st);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 16 * q + fg + 8 * hh;
@@ -799,29 +961,30 @@ __global__ void __launch_bounds__(NT, 1)
       }
       add2(col[8], col_sums<false>(v, v));
       tile_to_acc(pt(P_H + buf), q, fg, fc, valid, v);
-      normalize(v, mu_s, inv_s);  // xs
+      normalize(v, st.mu_s, st.inv_s);  // xs
       add2(col[4], col_sums<true, true>(gd, v));
       float ng[32];
 #pragma unroll
       for (int k = 0; k < 32; ++k) ng[k] = -gd[k];
-      ln_bwd_rows(ng, v, inv_s, ln6 + 4 * D, fc);  // g_h
+      ln_bwd_rows(ng, v, st.inv_s, ln6 + 4 * D, fc);  // g_h
       // out through y's buffer (y's last read was step 1)
       acc_to_rows(ng, pt(P_Y + buf), q, fg, fc);
       rows_out(pt(P_Y + buf), gh, t0, q, lane, valid);
       tile_to_acc(pt(P_GA1), q, fg, fc, TC_ROWS, v);
-      normalize(v, mu_d, inv_d);  // xd
+      normalize(v, st.mu_d, st.inv_d);  // xd
       add2(col[2], col_sums<true>(gd, v));
       add2(col[3], col_sums<false>(gd, gd));
-      ln_bwd_rows(gd, v, inv_d, ln6 + 2 * D, fc);  // g_dyn
+      ln_bwd_rows(gd, v, st.inv_d, ln6 + 2 * D, fc);  // g_dyn
       tile_to_acc(pt(P_GO), q, fg, fc, TC_ROWS, v);
-      normalize(v, mu_o, inv_o);  // xo
+      normalize(v, st.mu_o, st.inv_o);  // xo
       add2(col[0], col_sums<true>(gd, v));
       add2(col[1], col_sums<false>(gd, gd));
-      ln_bwd_rows(gd, v, inv_o, ln6, fc);  // g_o
+      ln_bwd_rows(gd, v, st.inv_o, ln6, fc);  // g_o
       add2(col[7], col_sums<false>(gd, gd));
     }
     float (&go)[32] = gd;
     store_bf16(go, pt(P_GO), q, fg, fc);
+    uint32_t fa[4][4];
     acc_to_a(go, fa);
     // 5. g_a1 = (g_o w2^T) * m1 * (1 - h1^2)
     {
@@ -929,6 +1092,8 @@ Args make_args(const void* y, const void* h, const void* ln6, const void* w1, co
   a.T = T;
   a.key0 = key0;
   a.key1 = key1;
+  a.thr0 = keep_threshold(r0);
+  a.thr1 = keep_threshold(r1);
   a.use_m0 = use_m0;
   a.use_m1 = use_m1;
   a.r0 = r0;
@@ -938,10 +1103,25 @@ Args make_args(const void* y, const void* h, const void* ln6, const void* w1, co
   return a;
 }
 
+// cudaFuncSetAttribute for the dynamic shared memory of a kernel, once per
+// device (the call costs host time)
+template <typename K>
+cudaError_t set_smem_once(K kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 // y, h (T, 64) f32 (is_bf16 = 0) or bf16; ln6 (6, 64), w1, w2 (64, 64), b1,
-// b2, wc (64,), bc (1,) f32 -> pp (T,) f32.  Returns the CUDA error (0 = ok).
+// b2, wc (64,), bc (1,) f32 -> pp (T,) f32.  bf16 takes the tensor-core
+// kernel (two blocks per SM, at most one tile of 64 tokens per warpgroup
+// more than the rest), f32 the CUDA-core kernel.  Returns the CUDA error (0 =
+// ok).
 extern "C" int matcha_fused_tail_fwd(const void* y, const void* h, const void* ln6,
                                      const void* w1, const void* b1, const void* w2,
                                      const void* b2, const void* wc, const void* bc, void* pp,
@@ -953,19 +1133,22 @@ extern "C" int matcha_fused_tail_fwd(const void* y, const void* h, const void* l
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a = make_args(y, h, ln6, w1, b1, w2, b2, wc, bc, T, key0, key1, use_m0, use_m1,
                            r0, r1, s0, s1);
-  int grid = (T + NWARP - 1) / NWARP;
-  grid = grid > 4 * sm_count() ? 4 * sm_count() : grid;
+  float* out = static_cast<float*>(pp);
   cudaError_t err;
   if (is_bf16) {
-    err = cudaFuncSetAttribute(fused_tail_fwd_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    fused_tail_fwd_kernel<__nv_bfloat16><<<grid, NT, FWD_SMEM, st>>>(a, static_cast<float*>(pp));
+    static bool done[64] = {};
+    if ((err = set_smem_once(fused_tail_fwd_tc_kernel, FWD_TC_SMEM, done)) != cudaSuccess)
+      return (int)err;
+    const int pairs = (T + 2 * TC_ROWS - 1) / (2 * TC_ROWS);
+    const int grid = pairs < 2 * sm_count() ? pairs : 2 * sm_count();
+    fused_tail_fwd_tc_kernel<<<grid, NT, FWD_TC_SMEM, st>>>(a, out);
   } else {
-    err = cudaFuncSetAttribute(fused_tail_fwd_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    fused_tail_fwd_kernel<float><<<grid, NT, FWD_SMEM, st>>>(a, static_cast<float*>(pp));
+    static bool done[64] = {};
+    if ((err = set_smem_once(fused_tail_fwd_kernel<float>, FWD_SMEM, done)) != cudaSuccess)
+      return (int)err;
+    int grid = (T + NWARP - 1) / NWARP;
+    grid = grid > 4 * sm_count() ? 4 * sm_count() : grid;
+    fused_tail_fwd_kernel<float><<<grid, NT, FWD_SMEM, st>>>(a, out);
   }
   return (int)cudaGetLastError();
 }
@@ -1002,15 +1185,15 @@ extern "C" int matcha_fused_tail_bwd(const void* y, const void* h, const void* l
   float* sc = static_cast<float*>(scratch);
   cudaError_t err;
   if (is_bf16) {
-    err = cudaFuncSetAttribute(fused_tail_bwd_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, TC_BWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
+    static bool done[64] = {};
+    if ((err = set_smem_once(fused_tail_bwd_tc_kernel, TC_BWD_SMEM, done)) != cudaSuccess)
+      return (int)err;
     fused_tail_bwd_tc_kernel<<<n_blocks, NT, TC_BWD_SMEM, st>>>(
         a, gg, static_cast<__nv_bfloat16*>(gy), static_cast<__nv_bfloat16*>(gh), sc);
   } else {
-    err = cudaFuncSetAttribute(fused_tail_bwd_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
+    static bool done[64] = {};
+    if ((err = set_smem_once(fused_tail_bwd_kernel<float>, BWD_SMEM, done)) != cudaSuccess)
+      return (int)err;
     fused_tail_bwd_kernel<float><<<n_blocks, NT, BWD_SMEM, st>>>(
         a, gg, static_cast<float*>(gy), static_cast<float*>(gh), sc);
   }

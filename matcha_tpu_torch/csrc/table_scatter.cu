@@ -38,11 +38,29 @@
 // the five launches are what this design pays above the bound.
 //
 // bincount replaces _count_kernel (through bincount_f32): counts of each id
-// in idx (T,) as (n_rows,) f32.  A shared-memory int histogram per block,
-// integer atomics into a global int32 histogram (exact, so deterministic),
-// then a conversion to f32.  Bound: bytes, idx read once + counts written.
-// Ids outside [0, n_rows) are ignored, as in scatter_add.
+// in idx (T,) as (n_rows,) f32, ids outside [0, n_rows) dropped as in
+// scatter_add.  Bound on this card: bytes, idx read once (T*4 B) and the
+// counts written once (n_rows*4 B): 0.47 MB at the step's T = 114,688,
+// n_rows = 3,068 -> 0.14 us at 3.35 TB/s, far below what one launch costs;
+// so the design is one launch and nothing else: no memset, no int scratch,
+// no conversion pass, no float atomics.  One thread-block cluster (16 blocks
+// where the card schedules a cluster that wide, else 8), each block reading a
+// contiguous chunk of idx in 16-byte vectors, one integer shared-memory
+// atomic per id (merging a warp's equal ids first with __match_any_sync, or
+// spreading a block's lanes over copies of its histogram, both measured
+// slower on the card, hub rows included):
+//   local route (n_rows <= BC_LOCAL_ROWS): each block counts its chunk into
+//     its own whole histogram; behind a cluster barrier, block b sums its
+//     band of rows over the blocks' histograms in rank order through
+//     distributed shared memory and writes the f32 counts;
+//   banded route (larger n_rows): the blocks' shared memories hold one
+//     histogram together, BC_BAND rows per block per pass; every id adds
+//     into the block that owns its row (a distributed-shared-memory
+//     atomic), and each block writes its band once the cluster has met.
+//     Tables beyond 16 * BC_BAND rows take several passes over idx.
+// Integer counts are exact, so the result is the same bits on every run.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +71,6 @@ constexpr int NT = 256;           // threads per block (count, place, bincount)
 constexpr int NWARP = NT / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_D = 1536;       // widest g row scatter_add takes
-constexpr int MAX_HIST = 49152;   // ids a shared bincount histogram holds (192 KB)
 // the place kernel keeps one histogram per warp: NWARP * n_rows ints in
 // shared memory up to this many rows (192 KB), else in global scratch
 constexpr int SHARED_ROWS = 6144;
@@ -431,42 +448,92 @@ int lanes_per_token(int d, int vec) {
 }
 
 // ----------------------------------------------------------------- bincount
-__global__ void __launch_bounds__(NT)
-    bincount_shared_kernel(const int* __restrict__ idx, int* __restrict__ counts, int T_,
-                           int n_rows) {
+namespace cg = cooperative_groups;
+
+constexpr int BC_NT = 1024;           // threads per block
+constexpr int BC_NWARP = BC_NT / 32;
+constexpr int BC_UNROLL = 2;          // 16-byte loads in flight per thread
+constexpr int BC_LOCAL_ROWS = 16384;  // local route: a whole histogram per block (64 KB)
+constexpr int BC_BAND = 57344;        // banded route: rows per block per pass (224 KB)
+
+// Adds this warp's ids r (one per lane) that lie in [lo, hi) to their rows,
+// one integer atomic each.
+template <typename Add>
+__device__ __forceinline__ void add_ids(int r, int lo, int hi, const Add& add) {
+  if ((unsigned)r - (unsigned)lo < (unsigned)(hi - lo)) add(r - lo);
+}
+
+// Every id of this block's share of idx that lies in [lo, hi): the 16-byte
+// aligned body split into one contiguous chunk per block; the few ids before
+// and after it go to warp 0 of block 0.
+template <typename Add>
+__device__ __forceinline__ void count_chunk(const int* __restrict__ idx, int T_, unsigned rank,
+                                            unsigned C, int lo, int hi, const Add& add) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int head = (int)(((16u - (reinterpret_cast<uintptr_t>(idx) & 15u)) & 15u) / 4u);
+  head = head < T_ ? head : T_;
+  const int n4 = (T_ - head) / 4, tail0 = head + 4 * n4;
+  const int4* __restrict__ body = reinterpret_cast<const int4*>(idx + head);
+  const int per = (int)((n4 + C - 1) / C);
+  const int b0 = min((int)rank * per, n4), b1 = min(b0 + per, n4);
+  for (int base = b0 + warp * 32 * BC_UNROLL; base < b1; base += BC_NWARP * 32 * BC_UNROLL) {
+    int4 v[BC_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BC_UNROLL; ++u) {
+      const int i = base + 32 * u + lane;
+      v[u] = i < b1 ? body[i] : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int u = 0; u < BC_UNROLL; ++u) {
+      add_ids(v[u].x, lo, hi, add);
+      add_ids(v[u].y, lo, hi, add);
+      add_ids(v[u].z, lo, hi, add);
+      add_ids(v[u].w, lo, hi, add);
+    }
+  }
+  if (rank == 0 && warp == 0) {  // at most 3 + 3 ids
+    const int j = lane - head;
+    const int r = lane < head ? idx[lane] : (j < T_ - tail0 ? idx[tail0 + j] : -1);
+    add_ids(r, lo, hi, add);
+  }
+}
+
+__global__ void __launch_bounds__(BC_NT)
+    bincount_cluster_kernel(const int* __restrict__ idx, float* __restrict__ out, int T_,
+                            int n, int local, int band) {
   extern __shared__ int hist[];
-  for (int i = threadIdx.x; i < n_rows; i += NT) hist[i] = 0;
-  __syncthreads();
-  for (int t = blockIdx.x * NT + threadIdx.x; t < T_; t += gridDim.x * NT) {
-    const int r = idx[t];
-    if (r >= 0 && r < n_rows) atomicAdd(&hist[r], 1);
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank(), C = cluster.num_blocks();
+  const int tid = threadIdx.x;
+  if (local) {
+    for (int i = tid; i < n; i += BC_NT) hist[i] = 0;
+    __syncthreads();
+    count_chunk(idx, T_, rank, C, 0, n, [&](int r) { atomicAdd(hist + r, 1); });
+    cluster.sync();  // every block's histogram is complete
+    const int r0 = min((int)rank * band, n), r1 = min(r0 + band, n);
+    for (int r = r0 + tid; r < r1; r += BC_NT) {
+      int sum = 0;
+#pragma unroll
+      for (unsigned c = 0; c < 16; ++c)
+        if (c < C) sum += cluster.map_shared_rank(hist, c)[r];
+      out[r] = (float)sum;
+    }
+    cluster.sync();  // no block leaves while another still reads its histogram
+    return;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_rows; i += NT)
-    if (hist[i]) atomicAdd(&counts[i], hist[i]);
-}
-
-__global__ void __launch_bounds__(NT)
-    bincount_global_kernel(const int* __restrict__ idx, int* __restrict__ counts, int T_,
-                           int n_rows) {
-  for (int t = blockIdx.x * NT + threadIdx.x; t < T_; t += gridDim.x * NT) {
-    const int r = idx[t];
-    if (r >= 0 && r < n_rows) atomicAdd(&counts[r], 1);
+  const int window = (int)C * band;
+  for (int w0 = 0; w0 < n; w0 += window) {
+    for (int i = tid; i < band; i += BC_NT) hist[i] = 0;
+    cluster.sync();  // every band is zero before any block adds into it
+    const int hi = n - w0 < window ? n : w0 + window;
+    count_chunk(idx, T_, rank, C, w0, hi, [&](int r) {
+      atomicAdd(cluster.map_shared_rank(hist, (unsigned)(r / band)) + r % band, 1);
+    });
+    cluster.sync();  // every add has landed
+    const int r0 = w0 + (int)rank * band;
+    for (int i = tid; i < band && r0 + i < n; i += BC_NT) out[r0 + i] = (float)hist[i];
+    __syncthreads();
   }
-}
-
-__global__ void __launch_bounds__(NT)
-    to_float_kernel(const int* __restrict__ counts, float* __restrict__ out, int n) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  if (i < n) out[i] = (float)counts[i];
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return sms > 0 ? sms : 132;
 }
 
 }  // namespace
@@ -546,33 +613,75 @@ extern "C" int matcha_scatter_add(const void* g, const void* idx, void* out, voi
   return (int)cudaGetLastError();
 }
 
-// idx (T,) int32 -> out (n_rows,) f32 counts; counts_scratch (n_rows,) int32
-// is overwritten.  Returns the CUDA error (0 = ok).
-extern "C" int matcha_bincount(const void* idx, void* counts_scratch, void* out, int T_,
-                               int n_rows, void* stream) {
-  if (T_ < 0 || n_rows <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* counts = static_cast<int*>(counts_scratch);
-  cudaError_t err = cudaMemsetAsync(counts, 0, (size_t)n_rows * sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  const int per_block = 8 * NT;  // tokens per block of the histogram pass
-  int grid = (T_ + per_block - 1) / per_block;
-  grid = grid < 1 ? 1 : (grid > 4 * sm_count() ? 4 * sm_count() : grid);
-  if (n_rows <= MAX_HIST) {
-    const int smem = n_rows * (int)sizeof(int);
-    err = cudaFuncSetAttribute(bincount_shared_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    bincount_shared_kernel<<<grid, NT, smem, s>>>(static_cast<const int*>(idx), counts, T_,
-                                                  n_rows);
-  } else {
-    bincount_global_kernel<<<grid, NT, 0, s>>>(static_cast<const int*>(idx), counts, T_,
-                                               n_rows);
+// The cluster width of the bincount launch on the current device, and the
+// kernel's attributes, set once per device: 16 blocks where the card
+// schedules such a cluster at the largest shared memory the kernel asks for,
+// else the portable 8.  Returns the CUDA error (0 = ok).
+static cudaError_t bincount_cluster(int* width) {
+  static int chosen[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && chosen[dev]) {
+    *width = chosen[dev];
+    return cudaSuccess;
   }
-  err = cudaGetLastError();
+  const int smem = BC_BAND * (int)sizeof(int);
+  if ((err = cudaFuncSetAttribute(bincount_cluster_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(bincount_cluster_kernel,
+                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+      cudaSuccess)
+    return err;
+  int w = 8;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 16;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(16);
+  cfg.blockDim = dim3(BC_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, bincount_cluster_kernel, &cfg) == cudaSuccess &&
+      clusters > 0)
+    w = 16;
+  (void)cudaGetLastError();  // a refused query leaves the portable width
+  if (dev < 64) chosen[dev] = w;
+  *width = w;
+  return cudaSuccess;
+}
+
+// idx (T,) int32 -> out (n_rows,) f32 counts, every element written, in one
+// launch.  Returns the CUDA error (0 = ok).
+extern "C" int matcha_bincount(const void* idx, void* out, int T_, int n_rows, void* stream) {
+  if (T_ < 0 || n_rows <= 0) return (int)cudaErrorInvalidValue;
+  int C = 8;
+  cudaError_t err = bincount_cluster(&C);
   if (err != cudaSuccess) return (int)err;
-  to_float_kernel<<<(n_rows + NT - 1) / NT, NT, 0, s>>>(counts, static_cast<float*>(out),
-                                                       n_rows);
+  const int local = n_rows <= BC_LOCAL_ROWS;
+  const int per_block = (int)(((long long)n_rows + C - 1) / C);
+  const int band = local ? per_block : (per_block < BC_BAND ? per_block : BC_BAND);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)C);
+  cfg.blockDim = dim3(BC_NT);
+  cfg.dynamicSmemBytes = (size_t)(local ? n_rows : band) * sizeof(int);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bincount_cluster_kernel, static_cast<const int*>(idx),
+                           static_cast<float*>(out), T_, n_rows, local, band);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,8 @@ from matcha_tpu_torch.models.modules import (dropout, encoder_layer,
                                              layer_norm_init, linear,
                                              linear_init, mha_dynamic, pff,
                                              pff_init, rand, split_generator)
-from matcha_tpu_torch.ops.fused_tail import fused_tail, pack_ln6
+from matcha_tpu_torch.ops.fused_tail import (D as TAIL_D, fused_tail,
+                                             pack_ln6)
 from matcha_tpu_torch.ops.table_scatter import bincount, table_gather
 
 
@@ -49,8 +50,9 @@ class ModelDims(NamedTuple):
     num_chroms: int = 0
     num_nodes: int = 0          # N (excluding pad id 0)
     compute_dtype: str = "float32"   # or "bfloat16" (f32 master params)
-    use_pallas_attention: bool = False  # TPU switch; on CUDA the port always
-                                        # takes its attention kernel
+    use_pallas_attention: bool = False  # TPU switch; on CUDA the port takes
+                                        # its attention kernel wherever the
+                                        # shape fits (modules.mha_dynamic)
     attr_dim: int = 0           # 0 = num_chroms + 1 (one-hot chrom + coord)
     feature_dropout_mode: str = "per_node"
 
@@ -415,10 +417,11 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     k with the pad token's h and run as one attention (pads take part as
     keys, the reference's training-time semantics).
 
-    With the fused tail on and ``dims.diag_mask``, the attention output's
-    dropout moves into the fused tail (K6), whose masks come from one seed
-    drawn on the host from the tail's generator; the tail trains only with
-    a generator, as the unfused tail's dropouts do.
+    With the fused tail on, ``dims.diag_mask`` and ``dims.dim`` the kernel's
+    width (64), the attention output's dropout moves into the fused tail
+    (K6), whose masks come from one seed drawn on the host from the tail's
+    generator; the tail trains only with a generator, as the unfused tail's
+    dropouts do.  At any other width the unfused chain runs.
 
     -> {k: (n_k, 1) logits}, and the recon loss with ``return_recon``."""
     if attention_mode not in ("per-k", "pad-max"):
@@ -442,7 +445,10 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
 
     gens = split_generator(g_enc, len(ks) + 1)
     mha = params["encoder"]["mha"]
-    use_fused_tail = _fuse_tail_enabled() and dims.diag_mask
+    # the fused tail only at the kernel's width, as the JAX package's gate
+    # takes the unfused chain for shapes its kernel does not take
+    use_fused_tail = (_fuse_tail_enabled() and dims.diag_mask
+                      and dims.dim == TAIL_D)
     attn_drop = 0.0 if use_fused_tail else 0.3
     if attention_mode == "pad-max" and len(shapes) > 1:
         dyn = _attention_pad_max(params, dims, h, shapes, gens, train,

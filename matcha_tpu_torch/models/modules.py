@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from matcha_tpu_torch.ops.hyperedge_attention import (hyperedge_attention,
-                                                      pack_ln)
+                                                      kernel_takes, pack_ln)
 
 Params = Dict
 
@@ -166,6 +166,36 @@ def mha_init(gen: torch.Generator, n_head: int, d_model: int, d_k: int,
     }
 
 
+def _attention_flat(p: Params, x, n_head: int, d_k: int, d_v: int,
+                    diag_mask: bool):
+    """The JAX package's own formulation for shapes the kernel does not
+    take (``matcha_tpu/models/modules.py:mha_dynamic``): flat projections
+    over the (b*L, d) token stream, scores as f32 products summed in f32, an
+    f32 softmax, and the a.v sum in f32 rounded to x's dtype.  Autograd
+    gives its backward."""
+    b, L, _ = x.shape
+    xf = x.reshape(b * L, x.shape[-1])
+    q = (layer_norm(p["ln_q"], xf) @ p["wq"].to(x.dtype)).reshape(
+        b, L, n_head, d_k)
+    k = (layer_norm(p["ln_k"], xf) @ p["wk"].to(x.dtype)).reshape(
+        b, L, n_head, d_k)
+    v = (layer_norm(p["ln_v"], xf) @ p["wv"].to(x.dtype)).reshape(
+        b, L, n_head, d_v)
+    inv_temp = 1.0 / math.sqrt(d_k)
+    pos = torch.arange(L, device=x.device)
+    outs = []
+    for qp in range(L):
+        # scores of query position qp against all keys: (b, L, H)
+        s = (q[:, qp:qp + 1].float() * k.float()).sum(dim=-1) * inv_temp
+        if diag_mask:
+            s = s.masked_fill((pos == qp)[None, :, None], -1e32)
+        prob = torch.softmax(s, dim=1)
+        outs.append((prob[..., None] * v.float()).sum(dim=1)
+                    .to(x.dtype))                              # (b, H, d_v)
+    out = torch.stack(outs, dim=1).reshape(b * L, n_head * d_v)
+    return linear(p["fc1"], out).reshape(b, L, -1)
+
+
 def mha_dynamic(p: Params, x, n_head: int, d_k: int, d_v: int, *,
                 diag_mask: bool = True, generator=None,
                 drop_rate: float = 0.0, train: bool = False):
@@ -174,18 +204,23 @@ def mha_dynamic(p: Params, x, n_head: int, d_k: int, d_v: int, *,
     Pads take part as keys and values: the reference never applies its
     key-pad mask (see ``matcha_tpu/models/modules.py:mha_dynamic``).
     k=2 with the diagonal masked has a closed form and never reaches the
-    kernel; every other shape goes to the fused hyperedge attention, which
-    on a CUDA tensor launches the Hopper kernel for any batch size.  The
-    output takes dropout ``drop_rate`` in train mode."""
+    kernel.  Every other shape the kernel takes (``kernel_takes``) goes to
+    the fused hyperedge attention, which on a CUDA tensor launches the
+    Hopper kernel for any batch size; the rest goes to the JAX package's
+    own formulation (``_attention_flat``) on either device, as the JAX
+    package routes it.  The output takes dropout ``drop_rate`` in train
+    mode."""
     if diag_mask and x.shape[1] == 2:
         # each row of the softmax has one unmasked key: weight 1 on the other
         # member, so the output is fc1(v_other)
         v = layer_norm(p["ln_v"], x) @ p["wv"].to(x.dtype)
         out = linear(p["fc1"], v.flip(1))
-    else:
+    elif kernel_takes(x, p["wq"], p["wk"], p["wv"], p["fc1"]["w"], n_head):
         out = hyperedge_attention(x, pack_ln(p), p["wq"], p["wk"], p["wv"],
                                   p["fc1"]["w"], p["fc1"]["b"], n_head,
                                   diag_mask)
+    else:
+        out = _attention_flat(p, x, n_head, d_k, d_v, diag_mask)
     return dropout(out, drop_rate, train, generator)
 
 

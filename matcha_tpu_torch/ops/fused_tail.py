@@ -255,7 +255,9 @@ def fused_tail_fwd_cuda(y, h, ln6, w1, b1, w2, b2, wc, bc, seed: int,
     """Launch the K6 forward on ``torch.cuda.current_stream()``: y, h
     (T, 64) f32 or bf16 of one dtype; ln6 (6, 64), w1/w2 (64, 64), b1/b2
     (64,), wc (64 values), bc (1,) f32; all contiguous on y's card ->
-    (T, 1) f32.  Raises on anything else."""
+    (T, 1) f32.  bf16 takes the tensor-core kernel (its two products in
+    bf16 with f32 sums, rounded where the plain version rounds), f32 the
+    CUDA-core kernel.  Raises on anything else."""
     _check_args(y, h, ln6, w1, b1, w2, b2, wc, bc)
     T = y.shape[0]
     pp = torch.empty((T, 1), dtype=torch.float32, device=y.device)

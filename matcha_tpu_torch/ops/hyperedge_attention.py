@@ -166,15 +166,29 @@ def _bwd_lib():
     return lib
 
 
+def kernel_takes(x, wq, wk, wv, fw, n_head: int) -> bool:
+    """Whether K1 and K2 take these shapes: x (E, L, D_MODEL) with
+    2 <= L <= MAX_L, wq/wk/wv (D_MODEL, n_head * D_HEAD) and fw
+    (n_head * D_HEAD, D_MODEL).  Shapes only, never the batch."""
+    hd = n_head * D_HEAD
+    return (x.dim() == 3 and x.shape[2] == D_MODEL
+            and 2 <= x.shape[1] <= MAX_L
+            and all(tuple(w.shape) == (D_MODEL, hd) for w in (wq, wk, wv))
+            and tuple(fw.shape) == (hd, D_MODEL))
+
+
 def _check_attention_args(x, ln, wq, wk, wv, fw, fb, n_head):
     """The argument checks both kernels share; -> hd = n_head * 64."""
     _check(x.is_cuda, "x must be a CUDA tensor")
     _check(x.dtype in (torch.float32, torch.bfloat16),
            f"x must be float32 or bfloat16, got {x.dtype}")
-    _check(x.dim() == 3 and x.shape[2] == D_MODEL,
-           f"x must be (E, L, {D_MODEL}), got {tuple(x.shape)}")
-    E, L, d = x.shape
-    _check(2 <= L <= MAX_L, f"L must be in [2, {MAX_L}], got {L}")
+    _check(kernel_takes(x, wq, wk, wv, fw, n_head),
+           f"x must be (E, L, {D_MODEL}) and L must be in [2, {MAX_L}], "
+           f"wq/wk/wv ({D_MODEL}, n_head*{D_HEAD}), fw (n_head*{D_HEAD}, "
+           f"{D_MODEL}); got x {tuple(x.shape)}, wq {tuple(wq.shape)}, wk "
+           f"{tuple(wk.shape)}, wv {tuple(wv.shape)}, fw {tuple(fw.shape)} "
+           f"with n_head {n_head}")
+    d = D_MODEL
     hd = n_head * D_HEAD
     shapes = {"ln": (ln, (6, d)), "wq": (wq, (d, hd)), "wk": (wk, (d, hd)),
               "wv": (wv, (d, hd)), "fw": (fw, (hd, d)), "fb": (fb, (d,))}

@@ -61,7 +61,7 @@ def _lib():
     lib.matcha_scatter_add.restype = ctypes.c_int
     lib.matcha_scatter_add_scratch_bytes.argtypes = [ctypes.c_int] * 3
     lib.matcha_scatter_add_scratch_bytes.restype = ctypes.c_longlong
-    lib.matcha_bincount.argtypes = [ctypes.c_void_p] * 3 + [
+    lib.matcha_bincount.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.matcha_bincount.restype = ctypes.c_int
     lib.matcha_cuda_error_string.argtypes = [ctypes.c_int]
@@ -128,18 +128,18 @@ def scatter_add_cuda(g: torch.Tensor, idx: torch.Tensor,
 
 def bincount_cuda(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     """Launch K4 on ``torch.cuda.current_stream()``: idx (T,) int32,
-    contiguous -> (n_rows,) f32 counts.  Raises on anything else."""
+    contiguous -> (n_rows,) f32 counts, ids outside [0, n_rows) dropped.
+    One device launch (a thread-block cluster) writes every count; the
+    output is the only allocation.  Raises on anything else."""
     _check(idx.is_cuda, "idx must be a CUDA tensor")
     _check_idx(idx, idx.device)
     _check(idx.dim() == 1, "idx must be 1-D, got {}", tuple(idx.shape))
     _check(n_rows >= 1, "n_rows must be >= 1, got {}", n_rows)
-    counts = torch.empty((n_rows,), dtype=torch.int32, device=idx.device)
     out = torch.empty((n_rows,), dtype=torch.float32, device=idx.device)
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = _lib().matcha_bincount(idx.data_ptr(), counts.data_ptr(),
-                                     out.data_ptr(), idx.shape[0], n_rows,
-                                     stream)
+        err = _lib().matcha_bincount(idx.data_ptr(), out.data_ptr(),
+                                     idx.shape[0], n_rows, stream)
     _raise_on(err, "bincount")
     bincount.launches += 1
     return out

@@ -22,12 +22,14 @@ and by the same invariant and distribution tests elsewhere.
 ``propose_impl="pallas"`` runs phase 1 feature-major through
 ``ops/propose.py`` (K5 on a CUDA tensor); its uniforms are drawn (T, k, n),
 so its stream differs from the "xla" branch's and its distribution is the
-same.
+same.  For k > 6, beyond K5's sorting networks, it warns and takes the
+"xla" branch, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
@@ -211,10 +213,12 @@ def sample_negatives_with_stats(
 
     T = max(1, min(int(max_trials), 16))
     S = T if max_probes is None else max(1, min(int(max_probes), T))
+    if propose_impl == "pallas" and k not in _SORT_NETS:
+        # as the JAX package does: K5's sorting networks stop at k = 6
+        warnings.warn(f"propose_impl='pallas' fell back to XLA (K5 takes "
+                      f"k <= 6, got k={k})", stacklevel=2)
+        propose_impl = "xla"
     if propose_impl == "pallas":
-        if k not in _SORT_NETS:
-            raise ValueError(f"propose_impl='pallas' (the K5 kernel) takes "
-                             f"k <= 6, got k={k}")
         from matcha_tpu_torch.ops.propose import propose_phase1
         probe_t, stage_has = propose_phase1(
             orig.T, change.T, lo.T, hi.T, rand(g_trial, (T, k, n), dev),

@@ -13,7 +13,10 @@ bf16 the kernels' tensor-core routes round product operands where the plain
 versions round them, so the forward outputs differ by summation order and
 the rounding flips it causes, a few bf16 ulps of values up to ~2 (atol =
 rtol = 2e-2), and K2's gradients by up to 3e-2 of each one's largest entry.
-K3 sums in f32 (1e-5); K4 counts exactly.
+K3 sums in f32 (1e-5); K4 counts exactly.  The last test drives a model
+whose shapes the fixed-width kernels do not take (dim 16, k = 7 proposals)
+through a training step, scoring and the sampler on the card: it launches
+none of K1, K2, K5 and K6 and matches the same computation on the CPU.
 """
 
 import numpy as np
@@ -202,16 +205,43 @@ def test_k3_skewed_and_out_of_range_ids(cuda, dtype, kind, T, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "zipf", "hub", "out_of_range"])
 @pytest.mark.parametrize("T,n", [(114_688, 3068), (1001, 300), (0, 7),
-                                 (5000, 60_000)])
-def test_k4_matches_bincount(cuda, T, n):
-    idx = torch.tensor(np.random.default_rng(T).integers(0, n, T),
-                       dtype=torch.int32, device=cuda)
+                                 (5000, 60_000), (70_001, 1_000_000)])
+def test_k4_matches_bincount(cuda, kind, T, n):
+    """Both routes (a whole histogram per block up to 16,384 rows, the
+    cluster's shared histogram in bands above, in two passes at a million
+    rows), every id mix, odd T and an idx that starts off a 16-byte
+    boundary: exactly torch.bincount's counts of the ids in [0, n)."""
+    rng = np.random.default_rng(T + n)
+    ids = (rng.integers(0, n, T).astype(np.int32) if kind == "uniform"
+           else skewed_ids(kind, rng, T, n))
+    idx = torch.tensor(ids, device=cuda)
     before = ts.bincount.launches
     got = ts.bincount(idx, n)
     assert ts.bincount.launches == before + 1
-    ref = torch.bincount(idx.long(), minlength=n).float()
-    assert torch.equal(got, ref)
+    keep = idx[(idx >= 0) & (idx < n)].long()
+    assert torch.equal(got, torch.bincount(keep, minlength=n).float())
+    if T > 1:
+        shifted = idx[1:]                 # 4 bytes past the allocation
+        keep = shifted[(shifted >= 0) & (shifted < n)].long()
+        assert torch.equal(ts.bincount(shifted, n),
+                           torch.bincount(keep, minlength=n).float())
+
+
+@pytest.mark.cuda
+def test_k4_is_one_launch(cuda):
+    """One call is one kernel on the device (no memset, no second pass)."""
+    from torch.profiler import ProfilerActivity, profile
+    idx = torch.randint(0, 3068, (114_688,), dtype=torch.int32, device=cuda)
+    ts.bincount(idx, 3068)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ts.bincount(idx, 3068)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
 
 
 @pytest.mark.cuda
@@ -287,7 +317,7 @@ def _tail_inputs(device, T, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("train", [False, True])
-@pytest.mark.parametrize("T", [114_688, 1000, 3])
+@pytest.mark.parametrize("T", [114_688, 1000, 65, 3])
 def test_k6_matches_plain(cuda, dtype, train, T):
     args = _tail_inputs(cuda, T, dtype, seed=T)
     g = torch.tensor(np.random.default_rng(1).standard_normal((T, 1)),
@@ -325,6 +355,18 @@ def test_k6_autograd_launches_the_backward_and_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_k6_forward_is_deterministic(cuda, train):
+    """The bf16 forward (the tensor-core route) gives the same bits on two
+    calls, at the step's T and at a ragged one."""
+    for T in (114_688, 65):
+        args = _tail_inputs(cuda, T, torch.bfloat16, seed=T + 1)
+        a = tf.fused_tail_fwd_cuda(*args, 21, 0.3, 0.4, train)
+        assert torch.equal(a, tf.fused_tail_fwd_cuda(*args, 21, 0.3, 0.4,
+                                                     train))
+
+
+@pytest.mark.cuda
 def test_k6_masks(cuda):
     """Keep shares over 7.3M draws; the same seed gives the same masks,
     another seed others (the train-mode forward differs)."""
@@ -335,3 +377,131 @@ def test_k6_masks(cuda):
     a = tf.fused_tail(*args, 11, 0.3, 0.4, True)
     assert torch.equal(a, tf.fused_tail(*args, 11, 0.3, 0.4, True))
     assert not torch.equal(a, tf.fused_tail(*args, 12, 0.3, 0.4, True))
+
+
+def _small_problem(device, ks=(2, 3), dim=16, n_head=4, seed=0):
+    """A width the fixed-width kernels do not take: dim 16, 4 heads, three
+    short chromosomes, f32; params, frozen tables, Bloom filters and
+    buckets on ``device``."""
+    from matcha_tpu_torch.genome import GenomeBins
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.sampler.bloom import build_bloom_dict
+    from matcha_tpu_torch.sampler.negative import ChromTable
+    rng = np.random.default_rng(seed)
+    genome = GenomeBins(["chr1", "chr2", "chr3"],
+                        [60_000_000, 40_000_000, 30_000_000], 1_000_000)
+    n = genome.num_nodes
+    intra = rng.random((n, n)).astype(np.float32)
+    inter = rng.random((n, n)).astype(np.float32)
+    dims = th.ModelDims(dim=dim, n_head=n_head, num_chroms=3, num_nodes=n)
+    sizes = [int(e - s) for s, e in genome.chrom_range]
+    params = th.init_model(torch.Generator().manual_seed(seed), dims, sizes,
+                           device=device)
+    buckets = {}
+    for k in ks:
+        e = np.sort(rng.choice(np.arange(1, n + 1), (600, k)), axis=1)
+        buckets[k] = e[(np.diff(e, axis=1) > 0).all(axis=1)][:256].astype(
+            np.int32)
+    return (genome, dims, params,
+            th.build_frozen_tables(genome, intra + intra.T, inter,
+                                   device=device),
+            build_bloom_dict(buckets, device=device),
+            ChromTable.from_genome(genome, device=device), buckets)
+
+
+def _counts():
+    return (ta.hyperedge_attention.launches,
+            ta.hyperedge_attention_bwd_cuda.launches,
+            ts.scatter_add.launches, ts.bincount.launches,
+            tp.propose_phase1.launches, tf.fused_tail_fwd_cuda.launches,
+            tf.fused_tail_bwd_cuda.launches)
+
+
+@pytest.mark.cuda
+def test_small_model_runs_without_the_fixed_width_kernels(cuda, monkeypatch):
+    """Dim 16 with the fused tail on: a training step launches K3 and K4
+    once and none of K1, K2, K5 and K6; the same step with dropout off on
+    fixed negatives gives the CPU's loss (1e-5) and gradients (1e-4 of each
+    one's largest entry, floored at 1e-3 of the largest of all) in f32;
+    predict_proba gives the CPU's probabilities (1e-4); the "pallas"
+    sampler at k = 7 warns and launches no K5."""
+    from matcha_tpu_torch.apps.predict import predict_proba
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.sampler import negative as tn
+    from matcha_tpu_torch.sampler.bloom import build_bloom
+    from matcha_tpu_torch.train import runtime as tr
+    monkeypatch.setattr(th, "_FUSE_TAIL", True)
+    genome, dims, params, frozen, blooms, table, buckets = _small_problem(
+        cuda)
+    trainer = tr.Trainer(params, frozen, dims, table,
+                         tr.TrainSettings(alpha=1.0, beta=0.001,
+                                          token_stream="merged",
+                                          propose_impl="xla"),
+                         blooms=blooms, seed=1)
+    batch = {k: (torch.tensor(e[:128], device=cuda),
+                 torch.ones(128, device=cuda)) for k, e in buckets.items()}
+    before = _counts()
+    aux = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    got = [a - b for a, b in zip(_counts(), before)]
+    assert got == [0, 0, 1, 1, 0, 0, 0], got
+    assert np.isfinite(float(aux["bce"])) and np.isfinite(float(aux["recon"]))
+
+    # the same step, deterministic, on the card and on the CPU
+    gen = torch.Generator().manual_seed(2)
+    xs = {k: torch.cat([pos, tn.sample_negatives(gen, pos, table, 0,
+                                                 blooms[k], neg_num=3)]).cpu()
+          for k, (pos, _) in batch.items()}
+    cpu_frozen = frozen._replace(
+        features=tuple(f.cpu() for f in frozen.features),
+        attr_table=frozen.attr_table.cpu(), inter_z=frozen.inter_z.cpu(),
+        chrom_of_node=frozen.chrom_of_node.cpu(),
+        chrom_bounds=frozen.chrom_bounds.cpu())
+
+    def step(device, fz):
+        p = tr._tree_map(lambda t: t.detach().to(device).clone()
+                         .requires_grad_(True), params)
+        logits, recon = th.forward_buckets(
+            p, fz, dims, {k: v.to(device) for k, v in xs.items()},
+            return_recon=True, attention_mode="per-k", recon_chrom=1)
+        bce, _ = tr._bucket_bce_and_preds(
+            logits, {k: (pos.to(device), w.to(device))
+                     for k, (pos, w) in batch.items()},
+            {k: w.to(device) for k, (_, w) in batch.items()})
+        loss = bce + 0.001 * recon
+        loss.backward()
+        return float(loss), [torch.zeros_like(t).cpu() if t.grad is None
+                             else t.grad.cpu() for t in tr._leaves(p)]
+    before = _counts()
+    loss_card, g_card = step(cuda, frozen)
+    got = [a - b for a, b in zip(_counts(), before)]
+    assert got == [0, 0, 1, 1, 0, 0, 0], got
+    loss_cpu, g_cpu = step("cpu", cpu_frozen)
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    top = max(float(g.abs().max()) for g in g_cpu)
+    for a, b in zip(g_card, g_cpu):
+        scale = max(float(b.abs().max()), 1e-3 * top)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+    samples = [list(r) for k in buckets for r in buckets[k][:200].tolist()]
+    before = _counts()
+    p_card = predict_proba(params, frozen, dims, samples, 100)
+    assert _counts()[0] == before[0]
+    p_cpu = predict_proba(tr._tree_map(lambda t: t.cpu(), params),
+                          cpu_frozen, dims, samples, 100)
+    assert np.isfinite(p_card).all()
+    np.testing.assert_allclose(p_card, p_cpu, rtol=0, atol=1e-4)
+
+    rng = np.random.default_rng(3)
+    wide = np.sort(rng.choice(np.arange(1, genome.num_nodes + 1), (64, 7)),
+                   axis=1)
+    wide = wide[(np.diff(wide, axis=1) > 0).all(axis=1)].astype(np.int32)
+    before = tp.propose_phase1.launches
+    with pytest.warns(UserWarning, match="fell back to XLA"):
+        neg = tn.sample_negatives(torch.Generator().manual_seed(4),
+                                  torch.tensor(wide, device=cuda), table, 0,
+                                  build_bloom(wide, device=cuda),
+                                  propose_impl="pallas")
+    assert tp.propose_phase1.launches == before
+    assert neg.shape == (3 * len(wide), 7)
+    assert bool((neg[:, 1:] > neg[:, :-1]).all())

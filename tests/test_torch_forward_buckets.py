@@ -196,3 +196,23 @@ def test_train_mode_is_seeded_and_differs_from_eval(setup):
         assert not torch.allclose(a[k], ev[k])
     assert float(ra) == float(rb) and np.isfinite(float(ra))
     assert all(t.dtype == torch.float32 for t in _leaves(tp))
+
+
+@pytest.mark.parametrize("mode", ["per-k", "pad-max"])
+def test_fused_tail_on_at_dim_16_takes_the_unfused_chain(setup, monkeypatch,
+                                                         mode):
+    """With the fused tail switched on, a width the kernel does not take
+    (16) runs the unfused chain, as the JAX package's gate does, and its
+    logits match JAX's forward_buckets in eval mode."""
+    (jp, jf, jd), (tp, tf, td), xs = setup
+    assert td.dim != 64
+    monkeypatch.setattr(th, "_FUSE_TAIL", True)
+
+    def refuse(*a, **k):
+        raise AssertionError("reached the fused tail")
+    monkeypatch.setattr(th, "fused_tail", refuse)
+    ref = jh.forward_buckets(jp, jf, jd, _jxs(xs), attention_mode=mode)
+    got = th.forward_buckets(tp, tf, td, _txs(xs), attention_mode=mode)
+    for k in xs:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=f"k={k}")

@@ -140,3 +140,62 @@ def test_encoder_layer(rng, L):
                                    H, D, D)
     _close(dyn_t, dyn_j)
     _close(st_t, st_j)
+
+
+@pytest.mark.parametrize("d,L,dk,h", [(16, 3, 16, 4), (64, 9, 64, 2),
+                                      (64, 4, 32, 2)])
+def test_mha_dynamic_shapes_the_kernel_does_not_take(rng, monkeypatch, d, L,
+                                                     dk, h):
+    """Width 16, L = 9 (past MAX_L) and heads of 32 route to the port's copy
+    of the JAX package's own formulation, never to the fused attention (so
+    a CUDA tensor launches no kernel): forward and gradients (of x and every
+    weight) against JAX's mha_dynamic, f32, 1e-5."""
+    jp = jm.mha_init(jax.random.PRNGKey(6), h, d, dk, dk, d)
+    for name in ("ln_q", "ln_k", "ln_v"):
+        jp[name] = {"g": jnp.asarray(1 + 0.1 * rng.standard_normal(d),
+                                     jnp.float32),
+                    "b": jnp.asarray(0.1 * rng.standard_normal(d),
+                                     jnp.float32)}
+    x = rng.standard_normal((7, L, d)).astype(np.float32)
+    w = rng.standard_normal((7, L, d)).astype(np.float32)
+
+    def refuse(*a, **k):
+        raise AssertionError("reached the fused attention")
+    monkeypatch.setattr(tm, "hyperedge_attention", refuse)
+
+    def jloss(p, xx):
+        return jnp.sum(jm.mha_dynamic(p, xx, h, dk, dk) * w)
+    ref_y = jm.mha_dynamic(jp, jnp.asarray(x), h, dk, dk)
+    ref_gp, ref_gx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    tp = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(True),
+                                _port(jp))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = tm.mha_dynamic(tp, tx, h, dk, dk)
+    (got * torch.from_numpy(w)).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-5)
+    _close(got, ref_y, **tol)
+    _close(tx.grad, ref_gx, **tol)
+    for a, b in zip(jax.tree_util.tree_leaves(tp),
+                    jax.tree_util.tree_leaves(ref_gp)):
+        _close(a.grad, b, **tol)
+
+
+def test_mha_dynamic_takes_the_kernel_where_it_fits(rng, monkeypatch):
+    """d = dk = 64 with 2 <= L <= 8 goes to the fused attention (the kernel
+    on a CUDA tensor); k = 2 with the diagonal masked keeps its closed
+    form."""
+    p = tm.mha_init(torch.Generator().manual_seed(0), 2, 64, 64, 64, 64)
+    calls = []
+    real = tm.hyperedge_attention
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+    monkeypatch.setattr(tm, "hyperedge_attention", spy)
+    for L in (2, 3, 8):
+        x = torch.from_numpy(rng.standard_normal((5, L, 64)).astype(
+            np.float32))
+        tm.mha_dynamic(p, x, 2, 64, 64)
+        tm.mha_dynamic(p, x, 2, 64, 64, diag_mask=False)
+    assert calls == [(5, 2, 64), (5, 3, 64), (5, 3, 64), (5, 8, 64),
+                     (5, 8, 64)]

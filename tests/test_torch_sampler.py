@@ -232,22 +232,44 @@ def test_range_draw_never_reaches_hi():
         assert int(got) < 10 + span
 
 
-def test_propose_pallas_raises_naming_k5(table, rng):
-    """propose_impl="pallas" runs for k <= 6 (any row count) and raises,
-    naming K5, beyond the widths its sorting networks cover."""
+def test_propose_pallas_takes_k5_up_to_k6_and_unknown_impl_raises(table,
+                                                                   rng):
+    """propose_impl="pallas" takes K5's phase 1 for k <= 6 (any row count)
+    and gives sorted negatives; an unknown propose_impl raises.  Beyond k = 6
+    see test_propose_pallas_beyond_k6_warns_and_takes_xla."""
     g, tab = table
     pos = torch.from_numpy(_random_positives(g, rng, 8, 3))
     bloom = tb.build_bloom(pos.numpy(), device="cpu")
     neg = tn.sample_negatives(_gen(0), pos, tab, 0, bloom,
                               propose_impl="pallas")
     assert neg.shape == (24, 3) and (np.diff(neg.numpy(), axis=1) > 0).all()
-    wide = torch.from_numpy(_random_positives(g, rng, 8, 7))
-    with pytest.raises(ValueError, match="K5"):
-        tn.sample_negatives(_gen(0), wide, tab, 0,
-                            tb.build_bloom(wide.numpy(), device="cpu"),
-                            propose_impl="pallas")
     with pytest.raises(ValueError, match="propose_impl"):
         tn.sample_negatives(_gen(0), pos, tab, 0, bloom, propose_impl="x")
+
+
+@pytest.mark.parametrize("k", [7, 9])
+def test_propose_pallas_beyond_k6_warns_and_takes_xla(table, rng, k):
+    """k > 6 with propose_impl="pallas" warns with the JAX package's words
+    and gives exactly the "xla" branch's negatives for the same generator:
+    valid (sorted, gaps above min_distance, on the positive's chromosomes,
+    inside the table) and none of them a positive."""
+    g, tab = table
+    pos = _random_positives(g, rng, 32, k, 1)
+    bloom = tb.build_bloom(pos, device="cpu")
+    with pytest.warns(UserWarning, match="fell back to XLA"):
+        neg = tn.sample_negatives(_gen(3), torch.from_numpy(pos), tab, 1,
+                                  bloom, propose_impl="pallas")
+    ref = tn.sample_negatives(_gen(3), torch.from_numpy(pos), tab, 1, bloom,
+                              propose_impl="xla")
+    assert torch.equal(neg, ref)
+    neg = neg.numpy()
+    assert neg.shape == (32 * 3, k) and (np.diff(neg, axis=1) > 1).all()
+    assert (neg >= 1).all() and (neg < g.node_num).all()
+    np.testing.assert_array_equal(np.sort(g.node2chrom[np.tile(pos, (3, 1))],
+                                          axis=1),
+                                  np.sort(g.node2chrom[neg], axis=1))
+    pos_set = set(map(tuple, pos.tolist()))
+    assert not any(tuple(r) in pos_set for r in neg.tolist())
 
 
 def test_assemble_batch(table, rng):
