@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, training step and Trainer.fit on
-one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, training step, Trainer.fit and
+run_train (through the CLI) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a GPU
 
@@ -14,7 +14,9 @@ Phases, all in this process; any failure exits non-zero before the last line:
      on the card, over the shapes the main paths give it (f32 with TF32 off,
      and bf16), with the tolerances stated below; the Bloom hashes computed
      on the card against an independent numpy build, bit for bit; K5 bit for
-     bit at k = 1..6; K6 in eval and train mode (the same mask bits on both
+     bit at k = 1..6, n = 6,144 and a ragged 1,001, T = 1, 5, 8, 16 and S =
+     1, 2, T, and the sampler's "pallas" phase 1 (K5) against its "xla" one
+     for one generator (the same negatives); K6 in eval and train mode (the same mask bits on both
      sides; bf16 takes the backward's tensor-core route), its backward's
      bits across two calls, and its masks' keep shares and seed
      determinism; K6's forward and backward at T = 114,688 / 1,000 / 65 / 3
@@ -74,11 +76,12 @@ Phases, all in this process; any failure exits non-zero before the last line:
   9. times: K5 at each k and K6 forward / backward at the main-path shapes
      (CUDA events around the wrapper, and the kernels' device time from
      torch.profiler and K6's achieved TFLOP/s) beside their bounds and plain
-     versions (and the unfused
-     eager tail), the stage-2 step with the fused tail on / off and the
-     proposals "pallas" / "xla" (in turns; per route also a profiled step,
-     its host synchronisations and the negatives alone), and the fit's
-     epoch and eval walls.
+     versions (and the unfused eager tail); K5 as the fit's sampler calls it
+     (the dispatcher on the sampler's own arguments, by events); the
+     stage-2 step with the fused tail on / off and the proposals "pallas" /
+     "xla" (in turns; per route also a profiled step with its device
+     operation count, its host synchronisations and the negatives alone),
+     and the fit's epoch and eval walls.
  10. shapes the kernels do not take: a dim-16, 4-head model (f32, k = 2, 3,
      the hg38 genome) with the fused tail on; the counts are zeroed just
      before and read just after one Trainer.train_step ("xla" proposals:
@@ -87,6 +90,18 @@ Phases, all in this process; any failure exits non-zero before the last line:
      warn and launch no K5; the same step with dropout off on fixed
      negatives against f32 on the CPU (1e-5 loss, 1e-4 grads), and the
      probabilities against the CPU's (1e-4).
+ 11. run_train through the CLI at full width: the hg38 genome, random
+     contacts and an edge list of clusters drawn from multi-way templates,
+     written with numpy only; `python -m matcha_tpu_torch kmers` in a
+     subprocess, then the `train` stage through the same entry in this
+     process (embed_dim 64, 8 heads, compute "auto", batch 2,048, 10 batches
+     per epoch, 1 + 1 epochs).  "auto" must resolve to bf16 / merged /
+     "xla" / fused tail off; the artifacts (bundle, embeddings, checkpoint,
+     metrics log) must exist and the bundle must score candidates; the
+     counts are zeroed just before the train stage and read just after: K1-
+     K4 launched, K5 and K6 not.  Prints each stage's wall, the train sizes,
+     whether the native parser and counter built, and which of h5py, scipy,
+     matplotlib and pandas the machine has.
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -184,6 +199,8 @@ TOL_RESUME = 1e-6
 # deterministic step: f32 card vs f32 CPU loss (relative) and grads
 # (relative to each gradient's max); bf16 card vs f32 CPU loss (relative)
 TOL_STEP_LOSS_F32, TOL_STEP_GRAD_F32, TOL_STEP_LOSS_BF16 = 1e-5, 1e-4, 2e-2
+# run_train through the CLI: multi-way templates, batch, width
+CLI_TEMPLATES, CLI_BATCH, CLI_DIM = 1_500, TRAIN_BATCH, DIM
 
 
 def fail(msg: str):
@@ -517,41 +534,69 @@ def check_bloom(device):
 
 
 def propose_inputs(device, k, n, seed, T=8):
-    """Phase-1 inputs as the sampler builds them at full width: members on
-    the 3,067 nodes of hg38, at least one corrupted position per row,
-    chromosome-like [lo, hi) ranges, uniforms with the top one on the
-    f32-rounding guard."""
+    """Phase-1 inputs as the sampler builds them at full width, in its
+    layout: orig (n, k) on the 3,067 nodes of hg38, change (n, k) bool with
+    at least one corrupted position per row, chromosome-like [lo, hi)
+    ranges, uniforms u (T, n, k) with the top one on the f32-rounding
+    guard."""
     rng = np.random.default_rng(seed)
     orig = np.sort(rng.integers(1, 3_068, size=(n, k)), axis=1)
     change = rng.random((n, k)) < 0.5
     change[np.arange(n), rng.integers(0, k, n)] = True
     lo = rng.integers(1, 2_800, size=(n, k)).astype(np.float32)
     hi = lo + rng.integers(1, 250, size=(n, k)).astype(np.float32)
-    u = rng.random((T, k, n), dtype=np.float32)
-    u[0, :, :5] = np.nextafter(np.float32(1), np.float32(0))
-    return [torch.tensor(np.ascontiguousarray(a), device=device) for a in
-            (orig.T.astype(np.int32), change.T.astype(np.int32), lo.T, hi.T,
-             u)]
+    u = rng.random((T, n, k), dtype=np.float32)
+    u[0, :5, :] = np.nextafter(np.float32(1), np.float32(0))
+    return [torch.tensor(a, device=device) for a in
+            (orig.astype(np.int32), change, lo, hi, u)]
 
 
-def check_propose(device):
+def sampler_problem(genome, device, seed, n_pos=TRAIN_BATCH, ks=TRAIN_KS):
+    """A stage-2 step's sampler inputs at full width: 2,048 positives per k
+    on hg38 with their Bloom filters, the chromosome table and the host
+    chromosome bounds the Trainer hands the sampler."""
+    table = ChromTable.from_genome(genome, device=device)
+    bounds = tuple((int(s), int(e)) for s, e in genome.chrom_range)
+    pos = {k: torch.from_numpy(e[:n_pos]).to(device) for k, (e, _) in
+           random_buckets(genome, np.random.default_rng(seed), 4 * n_pos,
+                          ks).items()}
+    blooms = {k: tb.build_bloom(v.cpu().numpy(), device=device)
+              for k, v in pos.items()}
+    return table, bounds, pos, blooms
+
+
+def check_propose(device, genome):
     """Phase 3: K5 against its plain version, bit for bit, at the sampler's
-    shape (n = 2,048 x 3) and a ragged one, for every k its networks
-    cover."""
+    shape (n = 2,048 x 3) and a ragged one (n = 1,001, a multiple of no
+    block and of no lane group) for every k its networks cover, T = 1, 5,
+    8, 16 and S = 1, 2, T; then the sampler with propose_impl "pallas" (K5)
+    against "xla" for one generator at k = 2..5: the same negatives."""
     for k in range(1, 7):
-        for n in (6_144, 1_000):
-            args = propose_inputs(device, k, n, seed=SEED + 31 * k + n)
-            for md, S in ((0, 4 if k == 2 else 2), (1, 8)):
-                probe, has = tp.propose_phase1_cuda(*args, min_distance=md,
-                                                    max_probes=S)
-                rp, rh = tp.propose_phase1_plain(*args, min_distance=md,
-                                                 max_probes=S)
-                torch.cuda.synchronize()
-                if not (torch.equal(probe, rp) and torch.equal(has, rh)):
-                    fail(f"K5 differs from its plain version at k={k} n={n} "
-                         f"min_distance={md} S={S}")
-    print("K5 vs plain: k = 1..6, n = 6,144 and 1,000, two (min_distance, "
-          "S) each: probe and has bit-equal ok", flush=True)
+        for n in (6_144, 1_001):
+            for T in (1, 5, 8, 16):
+                args = propose_inputs(device, k, n, SEED + 31 * k + n + T,
+                                      T=T)
+                for md, S in ((0, 1), (1, 2), (0, T)):
+                    probe, has = tp.propose_phase1_cuda(
+                        *args, min_distance=md, max_probes=S)
+                    rp, rh = tp.propose_phase1_plain(*args, min_distance=md,
+                                                     max_probes=S)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(probe, rp) and torch.equal(has, rh)):
+                        fail(f"K5 differs from its plain version at k={k} "
+                             f"n={n} T={T} min_distance={md} S={S}")
+    table, bounds, pos, blooms = sampler_problem(genome, device, SEED + 40)
+    for k in TRAIN_KS:
+        neg = {impl: sample_negatives(
+            torch.Generator().manual_seed(SEED + k), pos[k], table, 0,
+            blooms[k], max_probes=4 if k == 2 else 2, chrom_bounds=bounds,
+            propose_impl=impl) for impl in ("xla", "pallas")}
+        torch.cuda.synchronize()
+        if not torch.equal(neg["xla"], neg["pallas"]):
+            fail(f"the 'pallas' sampler (K5) differs from 'xla' at k={k}")
+    print("K5 vs plain: k = 1..6, n = 6,144 and 1,001, T = 1, 5, 8, 16, S = "
+          "1, 2, T: probe and has bit-equal ok; the 'pallas' sampler equals "
+          "'xla' for one generator at k = 2..5", flush=True)
 
 
 def tail_inputs(device, T, dtype, seed):
@@ -1341,21 +1386,61 @@ def fit_phase(problem, genome, card) -> dict:
 
 
 def k5_bytes(args, S: int, md: int) -> int:
-    """Bytes K5 needs for this run's data: orig and change whole, lo and hi
-    at the changed members, u at the changed members for the rounds up to
-    each row's S-th valid candidate (the kernel stops there), probe and has
-    written once."""
+    """Bytes K5 needs for this run's data: change whole, orig at the
+    unchanged members, lo and hi at the changed members, u at the changed
+    members for the rounds up to each row's S-th valid candidate (no round
+    after it can change the result), probe and has written once."""
     orig, change, lo, hi, u = args
-    k, n = orig.shape
+    n, k = orig.shape
     T = u.shape[0]
     need = torch.full((n,), T, device=orig.device)
     for t in range(T, S - 1, -1):        # the smallest t that finds S wins
         _, has = tp.propose_phase1_plain(orig, change, lo, hi, u[:t],
                                          min_distance=md, max_probes=S)
         need = torch.where(has[S - 1], torch.full_like(need, t), need)
-    n_changed = change.sum(dim=0)
-    return (4 * 2 * k * n + 4 * 2 * int(n_changed.sum())
+    n_changed = change.sum(dim=1)
+    n_changed_all = int(n_changed.sum())
+    return (4 * (k * n - n_changed_all) + k * n + 4 * 2 * n_changed_all
             + 4 * int((n_changed * need).sum()) + S * k * n * 4 + S * n)
+
+
+def k5_in_sampler(device) -> dict:
+    """K5 as the fit's sampler calls it: one stage-2 step's sampler calls
+    ("pallas", 2,048 positives per k = 2..5, neg_num 3, 8 rounds, 4 / 2
+    probes) record the arguments they hand ``ops.propose.propose_phase1``;
+    then that dispatcher is timed by CUDA events on those very arguments,
+    so whatever the dispatcher does to the sampler's arrays (views,
+    conversions, copies) is in the time; then one profiled pass over the
+    four calls counts their device operations.  -> ms per k and per step,
+    device operations and busy ms per step."""
+    table, bounds, pos, blooms = sampler_problem(hg38_genome(), device,
+                                                 SEED + 41)
+    real = tp.propose_phase1
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+    record.launches = real.launches
+    tp.propose_phase1 = record
+    try:
+        for k in TRAIN_KS:
+            sample_negatives(torch.Generator().manual_seed(SEED + k), pos[k],
+                             table, 0, blooms[k], max_trials=8,
+                             max_probes=4 if k == 2 else 2,
+                             chrom_bounds=bounds, propose_impl="pallas")
+    finally:
+        tp.propose_phase1 = real
+    if len(calls) != len(TRAIN_KS):
+        fail(f"the sampler made {len(calls)} phase-1 calls, expected "
+             f"{len(TRAIN_KS)}")
+    ms = {f"k{k}": cuda_ms(lambda a=a, kw=kw: real(*a, **kw))
+          for k, (a, kw) in zip(TRAIN_KS, calls)}
+    prof = device_profile(lambda: [real(*a, **kw) for a, kw in calls])
+    return {"ms": ms, "step_ms": sum(ms.values()),
+            "device_ops_per_step": prof["device_kernel_launches"],
+            "device_busy_ms_per_step": prof["device_busy_ms"],
+            "arg_layouts": [[list(t.shape) for t in a] for a, _ in calls]}
 
 
 def unfused_tail(y, h, params, gens, train=True):
@@ -1393,6 +1478,7 @@ def time_new_kernels(device, card) -> dict:
                 *args, min_distance=0, max_probes=S), iters=5),
             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
             "mbytes": nbytes / 1e6}
+    out["K5_in_sampler"] = k5_in_sampler(device)
     T, d = 4 * TRAIN_BATCH * sum(TRAIN_KS), DIM
     y, h, p = tail_inputs(device, T, torch.bfloat16, SEED + 60)
     g = torch.randn((T, 1), device=device)
@@ -1498,6 +1584,11 @@ def step_ab(problem, card) -> dict:
                                           "device_busy_ms",
                                           "device_idle_share",
                                           "device_kernel_launches")}}
+    for impl in ("pallas", "xla"):
+        d = out[f"{impl}_detail"]
+        print(f"profiled fused + '{impl}' step: {d['device_kernel_launches']}"
+              f" device operations, device busy {d['device_busy_ms']} ms",
+              flush=True)
     print(json.dumps({"metric": "stage2_step_ab", **out, "card": card}),
           flush=True)
     return out
@@ -1600,6 +1691,138 @@ def small_model_phase(genome, device, card) -> dict:
     return out
 
 
+# ------------------------------------------------------- run_train via CLI
+def write_train_inputs(temp: str, genome, rng) -> int:
+    """Phase 11's ``temp_dir``, with numpy only (no h5py): the genome
+    (``GenomeBins.save``), random symmetric intra- and inter-chromosomal
+    contact matrices and an edge list of clusters of 2-25 nodes: 1,500
+    multi-way templates of 5-8 nodes on one chromosome each, every template
+    drawn at least three times (twice whole, then whole or less one member),
+    so every k = 2..5 keeps thousands of k-mers at min_freq_cutoff 2 with
+    frequencies spread for the quantile weights, plus 300 clusters of 2-25
+    nodes anywhere.  -> the number of clusters."""
+    from matcha_tpu_torch.data.clusters import save_edge_list
+    from matcha_tpu_torch.data.mcool import save_contacts
+    genome.save(temp)
+    n = genome.num_nodes
+    m = rng.random((n, n), dtype=np.float32)
+    m = m + m.T
+    same = genome.node2chrom[1:, None] == genome.node2chrom[None, 1:]
+    save_contacts(temp, np.where(same, m, 0).astype(np.float32),
+                  np.where(same, 0, m).astype(np.float32))
+    clusters = []
+    for _ in range(CLI_TEMPLATES):
+        s, e = genome.chrom_range[rng.integers(genome.num_chroms)]
+        t = np.sort(rng.choice(np.arange(s, e), rng.integers(5, 9),
+                               replace=False))
+        for i in range(2 + int(rng.geometric(0.3))):
+            clusters.append(t if i < 2 or rng.random() < 0.5 else
+                            np.delete(t, rng.integers(len(t))))
+    for _ in range(300):
+        clusters.append(np.sort(rng.choice(np.arange(1, n + 1),
+                                           rng.integers(2, 26),
+                                           replace=False)))
+    offsets = np.zeros(len(clusters) + 1, np.int64)
+    np.cumsum([len(c) for c in clusters], out=offsets[1:])
+    save_edge_list(temp, np.concatenate(clusters).astype(np.int32), offsets)
+    return len(clusters)
+
+
+def cli_train_phase(genome, card) -> dict:
+    """Phase 11: ``run_train`` through the CLI on the card at full width.
+    Writes the inputs (``write_train_inputs``) and a config.JSON (k = 2..5,
+    embed_dim 64, 8 heads, compute "auto", batch 2,048, 10 batches per
+    epoch, 1 + 1 epochs), runs ``python -m matcha_tpu_torch kmers`` in a
+    subprocess and the ``train`` stage through the same entry in this
+    process (``pipeline.main``), with the launch counts zeroed just before
+    and read just after; then scores candidates with the bundle it wrote."""
+    import contextlib
+    import importlib.util
+    import io
+    from matcha_tpu_torch.native import cluster_native, kmer_native
+    from matcha_tpu_torch.pipeline import main as cli_main
+    out = {"metric": "run_train_cli", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        temp = os.path.join(tmp, "temp")
+        t0 = time.perf_counter()
+        out["clusters"] = write_train_inputs(temp, genome,
+                                             np.random.default_rng(SEED + 70))
+        out["inputs_s"] = time.perf_counter() - t0
+        cfg = os.path.join(tmp, "config.JSON")
+        with open(cfg, "w") as f:
+            json.dump({"temp_dir": temp, "resolution": genome.resolution,
+                       "chrom_list": genome.chrom_names,
+                       "max_cluster_size": 25,
+                       "min_distance": 0, "k-mer_size": list(TRAIN_KS),
+                       "min_freq_cutoff": 2, "embed_dim": CLI_DIM,
+                       "n_head": N_HEAD, "batch_size": CLI_BATCH,
+                       "num_batch_per_iter": TRAIN_STEPS,
+                       "stage1_epochs": 1, "stage2_epochs": 1}, f)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "matcha_tpu_torch",
+                              "kmers", "-c", cfg],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600)
+        out["kmers_s"] = time.perf_counter() - t0
+        print(res.stdout.strip(), flush=True)
+        if res.returncode != 0:
+            fail(f"python -m matcha_tpu_torch kmers exited {res.returncode}:"
+                 f"\n{res.stderr[-3000:]}")
+        out["native_parser"] = cluster_native.available()
+        out["native_counter"] = kmer_native.available()
+        out["modules"] = {m: importlib.util.find_spec(m) is not None
+                          for m in ("h5py", "scipy", "matplotlib", "pandas")}
+
+        hs._FUSE_TAIL = None          # phase 10 set the gate; "auto" resets
+        os.environ.pop("MATCHA_FUSE_TAIL", None)
+        log = io.StringIO()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            cli_main(["train", "-c", cfg, "--device", "cuda"])
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["launches"] = launch_counts()
+        text = log.getvalue()
+        print(text.strip(), flush=True)
+        sizes = [ln for ln in text.splitlines()
+                 if ln.startswith("train sizes: ")]
+        perf = [ln for ln in text.splitlines()
+                if ln.startswith("resolved perf: ")]
+        out["train_sizes"] = sizes[0][len("train sizes: "):] if sizes \
+            else None
+        want_perf = ("'compute_dtype': 'bfloat16'", "'token_stream': 'merged'",
+                     "'propose_impl': 'xla'", "'fuse_tail': 'off'")
+        if not perf or not all(w in perf[0] for w in want_perf):
+            fail(f"run_train resolved {perf}, expected bf16 / merged / xla "
+                 f"/ off")
+        missing = [p for p in (os.path.join(temp, "model2load", "params.pkl"),
+                               os.path.join(tmp, "embeddings.npy"),
+                               os.path.join(temp, "model.chkpt"),
+                               os.path.join(temp, "logs", "metrics.jsonl"))
+                   if not os.path.exists(p)]
+        if missing:
+            fail(f"run_train did not write {missing}")
+        launched = out["launches"]
+        if not all(launched[k] for k in ("K1", "K2", "K3", "K4")) or any(
+                launched[k] for k in ("K5", "K6_fwd", "K6_bwd")):
+            fail(f"run_train launched {launched}: expected K1-K4, and no K5 "
+                 f"or K6 on the shipped path")
+        inp = os.path.join(tmp, "candidates.txt")
+        with open(inp, "w") as f:
+            f.write("chr1:500000\tchr1:3500000\n"
+                    "chr2:1000000\tchr2:9000000\tchr2:20000000\n"
+                    "chr3:0\tchr3:4000000\tchr3:8000000\tchr3:9000000\n")
+        proba = run_predict_multiway(os.path.join(temp, "model2load"), inp,
+                                     os.path.join(tmp, "out.txt"),
+                                     device="cuda")
+        out["proba"] = [float(p) for p in proba]
+        if proba.shape != (3,) or not ((proba > 0) & (proba < 1)).all():
+            fail(f"the trained bundle scored {proba}")
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1624,7 +1847,7 @@ def main():
                         check_scatter_skewed(device))
     check_bincount(device)
     check_bloom(device)
-    check_propose(device)
+    check_propose(device, hg38_genome())
     worst_tail = check_fused_tail(device)
     check_tail_masks(device)
 
@@ -1728,6 +1951,9 @@ def main():
     # 10. shapes the kernels do not take
     small_model_phase(genome, device, card)
 
+    # 11. run_train through the CLI
+    cli_train_phase(genome, card)
+
     k2 = tk["K2_L5"]
     k5 = nk["K5_k5"]
     step_path = train["counts"]
@@ -1788,6 +2014,7 @@ def main():
          "replaces": "matcha_tpu/ops/propose.py:94",
          "launches": counts["K5"], "max_abs_err": 0.0,
          "ms": k5["ms"], "device_ms": k5["device_ms"],
+         "in_sampler_ms_per_step": nk["K5_in_sampler"]["step_ms"],
          "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": "bytes",
          "library_ms": None},

@@ -1,25 +1,30 @@
-// Phase-1 negative proposals (feature-major), for NVIDIA Hopper (sm_90a).
+// Phase-1 negative proposals, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel matcha_tpu/ops/propose.py:_kernel (through
-// propose_phase1).  For every row r of n and each of T rounds t:
-//   cand[c]  = lo[c] + min(floor((hi[c] - lo[c]) * u[t][c]), hi[c] - lo[c] - 1)
+// propose_phase1), in the sampler's own row-major layout.  For every row r of
+// n and each of T rounds t:
+//   cand[c]  = lo[c] + min(floor((hi[c] - lo[c]) * u[t][r][c]), hi[c] - lo[c] - 1)
 //   temp[c]  = change[c] ? cand[c] : orig[c]
 //   sorted   = the k-wide sorting network of the JAX package (_SORT_NETS)
 //   ok       = every gap sorted[c+1] - sorted[c] > min_distance
-// and the first S ok candidates in round order go to probe[s][:, r], with
+// and the first S ok candidates in round order go to probe[s][r][:], with
 // has[s][r] = 1; slots no ok candidate reached are written as zeros.
 //
-// One thread per row: the k <= 6 members live in registers, the network is
-// unrolled per k (a template), and each output is written exactly once.  The
-// row axis is the fastest one in every array, so neighbouring threads touch
-// neighbouring addresses.  The ragged edge (n not a multiple of the block) is
-// masked, so any n is taken.  The result is a pure function of u: the
-// multiply is __fmul_rn (no FMA may fuse it into the add across the floor),
-// so the kernel agrees bit for bit with the plain PyTorch version.
-// Bound on this card: bytes.  At k = 5, n = 6,144, T = 8, S = 2 it reads
-// orig/change/lo/hi (4 * k * n * 4 B) and u (T * k * n * 4 B) and writes
-// probe (S * k * n * 4 B) and has (S * n B): about 1.8 MB -> 0.53 us at
-// 3.35 TB/s; at this size the launch itself dominates.
+// Bound on this card: bytes by the roofline, latency in fact.  At k = 5,
+// n = 6,144, T = 8, S = 2 the inputs and outputs are ~1.6 MB (~0.5 us at
+// 3.35 TB/s) and the arithmetic is a few hundred operations per row; a
+// design with one thread per row looping over the rounds runs 24 blocks on
+// 132 SMs, each thread a chain of dependent loads.  So the rounds run side by
+// side instead: a group of G lanes of one warp (G = the next power of two >=
+// T, at most 32) serves one row, lane t computing round t, so no loop
+// carries a dependence and n = 6,144 at T = 8 is 192 blocks.  One
+// __ballot_sync gives the group's ok mask in round order; lane t writes its
+// candidate to slot popc(mask & lanes below t) when that is < S, and lanes
+// s < S with s >= popc(mask) write the zero rows.  Every output is written
+// exactly once.  Rows past n and lanes past T take part in the ballot with
+// ok = false.  The result is a pure function of u: the multiply is __fmul_rn
+// (no FMA may fuse it into the add across the floor), so the kernel agrees
+// bit for bit with the plain PyTorch version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,93 +60,99 @@ __device__ __forceinline__ void sort_net(int* c) {
   }
 }
 
-template <int K>
+template <int K, int G>
 __global__ void __launch_bounds__(NT)
-    propose_kernel(const int* __restrict__ orig, const int* __restrict__ change,
+    propose_kernel(const int* __restrict__ orig, const unsigned char* __restrict__ change,
                    const float* __restrict__ lo, const float* __restrict__ hi,
                    const float* __restrict__ u, int* __restrict__ probe,
                    unsigned char* __restrict__ has, int n, int T, int S, int min_distance) {
-  const int r = blockIdx.x * NT + threadIdx.x;
-  if (r >= n) return;
-  int o[K];
-  bool ch[K];
-  float l[K], w[K], wm1[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const size_t i = (size_t)c * n + r;
-    o[c] = orig[i];
-    ch[c] = change[i] != 0;
-    l[c] = lo[i];
-    w[c] = __fsub_rn(hi[i], lo[i]);
-    wm1[c] = __fsub_rn(w[c], 1.0f);
-  }
-  int rank = 0;
-  for (int t = 0; t < T && rank < S; ++t) {
-    int v[K];
+  const int t = threadIdx.x % G;                         // this lane's round
+  const int r = blockIdx.x * (NT / G) + threadIdx.x / G;  // this group's row
+  int v[K];
+  bool ok = false;
+  if (r < n && t < T) {
+    const size_t row = (size_t)r * K;
+    const size_t ur = ((size_t)t * n + r) * K;
+    ok = true;
 #pragma unroll
     for (int c = 0; c < K; ++c) {
-      if (ch[c]) {
-        const float uu = u[((size_t)t * K + c) * n + r];
-        const float f = fminf(floorf(__fmul_rn(w[c], uu)), wm1[c]);
-        v[c] = (int)__fadd_rn(l[c], f);
+      if (change[row + c]) {
+        const float l = lo[row + c];
+        const float w = __fsub_rn(hi[row + c], l);
+        const float f = fminf(floorf(__fmul_rn(w, u[ur + c])), __fsub_rn(w, 1.0f));
+        v[c] = (int)__fadd_rn(l, f);
       } else {
-        v[c] = o[c];
+        v[c] = orig[row + c];
       }
     }
     sort_net<K>(v);
-    bool ok = true;
 #pragma unroll
     for (int c = 0; c + 1 < K; ++c) ok = ok && (v[c + 1] - v[c] > min_distance);
-    if (ok) {
-#pragma unroll
-      for (int c = 0; c < K; ++c) probe[((size_t)rank * K + c) * n + r] = v[c];
-      has[(size_t)rank * n + r] = 1;
-      ++rank;
-    }
   }
-  for (int s = rank; s < S; ++s) {
+  // every lane of the warp reaches the ballot: no return above
+  const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+  if (r >= n) return;
+  const int first = (threadIdx.x & 31) & ~(G - 1);  // the group's first lane
+  const unsigned mask = G == 32 ? ballot : (ballot >> first) & ((1u << (G & 31)) - 1u);
+  const int slot = __popc(mask & ((1u << t) - 1u));
+  if (ok && slot < S) {
 #pragma unroll
-    for (int c = 0; c < K; ++c) probe[((size_t)s * K + c) * n + r] = 0;
-    has[(size_t)s * n + r] = 0;
+    for (int c = 0; c < K; ++c) probe[((size_t)slot * n + r) * K + c] = v[c];
+    has[(size_t)slot * n + r] = 1;
+  }
+  if (t < S && t >= __popc(mask)) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) probe[((size_t)t * n + r) * K + c] = 0;
+    has[(size_t)t * n + r] = 0;
   }
 }
 
 template <int K>
-void launch(const int* orig, const int* change, const float* lo, const float* hi,
-            const float* u, int* probe, unsigned char* has, int n, int T, int S,
-            int min_distance, cudaStream_t s) {
-  propose_kernel<K><<<(n + NT - 1) / NT, NT, 0, s>>>(orig, change, lo, hi, u, probe, has, n,
-                                                      T, S, min_distance);
+int launch(const int* orig, const unsigned char* change, const float* lo, const float* hi,
+           const float* u, int* probe, unsigned char* has, int n, int T, int S,
+           int min_distance, cudaStream_t s) {
+#define MATCHA_PROPOSE(G)                                                              \
+  propose_kernel<K, G><<<(int)(((long long)n * G + NT - 1) / NT), NT, 0, s>>>(          \
+      orig, change, lo, hi, u, probe, has, n, T, S, min_distance)
+  if (T <= 1) MATCHA_PROPOSE(1);
+  else if (T <= 2) MATCHA_PROPOSE(2);
+  else if (T <= 4) MATCHA_PROPOSE(4);
+  else if (T <= 8) MATCHA_PROPOSE(8);
+  else if (T <= 16) MATCHA_PROPOSE(16);
+  else MATCHA_PROPOSE(32);
+#undef MATCHA_PROPOSE
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// orig/change (k, n) int32, lo/hi (k, n) f32, u (T, k, n) f32 -> probe
-// (S, k, n) int32 and has (S, n) bytes (0/1), every element written.
-// 1 <= k <= 6, T >= 1, 1 <= S <= T.  Returns the CUDA error (0 = ok).
+// orig (n, k) int32, change (n, k) bytes (0/1), lo/hi (n, k) f32, u (T, n, k)
+// f32 -> probe (S, n, k) int32 and has (S, n) bytes (0/1), every element
+// written.  1 <= k <= 6, 1 <= T <= 32, 1 <= S <= T.  Returns the CUDA error
+// (0 = ok).
 extern "C" int matcha_propose_phase1(const void* orig, const void* change, const void* lo,
                                      const void* hi, const void* u, void* probe, void* has,
                                      int k, int n, int T, int S, int min_distance,
                                      void* stream) {
-  if (k < 1 || k > 6 || n < 0 || T < 1 || S < 1 || S > T) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > 6 || n < 0 || T < 1 || T > 32 || S < 1 || S > T)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* o = static_cast<const int*>(orig);
-  const int* c = static_cast<const int*>(change);
+  const unsigned char* c = static_cast<const unsigned char*>(change);
   const float* l = static_cast<const float*>(lo);
   const float* h = static_cast<const float*>(hi);
   const float* uu = static_cast<const float*>(u);
   int* p = static_cast<int*>(probe);
   unsigned char* hs = static_cast<unsigned char*>(has);
   switch (k) {
-    case 1: launch<1>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s); break;
-    case 2: launch<2>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s); break;
-    case 3: launch<3>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s); break;
-    case 4: launch<4>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s); break;
-    case 5: launch<5>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s); break;
-    default: launch<6>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s); break;
+    case 1: return launch<1>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s);
+    case 2: return launch<2>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s);
+    case 3: return launch<3>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s);
+    case 4: return launch<4>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s);
+    case 5: return launch<5>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s);
+    default: return launch<6>(o, c, l, h, uu, p, hs, n, T, S, min_distance, s);
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* matcha_cuda_error_string(int err) {

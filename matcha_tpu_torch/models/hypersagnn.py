@@ -144,6 +144,7 @@ def _tree_to(tree, device):
 
 
 def build_frozen_tables(genome, intra_adj: np.ndarray, inter_adj: np.ndarray,
+                        table_dtype=torch.float32,
                         device="cuda") -> FrozenTables:
     """Host-side construction of the frozen buffers (numpy), then one copy
     to ``device``:
@@ -153,7 +154,12 @@ def build_frozen_tables(genome, intra_adj: np.ndarray, inter_adj: np.ndarray,
     * attr_table: one-hot chromosome + coordinate scaled by the first
       chromosome's bin count; row 0 zeros for padding
     * inter_z: per-row z-score over the positive entries of the inter-chrom
-      matrix, NaN -> 0, with a leading zero row (indexed by node id)."""
+      matrix, NaN -> 0, with a leading zero row (indexed by node id).
+
+    ``table_dtype`` (torch.bfloat16 halves their memory) is the dtype of
+    features and inter_z, as in the JAX package; the encode casts the
+    features to the compute dtype and the recon loss reads inter_z in
+    f32."""
     dev = resolve_device(device)
     C = genome.num_chroms
     n = genome.num_nodes
@@ -165,7 +171,7 @@ def build_frozen_tables(genome, intra_adj: np.ndarray, inter_adj: np.ndarray,
         with np.errstate(invalid="ignore", divide="ignore"):
             corr = np.corrcoef(block)
         corr = np.nan_to_num(corr, nan=0.0).astype(np.float32)
-        features.append(torch.from_numpy(corr).to(dev))
+        features.append(torch.from_numpy(corr).to(dev, table_dtype))
 
     sizes = genome.bins_per_chrom
     attr = np.zeros((n + 1, C + 1), dtype=np.float32)
@@ -190,7 +196,7 @@ def build_frozen_tables(genome, intra_adj: np.ndarray, inter_adj: np.ndarray,
     return FrozenTables(
         features=tuple(features),
         attr_table=torch.from_numpy(attr).to(dev),
-        inter_z=torch.from_numpy(inter_z).to(dev),
+        inter_z=torch.from_numpy(inter_z).to(dev, table_dtype),
         chrom_of_node=torch.from_numpy(
             genome.node2chrom.astype(np.int32)).to(dev),
         chrom_bounds=torch.from_numpy(

@@ -87,10 +87,6 @@ class DeviceBloomFilter:
         """Batched membership query: (..., N, k) ids -> (..., N) bool."""
         return self._contains_hashed(*_hash_rows(rows))
 
-    def contains_cols(self, rows_t: torch.Tensor) -> torch.Tensor:
-        """``contains`` for feature-major rows: (..., k, N) -> (..., N)."""
-        return self._contains_hashed(*_hash_rows(rows_t, axis=-2))
-
     def _word(self, i):
         return self.bits[i].to(torch.int64) & _M32
 

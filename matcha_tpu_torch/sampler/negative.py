@@ -19,11 +19,12 @@ Random draws come from explicit CPU ``torch.Generator``s (see
 ``models/modules.py``); the streams differ from jax.random's, so the port is
 held to the JAX package exactly where the uniforms are injected (phase 1)
 and by the same invariant and distribution tests elsewhere.
-``propose_impl="pallas"`` runs phase 1 feature-major through
-``ops/propose.py`` (K5 on a CUDA tensor); its uniforms are drawn (T, k, n),
-so its stream differs from the "xla" branch's and its distribution is the
-same.  For k > 6, beyond K5's sorting networks, it warns and takes the
-"xla" branch, as the JAX package does.
+``propose_impl="pallas"`` runs phase 1 through ``ops/propose.py`` (K5 on a
+CUDA tensor) on the same arrays and uniforms as the "xla" branch, so the
+two branches give the same negatives bit for bit.  (The JAX package's
+"pallas" branch draws its uniforms feature-major, (T, k, n): another draw
+from the same distribution.)  For k > 6, beyond K5's sorting networks, it
+warns and takes the "xla" branch, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -96,17 +97,17 @@ def sort_small(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def _first_accepted(probe, acc_stage, expand):
-    """First Bloom-accepted stage per row, in trial order.  probe: (S, ...)
-    per-stage candidates; acc_stage: (S, n); expand maps an (n,) mask to
-    probe's stage shape.  Rows with no acceptance keep probe[0], the first
-    structurally valid candidate.  -> (chosen, acc_found)."""
+def _first_accepted(probe, acc_stage):
+    """First Bloom-accepted stage per row, in trial order.  probe: (S, n, k)
+    per-stage candidates; acc_stage: (S, n).  Rows with no acceptance keep
+    probe[0], the first structurally valid candidate.  -> (chosen,
+    acc_found)."""
     acc_found = torch.zeros(acc_stage.shape[1:], dtype=torch.bool,
                             device=acc_stage.device)
     chosen = probe[0]
     for s in range(probe.shape[0]):
         take = ~acc_found & acc_stage[s]
-        chosen = torch.where(expand(take), probe[s], chosen)
+        chosen = torch.where(take[:, None], probe[s], chosen)
         acc_found = acc_found | acc_stage[s]
     return chosen, acc_found
 
@@ -134,17 +135,18 @@ def _draw(lo, hi, u):
                                hi - lo - 1.0)).to(torch.int32)
 
 
-def _phase1_xla(orig, change, lo, hi, u, min_distance: int, S: int):
+def _phase1_xla(orig, change, lo, hi, u, min_distance: int,
+                max_probes: int):
     """Phase 1 with given uniforms: T rounds of candidates, sorted and
-    gap-checked, and the s-th structurally valid one per row for s < S.
-    orig/change (n, k), lo/hi (n, k) f32, u (T, n, k) f32 -> (probe (S, n, k)
-    int32, zero where none; stage_has (S, n) bool)."""
+    gap-checked, and the s-th structurally valid one per row for s <
+    max_probes (<= T).  orig/change (n, k), lo/hi (n, k) f32, u (T, n, k)
+    f32 -> (probe (S, n, k) int32, zero where none; stage_has (S, n) bool)."""
     temp = sort_small(torch.where(change[None], _draw(lo[None], hi[None], u),
                                   orig[None]))                 # (T, n, k)
     ok = ((temp[..., 1:] - temp[..., :-1]) > min_distance).all(dim=-1)
     rank = torch.cumsum(ok.to(torch.int32), dim=0) - 1         # (T, n)
     probe, has = [], []
-    for s in range(S):
+    for s in range(max_probes):
         m = ok & (rank == s)
         probe.append((temp * m[..., None]).sum(dim=0, dtype=torch.int32))
         has.append(m.any(dim=0))
@@ -219,21 +221,14 @@ def sample_negatives_with_stats(
                       f"k <= 6, got k={k})", stacklevel=2)
         propose_impl = "xla"
     if propose_impl == "pallas":
-        from matcha_tpu_torch.ops.propose import propose_phase1
-        probe_t, stage_has = propose_phase1(
-            orig.T, change.T, lo.T, hi.T, rand(g_trial, (T, k, n), dev),
-            min_distance=min_distance, max_probes=S)           # (S, k, n)
-        acc_stage = stage_has & ~bloom.contains_cols(probe_t)   # (S, n)
-        chosen_t, found = _first_accepted(probe_t, acc_stage,
-                                          lambda m: m[None, :])
-        chosen = chosen_t.T                                     # (n, k)
+        from matcha_tpu_torch.ops.propose import propose_phase1 as phase1
     else:
-        probe, stage_has = _phase1_xla(orig, change, lo, hi,
-                                       rand(g_trial, (T, n, k), dev),
-                                       min_distance, S)
-        acc_stage = stage_has & ~bloom.contains(probe)           # (S, n)
-        chosen, found = _first_accepted(probe, acc_stage,
-                                        lambda m: m[:, None])
+        phase1 = _phase1_xla
+    probe, stage_has = phase1(orig, change, lo, hi,
+                              rand(g_trial, (T, n, k), dev),
+                              min_distance=min_distance, max_probes=S)
+    acc_stage = stage_has & ~bloom.contains(probe)               # (S, n)
+    chosen, found = _first_accepted(probe, acc_stage)
     cur_ok = stage_has[0]        # a structurally valid trial exists
 
     for _ in range(max(int(extra_rounds), 0)):

@@ -385,10 +385,14 @@ class Trainer:
                 "hyperedges_per_sec": aux["pred"].numel() / elapsed}
 
     def pin_base_buckets(self, batcher: BucketedBatcher,
-                         budget_bytes: int = 4096 << 20) -> bool:
+                         budget_bytes: Optional[int] = None) -> bool:
         """Copy the batcher's base bucket arrays to the params' device for
         indexed epochs.  -> False (nothing pinned) when they exceed
-        ``budget_bytes``; ``train_epoch`` then stages the rows instead."""
+        ``budget_bytes`` (default MATCHA_PIN_BUDGET_MB, else 4096 MiB);
+        ``train_epoch`` then stages the rows instead."""
+        if budget_bytes is None:
+            budget_bytes = int(os.environ.get("MATCHA_PIN_BUDGET_MB",
+                                              4096)) << 20
         if batcher.base_nbytes() > budget_bytes:
             return False
         dev = _leaves(self.params)[0].device
@@ -516,6 +520,7 @@ class Trainer:
           device and runs indexed epochs when they fit the pin budget, else
           the host batcher path; "on" requires the pin; "off" takes the
           host path.  Both paths draw the same batches.
+          MATCHA_DEVICE_EPOCHS overrides "auto".
         checkpoint_path: a checkpoint (``save_checkpoint``) whenever the
           validation AUPRC of the largest k is at least the best so far (the
           first epoch always saves; -bce stands in for a NaN AUPRC); the
@@ -530,10 +535,12 @@ class Trainer:
             raise NotImplementedError(
                 "checkpoint_format='orbax' (sharded asynchronous "
                 "checkpoints) is not ported yet; it comes with multi-GPU "
-                "training (ROADMAP.md, Queue 1 item 13)")
+                "training (ROADMAP.md, Queue 1 item 6)")
         if checkpoint_format != "pickle":
             raise ValueError(f"checkpoint_format must be 'pickle', got "
                              f"{checkpoint_format!r}")
+        if device_epochs == "auto":
+            device_epochs = os.environ.get("MATCHA_DEVICE_EPOCHS", "auto")
         if device_epochs not in ("auto", "on", "off"):
             raise ValueError(f"device_epochs must be 'auto', 'on' or 'off', "
                              f"got {device_epochs!r}")

@@ -273,32 +273,95 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
 
 
 def _propose_inputs(device, k, n, T=8, seed=0):
+    """The sampler's layout: orig (n, k) int32, change (n, k) bool, lo/hi
+    (n, k) f32, u (T, n, k) f32, a few top uniforms on the f32 guard."""
     rng = np.random.default_rng(seed)
     orig = np.sort(rng.integers(1, 3000, size=(n, k)), axis=1)
     change = rng.random((n, k)) < 0.5
     change[np.arange(n), rng.integers(0, k, n)] = True
     lo = rng.integers(1, 1000, size=(n, k)).astype(np.float32)
     hi = lo + rng.integers(1, 2000, size=(n, k)).astype(np.float32)
-    u = rng.random((T, k, n), dtype=np.float32)
-    u[0, :, :7] = np.nextafter(np.float32(1), np.float32(0))   # the guard
-    return [torch.tensor(np.ascontiguousarray(a), device=device) for a in
-            (orig.T.astype(np.int32), change.T.astype(np.int32), lo.T, hi.T,
-             u)]
+    u = rng.random((T, n, k), dtype=np.float32)
+    u[0, :7, :] = np.nextafter(np.float32(1), np.float32(0))   # the guard
+    return [torch.tensor(a, device=device) for a in
+            (orig.astype(np.int32), change, lo, hi, u)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("n", [6144, 1000, 37])
-def test_k5_matches_plain_bit_for_bit(cuda, k, n):
-    args = _propose_inputs(cuda, k, n, seed=k * n)
-    for md, S in [(0, 2), (1, 4), (3, 8)]:
+@pytest.mark.parametrize("T", [1, 5, 8, 16])
+def test_k5_matches_plain_bit_for_bit(cuda, k, n, T):
+    """Every k, ragged n (not a multiple of a block or of a lane group),
+    T from one lane per row to 16, S = 1, 2, 4 and T."""
+    args = _propose_inputs(cuda, k, n, T=T, seed=k * n + T)
+    for md, S in [(0, 1), (0, 2), (1, 4), (3, T)]:
         before = tp.propose_phase1.launches
         probe, has = tp.propose_phase1(*args, min_distance=md, max_probes=S)
         assert tp.propose_phase1.launches == before + 1
         rp, rh = tp.propose_phase1_plain(*args, min_distance=md,
                                          max_probes=S)
-        assert probe.shape == (S, k, n) and has.dtype == torch.bool
+        S = min(S, T)
+        assert probe.shape == (S, n, k) and has.dtype == torch.bool
         assert torch.equal(probe, rp) and torch.equal(has, rh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hard_ratio", [1.0, 0.6])
+def test_k5_sampler_pallas_equals_xla(cuda, hard_ratio):
+    """On the card the "pallas" sampler (K5) gives the "xla" sampler's
+    negatives and counts for one generator, at every k K5 takes."""
+    from matcha_tpu_torch.genome import GenomeBins
+    from matcha_tpu_torch.sampler import negative as tn
+    from matcha_tpu_torch.sampler.bloom import build_bloom
+    genome = GenomeBins(["chr1", "chr2", "chr3"],
+                        [248_956_422, 242_193_529, 198_295_559], 1_000_000)
+    table = tn.ChromTable.from_genome(genome, device=cuda)
+    rng = np.random.default_rng(5)
+    for k in range(2, 7):
+        pos = np.sort(rng.integers(1, genome.num_nodes + 1, (4000, k)),
+                      axis=1)
+        pos = pos[(np.diff(pos, axis=1) > 0).all(axis=1)][:2048]
+        bloom = build_bloom(pos, device=cuda)
+        out = {}
+        for impl in ("xla", "pallas"):
+            before = tp.propose_phase1.launches
+            neg, st = tn.sample_negatives_with_stats(
+                torch.Generator().manual_seed(k), torch.tensor(pos,
+                                                               device=cuda),
+                table, 0, bloom, max_probes=4 if k == 2 else 2,
+                hard_ratio=hard_ratio, propose_impl=impl)
+            assert tp.propose_phase1.launches == before + (impl == "pallas")
+            out[impl] = (neg, [int(v) for v in st.values()])
+        assert torch.equal(out["xla"][0], out["pallas"][0]), k
+        assert out["xla"][1] == out["pallas"][1], k
+
+
+@pytest.mark.cuda
+def test_k5_is_one_launch_and_one_allocation(cuda):
+    """One call is one kernel on the device and one allocation (probe and
+    has share it); a non-contiguous input raises instead of being copied."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _propose_inputs(cuda, 5, 6144)
+    tp.propose_phase1(*args, min_distance=0, max_probes=2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tp.propose_phase1(*args, min_distance=0, max_probes=2)
+        torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert after - before == 1
+    wide = torch.zeros((6, 6144), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match=r"float32 \(6144, 5\) on cuda:0 "
+                                         r"\(contiguous: False\)"):
+        tp.propose_phase1(args[0], args[1], wide[:5].T, args[3], args[4],
+                          min_distance=0, max_probes=2)
+    with pytest.raises(ValueError, match=r"True\), torch.int32 \(6144, 5\)"):
+        tp.propose_phase1(args[0], args[1].to(torch.int32), *args[2:],
+                          min_distance=0, max_probes=2)
 
 
 def _tail_inputs(device, T, dtype, seed=0):

@@ -1,5 +1,6 @@
 """matcha_tpu_torch imports neither jax nor anything of matcha_tpu, nor the
-packages the machine with the card lacks (scikit-learn, optax, orbax)."""
+packages the machine with the card lacks (scikit-learn, optax, orbax), nor
+h5py (only reading an .mcool file needs it, inside the function)."""
 
 import json
 import os
@@ -15,7 +16,8 @@ mods = sorted(m.name for m in pkgutil.walk_packages(
     matcha_tpu_torch.__path__, "matcha_tpu_torch."))
 for m in mods:
     importlib.import_module(m)
-banned = ("jax", "jaxlib", "matcha_tpu", "sklearn", "optax", "orbax")
+banned = ("jax", "jaxlib", "matcha_tpu", "sklearn", "optax", "orbax",
+          "h5py")
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in banned)
 print(json.dumps({"modules": mods, "leaked": leaked}))
@@ -31,6 +33,7 @@ def test_port_imports_no_jax_and_nothing_of_matcha_tpu():
     assert "matcha_tpu_torch.ops.hyperedge_attention" in report["modules"]
     assert "matcha_tpu_torch.apps.predict_multiway" in report["modules"]
     for mod in ("ops.propose", "ops.fused_tail", "train.metrics",
-                "train.logging"):
+                "train.logging", "config", "pipeline", "data.store",
+                "data.kmers", "data.mcool", "native.kmer_native"):
         assert f"matcha_tpu_torch.{mod}" in report["modules"]
     assert report["leaked"] == []

@@ -65,9 +65,6 @@ def test_contains_matches_jax(rng, error_rate):
     np.testing.assert_array_equal(got, np.asarray(jf.contains(
         jnp.asarray(probes))))
     assert got[:1000].all()                     # no false negatives
-    cols = np.ascontiguousarray(probes.T)
-    np.testing.assert_array_equal(
-        tf.contains_cols(torch.from_numpy(cols)).numpy(), got)
 
 
 def test_bloom_empty_and_dict(rng):
