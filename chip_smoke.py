@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, training step, Trainer.fit and
-run_train (through the CLI) on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, training step, Trainer.fit,
+run_train (through the CLI), the apps on a bundle and the model's modes on
+one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a GPU
 
@@ -102,6 +103,36 @@ Phases, all in this process; any failure exits non-zero before the last line:
      K4 launched, K5 and K6 not.  Prints each stage's wall, the train sizes,
      whether the native parser and counter built, and which of h5py, scipy,
      matplotlib and pandas the machine has.
+ 12. denoise at full width on the serving bundle: the port's denoise
+     computation (denoise_pixels, the closed form) over all 23 chromosomes
+     at min_distance 0, the counts zeroed just before and read just after
+     (no kernel may launch); the pixel count (sum of n_c (n_c + 1) / 2) and
+     every value finite in [0, 1]; on chr1 the f32 pair probabilities on
+     the card against the CPU's (1e-4) and the closed form against the
+     forward over the explicit pairs, both bf16 on the card (3e-2); the
+     pass's wall and its parts (tables and pair scores, normalisation,
+     quantile transforms, the write); run_denoise to an .mcool and its
+     layout where h5py is importable, else a line that says it was not run.
+ 13. outlier ranking: 2,000 of the serving candidates of each k = 3..5
+     through generate_outliers (20 per edge) and outlier_hit_rate (top 3,
+     batch 10,000), the counts zeroed just before and read just after (K1
+     once per chunk, nothing else); rows per second; per-position scores
+     f32 on the card against f32 on the CPU (1e-4) and bf16 on the card
+     against it (3e-2 of the largest score).
+ 14. the model modes at the training step's shape (phase 6's problem, the
+     shipped path), each with the counts zeroed just before and read just
+     after: (a) a regress step (K1 x3, K2 x3, K4 x4, no K3: the padded
+     forward gathers plainly) and Trainer.fit in the regress mode (one
+     epoch of 10 steps, its per-k eval, a checkpoint); (b) an epoch of 10
+     steps with the per-occurrence feature dropout (K1 x3, K2 x3 per step,
+     no K3 or K4), the step's peak memory above what was held before it
+     (below the 3.66 GB of the JAX package's gathered weights), and the
+     step in f32 at dropout 0 on the card against the CPU (1e-5 loss, 1e-4
+     gradients); (c) MATCHA_RECON_BF16, set between runs (never inside
+     one): the first step's recon loss against the same step with the gate
+     off (2e-2 relative), synchronised steps of a gate-off and a gate-on
+     Trainer in turns (off, on, on, off; 12 each), and an epoch of 10 steps
+     (K1 x3, K2 x3, K3 x1, K4 x1 per step).
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -116,6 +147,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 import warnings
 
 import numpy as np
@@ -130,6 +162,7 @@ from matcha_tpu_torch.data.batcher import BucketedBatcher
 from matcha_tpu_torch.genome import GenomeBins
 from matcha_tpu_torch.kernels.build import build
 from matcha_tpu_torch.models import hypersagnn as hs
+from matcha_tpu_torch.models import modules
 from matcha_tpu_torch.models.hypersagnn import (ModelDims,
                                                 build_frozen_tables,
                                                 configure_fuse_tail,
@@ -201,6 +234,16 @@ TOL_RESUME = 1e-6
 TOL_STEP_LOSS_F32, TOL_STEP_GRAD_F32, TOL_STEP_LOSS_BF16 = 1e-5, 1e-4, 2e-2
 # run_train through the CLI: multi-way templates, batch, width
 CLI_TEMPLATES, CLI_BATCH, CLI_DIM = 1_500, TRAIN_BATCH, DIM
+# outlier ranking: corrupted copies per edge; per-position scores f32 card
+# vs f32 CPU (summation order) and bf16 card vs f32 CPU, relative to the
+# largest score (bf16 rounding through the model, as TOL_PROBA_BF16)
+OUTLIER_PER_EDGE, TOL_SCORES_F32, TOL_SCORES_BF16 = 20, 1e-4, 3e-2
+# per-occurrence step: the bytes of the (T, W, d) bf16 weight gather the JAX
+# package builds at the step's 114,688 tokens and chr1's W = 249; the step's
+# peak above what was held before it must stay below it
+JAX_GATHERED_W1_BYTES = 4 * TRAIN_BATCH * sum(TRAIN_KS) * 249 * DIM * 2
+# recon loss with bf16 decode operands vs the f32 decode, relative
+TOL_RECON_BF16 = 2e-2
 
 
 def fail(msg: str):
@@ -925,15 +968,21 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def deterministic_step(params, frozen, dims, xs, batch, ws, r, device):
+def deterministic_step(params, frozen, dims, xs, batch, ws, r, device,
+                       train_seed=None):
     """Loss and gradients of one step with dropout off on fixed negatives
     and recon chromosome r: the merged (per-k) forward, weighted BCE and
-    recon, alpha 1, beta 0.001."""
+    recon, alpha 1, beta 0.001.  With ``train_seed`` the forward runs in
+    train mode with a generator from that seed (the caller turns the
+    dropouts off)."""
     p = _tree_map(lambda t: t.detach().to(device).clone().requires_grad_(True),
                   params)
     logits, recon = forward_buckets(
         p, frozen, dims, {k: v.to(device) for k, v in xs.items()},
-        return_recon=True, attention_mode="per-k", recon_chrom=r)
+        generator=(None if train_seed is None
+                   else torch.Generator().manual_seed(train_seed)),
+        train=train_seed is not None, return_recon=True,
+        attention_mode="per-k", recon_chrom=r)
     bce, _ = _bucket_bce_and_preds(
         logits, {k: (e.to(device), w.to(device)) for k, (e, w) in
                  batch.items()}, {k: w.to(device) for k, w in ws.items()})
@@ -944,10 +993,27 @@ def deterministic_step(params, frozen, dims, xs, batch, ws, r, device):
     return float(loss.detach()), [g.float().cpu() for g in grads]
 
 
-def check_deterministic_step(trainer, buckets, device, ks=TRAIN_KS) -> dict:
+def cpu_frozen(fz):
+    return fz._replace(features=tuple(f.cpu() for f in fz.features),
+                       attr_table=fz.attr_table.cpu(),
+                       inter_z=fz.inter_z.cpu(),
+                       chrom_of_node=fz.chrom_of_node.cpu(),
+                       chrom_bounds=fz.chrom_bounds.cpu())
+
+
+def identity_dropout(x, *args, **kwargs):
+    return x
+
+
+def check_deterministic_step(trainer, buckets, device, ks=TRAIN_KS,
+                             train_seed=None,
+                             what="deterministic step") -> dict:
     """The same step (dropout off, negatives sampled once on the card, the
     same r) as f32 on the card, f32 on the CPU (the plain path) and, for a
-    bf16 Trainer, bf16 on the card."""
+    bf16 Trainer, bf16 on the card.  With ``train_seed`` (the
+    per-occurrence mode, which draws its feature dropout only in train
+    mode) the step runs in train mode with the feature dropout at rate 0
+    and the attention and feed-forward dropouts the identity, f32 only."""
     gen = torch.Generator().manual_seed(SEED + 4)
     batch, xs, ws = {}, {}, {}
     for k in ks:
@@ -959,21 +1025,22 @@ def check_deterministic_step(trainer, buckets, device, ks=TRAIN_KS) -> dict:
         xs[k] = torch.cat([pos, neg]).cpu()
         ws[k] = batch[k][1]
     fz = trainer.frozen
-    cpu_frozen = fz._replace(features=tuple(f.cpu() for f in fz.features),
-                             attr_table=fz.attr_table.cpu(),
-                             inter_z=fz.inter_z.cpu(),
-                             chrom_of_node=fz.chrom_of_node.cpu(),
-                             chrom_bounds=fz.chrom_bounds.cpu())
     f32 = trainer.dims._replace(compute_dtype="float32")
+    if train_seed is not None:
+        f32 = f32._replace(feature_dropout=0.0)
     r = min(5, trainer.dims.num_chroms - 1)
-    loss_cpu, g_cpu = deterministic_step(trainer.params, cpu_frozen, f32, xs,
-                                         batch, ws, r, "cpu")
-    loss_f32, g_f32 = deterministic_step(trainer.params, fz, f32, xs, batch,
-                                         ws, r, device)
+    with unittest.mock.patch.object(
+            modules, "dropout",
+            identity_dropout if train_seed is not None else modules.dropout):
+        loss_cpu, g_cpu = deterministic_step(trainer.params, cpu_frozen(fz),
+                                             f32, xs, batch, ws, r, "cpu",
+                                             train_seed)
+        loss_f32, g_f32 = deterministic_step(trainer.params, fz, f32, xs,
+                                             batch, ws, r, device, train_seed)
     out = {"loss_cpu_f32": loss_cpu, "loss_card_f32": loss_f32,
            "loss_rel_err_f32": abs(loss_f32 - loss_cpu) / abs(loss_cpu),
            "positives_per_k": CHECK_BATCH, "recon_chrom": r}
-    if trainer.dims.compute_dtype == "bfloat16":
+    if trainer.dims.compute_dtype == "bfloat16" and train_seed is None:
         loss_bf16, _ = deterministic_step(trainer.params, fz, trainer.dims,
                                           xs, batch, ws, r, device)
         out["loss_card_bf16"] = loss_bf16
@@ -991,14 +1058,14 @@ def check_deterministic_step(trainer, buckets, device, ks=TRAIN_KS) -> dict:
     out["grad_rel_to_max_err_f32"] = errs[worst[0]]
     out["grad_worst_leaves"] = {n: errs[n] for n in worst}
     out["grad_floor"] = 1e-3 * top
-    print(f"deterministic step vs f32 on the CPU: {json.dumps(out)} "
+    print(f"{what} vs f32 on the CPU: {json.dumps(out)} "
           f"(tol loss f32 {TOL_STEP_LOSS_F32}, grads f32 "
           f"{TOL_STEP_GRAD_F32}, loss bf16 {TOL_STEP_LOSS_BF16})",
           flush=True)
     if (out["loss_rel_err_f32"] > TOL_STEP_LOSS_F32
             or out["grad_rel_to_max_err_f32"] > TOL_STEP_GRAD_F32
             or out.get("loss_rel_err_bf16", 0.0) > TOL_STEP_LOSS_BF16):
-        fail("the training step on the card disagrees with the CPU")
+        fail(f"the {what} on the card disagrees with the CPU")
     return out
 
 
@@ -1647,14 +1714,7 @@ def small_model_phase(genome, device, card) -> dict:
     p_card = predict_proba(params, frozen, dims, samples, BATCH)
     serve = launch_counts()
     p_cpu = predict_proba(_tree_map(lambda t: t.cpu(), params),
-                          frozen._replace(
-                              features=tuple(f.cpu() for f in
-                                             frozen.features),
-                              attr_table=frozen.attr_table.cpu(),
-                              inter_z=frozen.inter_z.cpu(),
-                              chrom_of_node=frozen.chrom_of_node.cpu(),
-                              chrom_bounds=frozen.chrom_bounds.cpu()),
-                          dims, samples, BATCH)
+                          cpu_frozen(frozen), dims, samples, BATCH)
     err = float(np.abs(p_card - p_cpu).max())
     print(f"small model predict_proba of {len(samples)} candidates: "
           f"launches {serve}; vs the CPU max_abs_err={err:.3e} (tol "
@@ -1823,6 +1883,371 @@ def cli_train_phase(genome, card) -> dict:
     return out
 
 
+# --------------------------------------------- apps on the bundle, modes
+def denoise_split(params, frozen, dims, genome, intra) -> dict:
+    """Host-clock seconds of the parts of one denoise pass (the calls
+    ``denoise_chromosome`` makes, summed over the chromosomes): the node
+    tables and pair scores (each chromosome's ends in a copy to the host),
+    the normalisations, and the three quantile transforms."""
+    from matcha_tpu_torch.apps import denoise_contact as dn
+    parts = dict.fromkeys(("tables_pairwise_s", "normalise_s",
+                           "quantile_s"), 0.0)
+    for c in range(genome.num_chroms):
+        t0 = time.perf_counter()
+        pairs = dn.generate_pair_wise(genome, c, 0)
+        proba = dn.chromosome_proba(params, frozen, dims, genome, c, pairs)
+        t1 = time.perf_counter()
+        mats = dn.normalise(pairs, proba,
+                            intra[pairs[:, 0] - 1, pairs[:, 1] - 1])
+        t2 = time.perf_counter()
+        for m in mats:
+            dn._quantile(m)
+        t3 = time.perf_counter()
+        parts["tables_pairwise_s"] += t1 - t0
+        parts["normalise_s"] += t2 - t1
+        parts["quantile_s"] += t3 - t2
+    return parts
+
+
+def denoise_phase(bundle, genome, device, card) -> dict:
+    """Phase 12: the port's denoise computation over all 23 chromosomes on
+    the card (closed form, min_distance 0), the counts zeroed just before
+    and read just after (no kernel); the pixels' count and range; on chr1
+    the card's f32 pair probabilities against the CPU's and the closed
+    form against the forward over the explicit pairs (both bf16 on the
+    card); the pass's wall and its parts; the .mcool write where h5py is
+    importable."""
+    import importlib.util
+    from matcha_tpu_torch.apps import denoise_contact as dn
+    from matcha_tpu_torch.apps.pairwise_fast import pairwise_proba_matrix
+    t_phase = time.perf_counter()
+    params, dims, _, frozen = load_model_bundle(bundle, device)
+    intra = np.load(os.path.join(bundle, "intra_adj.npy"))
+    np.random.seed(SEED + 30)
+    dn.denoise_pixels(params, frozen, dims, genome, intra,
+                      log=lambda *a: None)                   # warm-up
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    bin1, bin2, bal, _ = dn.denoise_pixels(params, frozen, dims, genome,
+                                           intra, log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    bins = np.diff(genome.chrom_range, axis=1)[:, 0]
+    want = int((bins * (bins + 1) // 2).sum())
+    out = {"metric": "denoise_wall_s", "value": wall, "pixels": len(bal),
+           "chromosomes": genome.num_chroms, "launches": launched,
+           "parts_s": denoise_split(params, frozen, dims, genome, intra),
+           "card": card}
+    print(f"denoise: {len(bal)} pixels over {genome.num_chroms} chromosomes "
+          f"in {wall:.3f} s (expected {want} pixels); launches {launched}",
+          flush=True)
+    if not (len(bin1) == len(bin2) == len(bal) == want):
+        fail(f"denoise gave {len(bal)} pixels, expected {want}")
+    if not np.isfinite(bal).all() or (bal < 0).any() or (bal > 1).any():
+        fail("denoised values are not finite or outside [0, 1]")
+    if any(launched.values()):
+        fail(f"denoise launched {launched}: the closed form needs no kernel")
+
+    f32 = dims._replace(compute_dtype="float32")
+    p_card = pairwise_proba_matrix(params, frozen, f32, genome, 0)
+    c_params, _, _, c_frozen = load_model_bundle(bundle, "cpu")
+    p_cpu = pairwise_proba_matrix(c_params, c_frozen, f32, genome, 0)
+    out["chr1_f32_card_vs_cpu_max_abs_err"] = float(np.abs(p_card
+                                                           - p_cpu).max())
+    pairs = dn.generate_pair_wise(genome, 0, 0)
+    fast = dn.chromosome_proba(params, frozen, dims, genome, 0, pairs)
+    zero_launch_counts()
+    slow = dn.chromosome_proba(params, frozen, dims, genome, 0, pairs,
+                               use_fast=False, batch_size=BATCH)
+    out["chr1_forward_launches"] = launch_counts()
+    out["chr1_pairs"] = len(pairs)
+    out["chr1_closed_form_vs_forward_bf16_max_abs_err"] = float(
+        np.abs(fast - slow).max())
+    print(f"denoise chr1 ({len(pairs)} pairs): f32 card vs CPU "
+          f"{out['chr1_f32_card_vs_cpu_max_abs_err']:.3e} (tol "
+          f"{TOL_PROBA_F32}); closed form vs forward, bf16 on the card, "
+          f"{out['chr1_closed_form_vs_forward_bf16_max_abs_err']:.3e} (tol "
+          f"{TOL_PROBA_BF16})", flush=True)
+    if (out["chr1_f32_card_vs_cpu_max_abs_err"] > TOL_PROBA_F32
+            or out["chr1_closed_form_vs_forward_bf16_max_abs_err"]
+            > TOL_PROBA_BF16):
+        fail("the denoise pair probabilities disagree")
+    if importlib.util.find_spec("h5py") is None:
+        out["write_s"] = "not run"
+        print("denoise: the .mcool write was not run on this machine: h5py "
+              "is absent", flush=True)
+    else:
+        import h5py
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "denoised.mcool")
+            t0 = time.perf_counter()
+            dn.write_denoised_mcool(path, genome, bin1, bin2, bal)
+            out["write_s"] = time.perf_counter() - t0
+            dn.run_denoise(bundle, output_mcool=path, log=lambda *a: None,
+                           device=device)
+            with h5py.File(path) as f:
+                grp = f["resolutions"][str(genome.resolution)]
+                layout = (list(grp["chroms"]["name"].asstr())
+                          == genome.chrom_names
+                          and len(grp["bins"]["chrom"]) == genome.num_nodes
+                          and len(grp["pixels"]["balanced"]) == want)
+            if not layout:
+                fail("run_denoise wrote a file of another layout")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def outlier_phase(bundle, samples, genome, device, card) -> dict:
+    """Phase 13: 2,000 of the smoke's candidates of each k = 3..5 through
+    generate_outliers (20 per edge) and outlier_hit_rate (top 3, batch
+    10,000) on the card, the counts zeroed just before and read just
+    after: K1 once per chunk; per-position scores on the card (f32, bf16)
+    against f32 on the CPU."""
+    from matcha_tpu_torch.apps.outlier import (generate_outliers,
+                                               outlier_hit_rate,
+                                               per_position_scores)
+    t_phase = time.perf_counter()
+    params, dims, _, frozen = load_model_bundle(bundle, device)
+    c_params, _, _, c_frozen = load_model_bundle(bundle, "cpu")
+    f32 = dims._replace(compute_dtype="float32")
+    rng = np.random.default_rng(SEED + 40)
+    sets = {}
+    t0 = time.perf_counter()
+    for k in (3, 4, 5):
+        edges = np.asarray([s_ for s_ in samples if len(s_) == k]
+                           [:CHECK_PER_K], np.int32)
+        known = {(a, b) for e in edges.tolist() for a in e for b in e
+                 if a != b}
+        sets[k] = generate_outliers(edges, known, genome.num_nodes, rng,
+                                    per_edge=OUTLIER_PER_EDGE)
+    gen_s = time.perf_counter() - t0
+    for k, (x, _) in sets.items():       # warm-up
+        per_position_scores(params, frozen, dims, x[:BATCH])
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    hits = {k: outlier_hit_rate(params, frozen, dims, x, pts, k=3,
+                                batch_size=BATCH)
+            for k, (x, pts) in sets.items()}
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    rows = sum(len(x) for x, _ in sets.values())
+    want = {key: 0 for key in launched}
+    want["K1"] = sum(-(-len(x) // BATCH) for x, _ in sets.values())
+    out = {"metric": "outlier_rows_per_s", "value": rows / wall,
+           "rows": {k: len(x) for k, (x, _) in sets.items()},
+           "wall_s": wall, "generate_s": gen_s,
+           "hit_rate_top3": {k: [float(v) for v in h]
+                             for k, h in hits.items()},
+           "launches": launched, "batch_size": BATCH, "card": card}
+    print(f"outlier_hit_rate over {rows} rows in {wall:.3f} s; launches "
+          f"{launched} (expected {want})", flush=True)
+    if launched != want:
+        fail(f"outlier ranking launched {launched}, expected {want}")
+    for h in hits.values():
+        if not (np.isfinite(h).all() and (np.diff(h) >= 0).all()
+                and 0 <= h[0] <= h[-1] <= 1):
+            fail(f"outlier hit rates {hits}")
+    errs = {}
+    for k, (x, _) in sets.items():
+        x = x[:CHECK_PER_K]
+        ref = per_position_scores(c_params, c_frozen, f32, x)
+        scale = float(np.abs(ref).max())
+        errs[k] = {
+            "f32_abs": float(np.abs(per_position_scores(
+                params, frozen, f32, x) - ref).max()),
+            "bf16_rel_to_max": float(np.abs(per_position_scores(
+                params, frozen, dims, x) - ref).max()) / scale,
+            "ref_max_abs": scale}
+    out["scores_vs_cpu_f32"] = errs
+    print(f"per-position scores vs f32 on the CPU: {json.dumps(errs)} (tol "
+          f"f32 {TOL_SCORES_F32} abs, bf16 {TOL_SCORES_BF16} of the largest "
+          f"score)", flush=True)
+    if any(e["f32_abs"] > TOL_SCORES_F32
+           or e["bf16_rel_to_max"] > TOL_SCORES_BF16 for e in errs.values()):
+        fail("per-position scores on the card disagree with the CPU")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def set_recon_bf16(on):
+    """Set the MATCHA_RECON_BF16 gate for the next phase (None: read the
+    environment again), as set_fuse_tail sets the fused-tail gate."""
+    hs._RECON_BF16 = on
+
+
+def synced_step_ms(trainer, batch, n=10) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def modes_phase(problem, genome, card) -> dict:
+    """Phase 14, at the training step's shape (phase 6's problem, the
+    shipped path): (a) Trainer.fit in the regress mode, one epoch of 10
+    steps with its per-k eval and checkpoint; (b) 10 steps with the
+    per-occurrence feature dropout, the step's peak memory, and the step in
+    f32 at dropout 0 against the CPU; (c) 10 steps with MATCHA_RECON_BF16,
+    its recon loss against the same step with the gate off.  Each with the
+    counts zeroed just before and read just after."""
+    dims, params, frozen, buckets, blooms, table = problem
+    dev = _leaves(params)[0].device
+    shipped = dict(alpha=1.0, beta=0.001, neg_num=3, max_trials=8,
+                   token_stream="merged")
+    batch = {k: (torch.as_tensor(e[:TRAIN_BATCH], device=dev),
+                 torch.as_tensor(w[:TRAIN_BATCH], device=dev))
+             for k, (e, w) in buckets.items()}
+    n_attn = sum(1 for k in TRAIN_KS if k >= 3)
+    none = {k: 0 for k in launch_counts()}
+    out = {"metric": "modes", "card": card}
+
+    # (a) regress
+    t_phase = time.perf_counter()
+    trainer = Trainer(params, frozen, dims, table,
+                      TrainSettings(**shipped, task_mode="regress"),
+                      blooms=blooms, seed=SEED + 51)
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step = launch_counts()
+    want_step = {**none, "K1": n_attn, "K2": n_attn, "K4": len(TRAIN_KS)}
+    test = random_buckets(genome, np.random.default_rng(SEED + 50),
+                          TEST_PER_K)
+    per_k = EVAL_SAMPLES // len(TRAIN_KS)
+    n_eval = min(TEST_PER_K, per_k) // min(TRAIN_BATCH, TEST_PER_K, per_k)
+    want_fit = {k: v * TRAIN_STEPS for k, v in want_step.items()}
+    want_fit["K1"] += n_attn * n_eval
+    want_fit["K4"] += len(TRAIN_KS) * n_eval
+    logs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model.chkpt")
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        hist = trainer.fit(buckets, test, epochs=1, batch_size=TRAIN_BATCH,
+                           num_batch_per_iter=TRAIN_STEPS,
+                           checkpoint_path=ckpt, log=logs.append, seed=SEED)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit = launch_counts()
+        written = os.path.exists(ckpt)
+    ev = hist[0]["valid"]
+    sel = ev["metrics"].get(max(TRAIN_KS), {}).get("auprc", float("nan"))
+    out["regress"] = {
+        "step_launches": step, "fit_launches": fit, "eval_batches": n_eval,
+        "fit_epoch_s": fit_s, "train_s": hist[0]["train"]["elapsed"],
+        "train_bce": hist[0]["train"]["bce"], "valid_bce": ev["bce"],
+        "valid_recon": ev["recon"], "checkpoint_written": written,
+        "checkpoint_key": ("auprc" if np.isfinite(sel) else "-bce"),
+        "checkpoint_key_value": sel if np.isfinite(sel) else -ev["bce"],
+        "phase_wall_s": time.perf_counter() - t_phase}
+    print("\n".join(logs), flush=True)
+    print(f"regress: one step launched {step} (expected {want_step}); the "
+          f"fit's epoch of {TRAIN_STEPS} steps and {n_eval} eval batches "
+          f"{fit} (expected {want_fit}); {json.dumps(out['regress'])}",
+          flush=True)
+    if step != want_step or fit != want_fit:
+        fail("the regress mode launched other counts")
+    if not (written and np.isfinite(hist[0]["train"]["bce"])
+            and np.isfinite(ev["bce"])):
+        fail("the regress fit lost finiteness or wrote no checkpoint")
+
+    # (b) per-occurrence feature dropout
+    t_phase = time.perf_counter()
+    occ = dims._replace(feature_dropout_mode="per_occurrence")
+    trainer = Trainer(params, frozen, occ, table, TrainSettings(**shipped),
+                      blooms=blooms, seed=SEED + 52)
+    batcher = BucketedBatcher(buckets, TRAIN_BATCH, TRAIN_STEPS, seed=SEED)
+    if not trainer.pin_base_buckets(batcher):
+        fail("the buckets do not fit the pin budget")
+    trainer.train_epoch_indexed(batcher)                      # warm-up
+    zero_launch_counts()
+    timed = trainer.train_epoch_indexed(batcher)
+    epoch = launch_counts()
+    want = {**none, "K1": n_attn * TRAIN_STEPS, "K2": n_attn * TRAIN_STEPS}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    steps = synced_step_ms(trainer, batch)
+    out["per_occurrence"] = {
+        "epoch_launches": epoch, "epoch_s": timed["elapsed"],
+        "bce": timed["bce"], "recon": timed["recon"],
+        "median_step_ms_synced": statistics.median(steps),
+        "step_ms_synced": steps, "memory_held_gb": held / 1e9,
+        "step_peak_gb": peak / 1e9, "step_peak_above_held_gb":
+        (peak - held) / 1e9, "limit_gb": JAX_GATHERED_W1_BYTES / 1e9}
+    print(f"per-occurrence: an epoch of {TRAIN_STEPS} steps launched "
+          f"{epoch} (expected {want}); step peak {peak / 1e9:.3f} GB, "
+          f"{(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held "
+          f"before it (limit {JAX_GATHERED_W1_BYTES / 1e9:.2f} GB, JAX's "
+          f"gathered W1 alone)", flush=True)
+    if epoch != want:
+        fail("the per-occurrence step launched other counts")
+    if peak - held >= JAX_GATHERED_W1_BYTES:
+        fail("the per-occurrence step's peak reaches JAX's weight gather")
+    if not (np.isfinite(timed["bce"]) and np.isfinite(timed["recon"])):
+        fail("the per-occurrence epoch lost finiteness")
+    out["per_occurrence"]["step_vs_cpu"] = check_deterministic_step(
+        trainer, buckets, dev, train_seed=SEED + 53,
+        what="per-occurrence step at dropout 0")
+    out["per_occurrence"]["phase_wall_s"] = time.perf_counter() - t_phase
+
+    # (c) MATCHA_RECON_BF16: the same first step with the gate off, then on;
+    # synchronised steps of the two Trainers in turns (off, on, on, off),
+    # the gate set between the blocks, so that no Trainer's run mixes them
+    t_phase = time.perf_counter()
+    set_recon_bf16(False)
+    ref = Trainer(params, frozen, dims, table, TrainSettings(**shipped),
+                  blooms=blooms, seed=SEED + 54)
+    recon_off = float(ref.train_step(batch)["recon"])
+    set_recon_bf16(True)
+    trainer = Trainer(params, frozen, dims, table, TrainSettings(**shipped),
+                      blooms=blooms, seed=SEED + 54)
+    recon_on = float(trainer.train_step(batch)["recon"])
+    off_ms, on_ms = [], []
+    for gate in (False, True, True, False):
+        set_recon_bf16(gate)
+        (on_ms if gate else off_ms).extend(
+            synced_step_ms(trainer if gate else ref, batch, 6))
+    set_recon_bf16(True)
+    batcher = BucketedBatcher(buckets, TRAIN_BATCH, TRAIN_STEPS, seed=SEED)
+    if not trainer.pin_base_buckets(batcher):
+        fail("the buckets do not fit the pin budget")
+    zero_launch_counts()
+    timed = trainer.train_epoch_indexed(batcher)
+    epoch = launch_counts()
+    set_recon_bf16(None)
+    want = {k: v * TRAIN_STEPS for k, v in step_counts(False, False).items()}
+    rel = abs(recon_on - recon_off) / abs(recon_off)
+    out["recon_bf16"] = {
+        "epoch_launches": epoch, "epoch_s": timed["elapsed"],
+        "recon_gate_off": recon_off, "recon_gate_on": recon_on,
+        "recon_rel_err": rel,
+        "median_step_ms_synced_gate_off": statistics.median(off_ms),
+        "median_step_ms_synced_gate_on": statistics.median(on_ms),
+        "step_ms_synced_gate_off": off_ms, "step_ms_synced_gate_on": on_ms,
+        "phase_wall_s": time.perf_counter() - t_phase}
+    print(f"MATCHA_RECON_BF16: an epoch of {TRAIN_STEPS} steps launched "
+          f"{epoch} (expected {want}); recon {recon_on} against {recon_off} "
+          f"with the gate off, {rel:.3e} relative (tol {TOL_RECON_BF16})",
+          flush=True)
+    if epoch != want:
+        fail("the recon-bf16 step launched other counts")
+    if not rel <= TOL_RECON_BF16 or not np.isfinite(timed["recon"]):
+        fail("the recon loss with bf16 decode operands disagrees")
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1954,6 +2379,20 @@ def main():
     # 11. run_train through the CLI
     cli_train_phase(genome, card)
 
+    # 12. denoise and 13. outlier ranking on the serving bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "model2load")
+        make_bundle(bundle, genome, device)
+        denoise_phase(bundle, genome, device, card)
+        outl = outlier_phase(bundle, samples, genome, device, card)
+
+    # 14. the regress mode, per-occurrence feature dropout, MATCHA_RECON_BF16
+    set_fuse_tail(False)
+    modes = modes_phase(train["problem"], genome, card)
+    regress = modes["regress"]["fit_launches"]
+    occ = modes["per_occurrence"]["epoch_launches"]
+    rbf = modes["recon_bf16"]["epoch_launches"]
+
     k2 = tk["K2_L5"]
     k5 = nk["K5_k5"]
     step_path = train["counts"]
@@ -1965,6 +2404,10 @@ def main():
                      "per head; f32: CUDA cores",
          "launches": counts["K1"], "launches_serving": launches,
          "launches_step_path": step_path["K1"],
+         "launches_outlier": outl["launches"]["K1"],
+         "launches_regress_fit": regress["K1"],
+         "launches_per_occurrence_epoch": occ["K1"],
+         "launches_recon_bf16_epoch": rbf["K1"],
          "device_ms": k1_dev,
          "device_ms_step_L345": [tk[f"K1_L{L}"]["device_ms"]
                                  for L in (3, 4, 5)],
@@ -1978,6 +2421,9 @@ def main():
          "source": "matcha_tpu_torch/csrc/hyperedge_attention_bwd.cu",
          "replaces": "matcha_tpu/ops/hyperedge_attention.py:672",
          "launches": counts["K2"], "launches_step_path": step_path["K2"],
+         "launches_regress_fit": regress["K2"],
+         "launches_per_occurrence_epoch": occ["K2"],
+         "launches_recon_bf16_epoch": rbf["K2"],
          "max_abs_err": worst_bwd["bfloat16"]["gx_abs"],
          "max_err_rel_to_max": worst_bwd["bfloat16"]["rel_to_max"],
          "max_err_rel_to_max_f32": worst_bwd["float32"]["rel_to_max"],
@@ -1990,6 +2436,9 @@ def main():
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",
          "replaces": "matcha_tpu/ops/table_scatter.py:62",
          "launches": counts["K3"], "launches_step_path": step_path["K3"],
+         "launches_regress_fit": regress["K3"],
+         "launches_per_occurrence_epoch": occ["K3"],
+         "launches_recon_bf16_epoch": rbf["K3"],
          "max_abs_err": worst_scatter,
          "ms": tk["K3"]["ms"], "device_ms": tk["K3"]["device_ms"],
          "plain_ms": tk["K3"]["plain_ms"],
@@ -2003,6 +2452,9 @@ def main():
                        "summed through distributed shared memory (n <= "
                        "16,384), else one histogram banded over the blocks",
          "launches": counts["K4"], "launches_step_path": step_path["K4"],
+         "launches_regress_fit": regress["K4"],
+         "launches_per_occurrence_epoch": occ["K4"],
+         "launches_recon_bf16_epoch": rbf["K4"],
          "max_abs_err": 0.0,
          "ms": tk["K4"]["ms"], "device_ms": tk["K4"]["device_ms"],
          "plain_ms": tk["K4"]["plain_ms"],

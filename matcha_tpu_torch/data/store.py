@@ -73,6 +73,20 @@ def quantile_transform(freqs: np.ndarray, random_state=None) -> np.ndarray:
 Bucketed = Dict[int, Tuple[np.ndarray, np.ndarray]]   # k -> (edges, weights)
 
 
+def split_by_frequency_bands(kmers: np.ndarray, freqs: np.ndarray,
+                             bands: Sequence[Tuple[int, int]],
+                             ) -> Dict[Tuple[int, int], np.ndarray]:
+    """Split k-mers into frequency bands [lo, hi) (the legacy scripts train
+    on banded tuple files [3,5),[5,8),[8,12),[12,inf) —
+    ref History_version/Code/main_SPRITE.py:580-591).  Pass hi=-1 for an
+    open upper band."""
+    out = {}
+    for lo, hi in bands:
+        mask = freqs >= lo if hi < 0 else (freqs >= lo) & (freqs < hi)
+        out[(lo, hi)] = kmers[mask]
+    return out
+
+
 class HyperedgeStore:
     """Per-k positive hyperedges + weights, train/test split, unlabeled set.
 

@@ -15,8 +15,11 @@ Parameters are the JAX package's param tree with tensors as leaves (see
 is drawn from it on the host, or passed in as ``recon_chrom``.  With the
 fused tail on (``configure_fuse_tail`` / ``MATCHA_FUSE_TAIL``),
 ``forward_buckets`` runs the classifier tail through ``ops/fused_tail.py``
-(K6 on a CUDA tensor).  Not ported yet: the ``per_occurrence``
-feature-dropout mode and the sharded (n_shards) stream layout.
+(K6 on a CUDA tensor).  ``MATCHA_RECON_BF16=1`` runs the recon decode with
+bf16 operands and f32 accumulation.  Feature dropout is drawn per node row
+of the table (``per_node``, the default) or per token occurrence
+(``per_occurrence``, the reference's placement).  Not ported yet: the
+sharded (n_shards) stream layout.
 """
 
 from __future__ import annotations
@@ -72,6 +75,17 @@ class FrozenTables(NamedTuple):
 
 
 _FUSE_TAIL: Optional[bool] = None
+_RECON_BF16: Optional[bool] = None
+
+
+def _recon_decode_bf16() -> bool:
+    """MATCHA_RECON_BF16=1: the recon decode product (N, d) @ (d, F) takes
+    bf16 operands and accumulates in f32 instead of running in f32.  Read
+    once per process, as the fused-tail gate is."""
+    global _RECON_BF16
+    if _RECON_BF16 is None:
+        _RECON_BF16 = os.environ.get("MATCHA_RECON_BF16", "0") == "1"
+    return _RECON_BF16
 
 
 def _fuse_tail_enabled() -> bool:
@@ -213,15 +227,15 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
     H = tanh(X @ W1) @ W2 per chromosome; in "table" mode the trainable
     table is the node table.  In train mode with a generator, feature
     dropout (rate ``dims.feature_dropout``) is drawn once per node row per
-    step."""
+    step; in the ``per_occurrence`` mode the table stays clean (the
+    dropout is drawn on the gathered rows, ``_per_occurrence_embed``)."""
     cdt = dims.cdt
     if "table" in params["embed"]:
         table = params["embed"]["table"].clone()
         table[0] = 0.0
         return table.to(cdt)
-    if train and dims.feature_dropout_mode == "per_occurrence":
-        raise NotImplementedError("the per_occurrence feature-dropout mode "
-                                  "is not ported yet")
+    if dims.feature_dropout_mode == "per_occurrence":
+        train = False
     feats = frozen.features
     widths = [f.shape[1] for f in feats]     # true row counts = col counts
     rows = [f.shape[0] for f in feats]
@@ -264,7 +278,69 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
     return torch.cat(blocks, dim=0)
 
 
+def _per_occurrence_embed(params: Dict, frozen: FrozenTables,
+                          dims: ModelDims, flat: torch.Tensor,
+                          generator: Optional[torch.Generator]
+                          ) -> torch.Tensor:
+    """Per-token node embeddings with the feature dropout drawn per
+    occurrence (the reference's placement, ref Code/Modules.py:174,176-189):
+    each token's frozen feature row, dropped out with its own mask, through
+    its chromosome's tied autoencoder -> (T, d) in the compute dtype; the
+    row of token id 0 is exactly zero.
+
+    The JAX package gathers each token's W1, a (T, W, d) tensor (3.7 GB in
+    bf16 at 114,688 tokens and W = 249).  Here the tokens are grouped by
+    chromosome, each group's (T_c, W_c) feature rows meet their own W1 in
+    one product, and the rows go back in token order: the same function in
+    O(T W) memory.  The group sizes cost one host synchronisation; the mask
+    of each group is a (T_c, W_c) draw from ``generator`` (none without a
+    generator or at rate 0)."""
+    cdt = dims.cdt
+    feats = frozen.features
+    n_chroms = len(feats)
+    flat = flat.reshape(-1).long()
+    dev = flat.device
+    chrom = frozen.chrom_of_node[flat].long()
+    # pads sort after every chromosome and keep their zero rows
+    group = torch.where(flat != 0, chrom, torch.full_like(chrom, n_chroms))
+    order = torch.argsort(group, stable=True)
+    counts = torch.bincount(group, minlength=n_chroms + 1).tolist()
+    rate = dims.feature_dropout
+    drop = generator is not None and rate > 0.0
+    zero = torch.zeros((), dtype=cdt, device=dev)
+    rows, parts = [], []
+    first, node0 = 0, 1                 # node ids run 1.. chromosome by
+    for c, f in enumerate(feats):       # chromosome, f's width bins each
+        n_c = counts[c]
+        if n_c:
+            tok = order[first:first + n_c]
+            x = f[flat[tok] - node0].to(cdt)                     # (T_c, W_c)
+            if drop:
+                keep = rand(generator, x.shape, dev) < 1.0 - rate
+                x = torch.where(keep, x / (1.0 - rate), zero)
+            ae = params["embed"]["ae"][c]
+            parts.append(torch.tanh(x @ ae["w1"].to(cdt)) @ ae["w2"].to(cdt))
+            rows.append(tok)
+        first += n_c
+        node0 += int(f.shape[1])
+    out = torch.zeros((flat.shape[0], dims.dim), dtype=cdt, device=dev)
+    if parts:
+        out = out.index_copy(0, torch.cat(rows), torch.cat(parts))
+    return out
+
+
 # -------------------------------------------------------------- recon loss
+def _recon_chrom(dims: ModelDims, generator: Optional[torch.Generator],
+                 r: Optional[int]) -> int:
+    """The recon loss's chromosome: ``r`` when given, else one draw from
+    ``generator`` on the host."""
+    if r is not None:
+        return r
+    if generator is None:
+        raise ValueError("the recon loss needs a generator or r")
+    return int(torch.randint(0, dims.num_chroms, (1,), generator=generator))
+
+
 def recon_loss_fn(params: Dict, frozen: FrozenTables, dims: ModelDims,
                   x_flat: torch.Tensor, node_table: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
@@ -276,11 +352,8 @@ def recon_loss_fn(params: Dict, frozen: FrozenTables, dims: ModelDims,
     (``recon_loss_node``)."""
     if "table" in params["embed"]:
         return torch.zeros((), device=node_table.device)   # no recon
-    if r is None:
-        if generator is None:
-            raise ValueError("recon_loss_fn needs a generator or r")
-        r = int(torch.randint(0, dims.num_chroms, (1,), generator=generator))
-    return recon_loss_node(params, frozen, dims, x_flat, node_table, r)
+    return recon_loss_node(params, frozen, dims, x_flat, node_table,
+                           _recon_chrom(dims, generator, r))
 
 
 def _padded_recon_parts(params, frozen, r: int):
@@ -323,7 +396,18 @@ def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
         target = frozen.inter_z[:R, start:start + f_max].float()
     else:
         target = frozen.inter_z[:R][:, cols].float()             # (R, F)
-    recon = torch.tanh(node_table[:R].float()) @ w_r + b_r      # (R, F)
+    h_dec = torch.tanh(node_table[:R].float())
+    if _recon_decode_bf16():
+        # bf16 operands, f32 accumulation and an unrounded f32 result, as
+        # the JAX package's preferred_element_type=float32: a bf16 x bf16
+        # matmul in torch rounds its result to bf16, so the operands are
+        # rounded to bf16 and multiplied as f32, where each product of two
+        # bf16 values is exact (8 + 8 significant bits <= 24; TF32, where
+        # it is on, leaves bf16 values as they are)
+        recon = (h_dec.to(torch.bfloat16).float()
+                 @ w_r.to(torch.bfloat16).float() + b_r)         # (R, F)
+    else:
+        recon = h_dec @ w_r + b_r                                # (R, F)
     sq = torch.where(col_ok[None, :], (target - recon) ** 2,
                      torch.zeros((), device=recon.device))
     per_node = sq.sum(dim=-1) / width_r
@@ -363,6 +447,26 @@ def _streams(generator: Optional[torch.Generator]):
     return g_tab, g_rec, g_enc
 
 
+def _per_occurrence(params, dims: ModelDims, train: bool,
+                    g_tab: Optional[torch.Generator]) -> bool:
+    """Whether a forward draws its feature dropout per occurrence: train
+    mode with a generator, in that mode, with the autoencoder embedding."""
+    return (train and g_tab is not None
+            and dims.feature_dropout_mode == "per_occurrence"
+            and "table" not in params["embed"])
+
+
+def _recon(params, frozen, dims, x_flat, node_table, emb_tok, g_rec, r):
+    """A forward's recon loss: per node from the table, or, with the
+    per-occurrence embedding, per token from it (the reference's
+    placement, ref Code/Modules.py:192-199)."""
+    if emb_tok is None:
+        return recon_loss_fn(params, frozen, dims, x_flat, node_table,
+                             g_rec, r)
+    return recon_loss_with_chrom(params, frozen, dims, x_flat, emb_tok,
+                                 _recon_chrom(dims, g_rec, r))
+
+
 def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
             x: torch.Tensor, *, generator: Optional[torch.Generator] = None,
             train: bool = False, return_recon: bool = False,
@@ -380,11 +484,16 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
     x = x.long()
     npm = (x != 0).to(torch.float32)[..., None]          # (B, L, 1)
 
-    # node + projected-attribute tables combined per node before the token
-    # gather: node_table[x] + linear(attr_table[x]) == combined[x]
-    combined = node_table + linear(params["attr_nn"],
-                                   frozen.attr_table.to(dims.cdt))
-    h = torch.tanh(feed_forward(params["next_w"], combined[x]))
+    attr_proj = linear(params["attr_nn"], frozen.attr_table.to(dims.cdt))
+    emb_tok = None
+    if _per_occurrence(params, dims, train, g_tab):
+        emb_tok = _per_occurrence_embed(params, frozen, dims, x, g_tab)
+        emb = emb_tok.reshape(*x.shape, dims.dim) + attr_proj[x]
+    else:
+        # node + projected-attribute tables combined per node before the
+        # token gather: node_table[x] + linear(attr_table[x]) == combined[x]
+        emb = (node_table + attr_proj)[x]
+    h = torch.tanh(feed_forward(params["next_w"], emb))
 
     dynamic, static = encoder_layer(
         params["encoder"], h, npm.to(h.dtype), dims.n_head, dims.dim,
@@ -398,8 +507,8 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
            / (npm.sum(dim=-2) + 1e-15))
     rest = ()
     if return_recon:
-        rest += (recon_loss_fn(params, frozen, dims, x.reshape(-1),
-                               node_table, g_rec, recon_chrom),)
+        rest += (_recon(params, frozen, dims, x.reshape(-1), node_table,
+                        emb_tok, g_rec, recon_chrom),)
     if return_positions:
         rest += (per_pos[..., 0],)
     return (out,) + rest if rest else out
@@ -416,7 +525,8 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     stream: every per-token stage (the gather, next_w, pff_n1, the
     LayerNorms, the classifier, recon) runs once over the concatenated
     buckets; only the attention runs per k.  The gather's gradient is K3
-    (``table_gather``) on a CUDA tensor.
+    (``table_gather``) on a CUDA tensor; the per-occurrence mode's
+    per-token embedding replaces the gather in train mode.
 
     attention_mode "per-k": one attention per bucket (k = 2 closed form);
     "pad-max": k = 2 closed form, every k >= 3 bucket padded to the largest
@@ -443,11 +553,18 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     flat = torch.cat([xs[k].reshape(-1) for k in ks])            # (T,)
 
     # node + projected-attribute tables combined per node, then ONE (T, d)
-    # gather of the combined table
+    # gather of the combined table; with the per-occurrence embedding the
+    # per-token rows replace the gather (``combined`` still gives the
+    # pad-max pad rows)
     attr_proj = linear(params["attr_nn"], frozen.attr_table.to(dims.cdt))
     combined = node_table + attr_proj
-    h = torch.tanh(feed_forward(params["next_w"],
-                                table_gather(combined, flat)))   # (T, d)
+    emb_tok = None
+    if _per_occurrence(params, dims, train, g_tab):
+        emb_tok = _per_occurrence_embed(params, frozen, dims, flat, g_tab)
+        emb = emb_tok + attr_proj[flat.long()]
+    else:
+        emb = table_gather(combined, flat)
+    h = torch.tanh(feed_forward(params["next_w"], emb))          # (T, d)
 
     gens = split_generator(g_enc, len(ks) + 1)
     mha = params["encoder"]["mha"]
@@ -489,8 +606,8 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
               for k, (n_k, _), pp in zip(ks, shapes,
                                          per_pos[:, 0].split(tok_sizes))}
     if return_recon:
-        return logits, recon_loss_fn(params, frozen, dims, flat, node_table,
-                                     g_rec, recon_chrom)
+        return logits, _recon(params, frozen, dims, flat, node_table,
+                              emb_tok, g_rec, recon_chrom)
     return logits
 
 

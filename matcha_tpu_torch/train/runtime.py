@@ -21,8 +21,11 @@ generator's state, epoch and best: a resumed run continues the interrupted
 one exactly), the reload of the best checkpoint at the end and the
 embedding export.  Checkpoints are pickles of numpy arrays and Python
 scalars; their params are the JAX package's tree, so its
-``load_checkpoint`` reads them.  Not ported yet: the overlapped fit
-pipeline, orbax checkpoints, the regress task mode and multi-GPU meshes.
+``load_checkpoint`` reads them.  The regress task mode (the reference's
+pairwise-ranking variant) keeps the JAX package's per-bucket path: a padded
+``forward`` per k, a softplus MSE against the quantile weights, and a per-k
+eval.  Not ported yet: the overlapped fit pipeline, orbax checkpoints and
+multi-GPU meshes.
 
 Bundle I/O: ``save_model_bundle`` / ``load_model_bundle``, file for file:
 ``params.pkl`` (the param tree as numpy arrays), ``meta.pkl`` (dims as a
@@ -198,17 +201,52 @@ def _batch_loss_padded(params, frozen, dims, table, blooms, settings,
     return loss, _aux(bce, recon, preds, fb)
 
 
+def _batch_loss_regress(params, frozen, dims, table, blooms, settings,
+                        batch, generator, node_table, train: bool,
+                        recon_chrom: Optional[int] = None):
+    """The pairwise-ranking variant (ref forward_op_batch_regress,
+    Code/main.py:60-115), one padded ``forward`` per bucket: the target is
+    the quantile weight for positives and 0 for negatives, the prediction
+    softplus(logit), the loss their MSE; the reported prediction is the
+    sigmoid of each positive's prediction minus its first negative's.  The
+    bce and recon parts are means over the buckets."""
+    g_neg, g_fwd = split_generator(generator, 2)
+    xs, ws, fb = _sample_all_negatives(table, blooms, settings, batch, g_neg)
+    total_bce, total_recon, preds = 0.0, 0.0, []
+    for gen, k in zip(split_generator(g_fwd, len(batch)), sorted(batch)):
+        n_pos = batch[k][0].shape[0]
+        y = torch.cat([ws[k].reshape(-1).float(),
+                       torch.zeros(xs[k].shape[0] - n_pos,
+                                   device=xs[k].device)])[:, None]
+        logits, recon = forward(params, frozen, dims, xs[k], generator=gen,
+                                train=train, return_recon=True,
+                                node_table=node_table,
+                                recon_chrom=recon_chrom)
+        pred = torch.nn.functional.softplus(logits)
+        preds.append(torch.sigmoid(pred[:n_pos, 0]
+                                   - pred[n_pos:2 * n_pos, 0]))
+        total_bce = total_bce + ((pred - y) ** 2).mean()
+        total_recon = total_recon + recon
+    bce = total_bce / len(batch)
+    recon = total_recon / len(batch)
+    loss = settings.alpha * bce + settings.beta * recon
+    return loss, _aux(bce, recon, torch.cat(preds), fb)
+
+
 def batch_loss(params, frozen: FrozenTables, dims: ModelDims,
                table: ChromTable, blooms, settings: TrainSettings, batch,
                generator, node_table, train: bool,
                recon_chrom: Optional[int] = None):
     """Loss and aux (bce, recon, predictions, sampler fallbacks) of one
-    step's dict {k: (positives (B, k), weights (B,))} of buckets."""
+    step's dict {k: (positives (B, k), weights (B,))} of buckets.  The class
+    modes run the merged token stream (or one padded batch), the regress
+    mode one padded forward per bucket."""
     if settings.task_mode == "regress":
-        raise NotImplementedError("the regress task mode is not ported yet")
-    fn = (_batch_loss_padded
-          if settings.token_stream == "padded" and len(batch) > 1
-          else _batch_loss_merged)
+        fn = _batch_loss_regress
+    else:
+        fn = (_batch_loss_padded
+              if settings.token_stream == "padded" and len(batch) > 1
+              else _batch_loss_merged)
     return fn(params, frozen, dims, table, blooms, settings, batch,
               generator, node_table, train, recon_chrom)
 
@@ -363,6 +401,14 @@ class Trainer:
         auxs = [self.train_step({k: (e[s], w[s])
                                  for k, (e, w) in stacked.items()})
                 for s in range(steps)]
+        return self._epoch_result(auxs, stacked, t0)
+
+    def _epoch_result(self, auxs, stacked, t0: Optional[float] = None):
+        """Per-step aux dicts of stacked {k: (edges (S, B, k), weights (S,
+        B))} -> losses, sampler counters and per-size metrics, fetched in one
+        synchronisation; with ``t0`` also the elapsed time, which ends
+        there, and the rate."""
+        steps = len(auxs)
         aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
         y, size = labels_for_batch({k: (e[0], w[0]) for k, (e, w) in
                                     stacked.items()}, self.settings)
@@ -370,19 +416,20 @@ class Trainer:
         vals = mfn(aux["pred"])
         host = _fetch({**{k: v for k, v in aux.items() if k != "pred"},
                        **{f"metric_{g}": v for g, v in vals.items()}})
-        elapsed = time.perf_counter() - t0
         metrics = metrics_from_device({g: host[f"metric_{g}"] for g in vals},
                                       mfn.group_sizes, steps)
         rows = max(int(host["fallback_rows"].sum()), 1)
-        return {"bce": float(host["bce"].mean()),
-                "recon": float(host["recon"].mean()),
-                "metrics": metrics,
-                "fallback_bloom_rate":
-                    float(host["fallback_bloom"].sum()) / rows,
-                "fallback_orig_rate":
-                    float(host["fallback_orig"].sum()) / rows,
-                "elapsed": elapsed,
-                "hyperedges_per_sec": aux["pred"].numel() / elapsed}
+        out = {"bce": float(host["bce"].mean()),
+               "recon": float(host["recon"].mean()),
+               "metrics": metrics,
+               "fallback_bloom_rate":
+                   float(host["fallback_bloom"].sum()) / rows,
+               "fallback_orig_rate":
+                   float(host["fallback_orig"].sum()) / rows}
+        if t0 is not None:
+            out["elapsed"] = time.perf_counter() - t0
+            out["hyperedges_per_sec"] = aux["pred"].numel() / out["elapsed"]
+        return out
 
     def pin_base_buckets(self, batcher: BucketedBatcher,
                          budget_bytes: Optional[int] = None) -> bool:
@@ -440,15 +487,18 @@ class Trainer:
         indices: an explicit draw (positions into the pooled set, sorted by
         k), so that a test can feed two implementations the same rows.
         return_pred: also return the predictions in batch order ([bs
-        positives; neg_num x bs negatives] per batch)."""
+        positives; neg_num x bs negatives] per batch).
+
+        The regress mode keeps the per-k eval (``_eval_epoch_perk``): its
+        pairwise comparisons need same-size pairs."""
         nan = {"bce": float("nan"), "recon": float("nan"), "metrics": {}}
         test_buckets = {k: v for k, v in test_buckets.items()
                         if len(v[0]) > 0}
         if not test_buckets:
             return nan
         if self.settings.task_mode == "regress":
-            raise NotImplementedError("the regress task mode is not ported "
-                                      "yet")
+            return self._eval_epoch_perk(test_buckets, batch_size,
+                                         max_samples, seed)
         ks = tuple(sorted(test_buckets))
         L = max(ks)
         xs, szs, ws = [], [], []
@@ -503,6 +553,47 @@ class Trainer:
         if return_pred:
             out["pred"] = host["pred"].astype(np.float32).reshape(-1)
         return out
+
+    def _eval_epoch_perk(self, test_buckets, batch_size: int,
+                         max_samples: int, seed: int) -> Dict:
+        """The per-k eval of the regress mode: up to max_samples / (number
+        of sizes) rows of each size, in per-size batches of at most
+        ``batch_size`` (a small bucket shrinks its batch), as many batches
+        as the scarcest size allows; each batch is one eval-mode
+        ``batch_loss`` over all sizes."""
+        rng = np.random.default_rng(seed)
+        per_k = max(1, max_samples // max(len(test_buckets), 1))
+        plan, n_batches = {}, None
+        for k, (e, _) in sorted(test_buckets.items()):
+            take = min(len(e), per_k)
+            bs = min(batch_size, take)
+            if bs == 0:
+                continue
+            nb = take // bs
+            n_batches = nb if n_batches is None else min(n_batches, nb)
+            plan[k] = bs
+        if not plan:
+            return {"bce": float("nan"), "recon": float("nan"),
+                    "metrics": {}}
+        dev = _leaves(self.params)[0].device
+        stacked = {}
+        for k, bs in plan.items():
+            e, w = test_buckets[k]
+            idx = rng.permutation(len(e))[:n_batches * bs]
+            stacked[k] = (
+                to_device(np.asarray(e)[idx].reshape(n_batches, bs, k), dev),
+                to_device(np.asarray(w)[idx].reshape(n_batches, bs), dev))
+        with torch.no_grad():
+            node_table = encode_node_table(self.params, self.frozen,
+                                           self.dims, train=False)
+            auxs = [batch_loss(self.params, self.frozen, self.dims,
+                               self.chrom_table, self.blooms, self.settings,
+                               {k: (e[i], w[i])
+                                for k, (e, w) in stacked.items()},
+                               split_generator(self.generator, 1)[0],
+                               node_table, False)[1]
+                    for i in range(n_batches)]
+        return self._epoch_result(auxs, stacked)
 
     # ----------------------------------------------------------------- stage
     def fit(self, train_buckets, test_buckets, *, epochs: int,

@@ -16,7 +16,9 @@ rtol = 2e-2), and K2's gradients by up to 3e-2 of each one's largest entry.
 K3 sums in f32 (1e-5); K4 counts exactly.  The last test drives a model
 whose shapes the fixed-width kernels do not take (dim 16, k = 7 proposals)
 through a training step, scoring and the sampler on the card: it launches
-none of K1, K2, K5 and K6 and matches the same computation on the CPU.
+none of K1, K2, K5 and K6 and matches the same computation on the CPU.  The
+last three hold the closed-form pair scorer, a per-occurrence training step
+and the recon decode with bf16 operands on the card against the CPU.
 """
 
 import numpy as np
@@ -568,3 +570,98 @@ def test_small_model_runs_without_the_fixed_width_kernels(cuda, monkeypatch):
     assert tp.propose_phase1.launches == before
     assert neg.shape == (3 * len(wide), 7)
     assert bool((neg[:, 1:] > neg[:, :-1]).all())
+
+
+def _cpu_frozen(frozen):
+    return frozen._replace(
+        features=tuple(f.cpu() for f in frozen.features),
+        attr_table=frozen.attr_table.cpu(), inter_z=frozen.inter_z.cpu(),
+        chrom_of_node=frozen.chrom_of_node.cpu(),
+        chrom_bounds=frozen.chrom_bounds.cpu())
+
+
+@pytest.mark.cuda
+def test_pairwise_on_the_card_matches_the_cpu(cuda):
+    """The closed-form pair scorer at dim 64 / 8 heads in f32: the card's
+    probabilities against the CPU's (1e-4); no kernel launches."""
+    from matcha_tpu_torch.apps.pairwise_fast import pairwise_proba_matrix
+    from matcha_tpu_torch.train import runtime as tr
+    genome, dims, params, frozen, _, _, _ = _small_problem(cuda, dim=64,
+                                                           n_head=8)
+    before = _counts()
+    card = pairwise_proba_matrix(params, frozen, dims, genome, 0)
+    assert _counts() == before
+    cpu = pairwise_proba_matrix(tr._tree_map(lambda t: t.cpu(), params),
+                                _cpu_frozen(frozen), dims, genome, 0)
+    assert card.shape == (61, 61) and np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_per_occurrence_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The per-occurrence feature dropout at rate 0 in train mode (the
+    attention and feed-forward dropouts the identity) at dim 64 / 8 heads
+    in f32: loss (1e-5) and gradients (1e-4 of each one's largest entry,
+    floored at 1e-3 of the largest of all) against the CPU; K1 and K2 once
+    per k >= 3, no K3 (the per-token rows replace the gather) and no K4
+    (the per-token recon takes no counts)."""
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.models import modules as tm
+    from matcha_tpu_torch.train import runtime as tr
+    monkeypatch.setattr(tm, "dropout", lambda x, *a, **k: x)
+    monkeypatch.setattr(th, "_FUSE_TAIL", False)
+    ks = (2, 3, 4)
+    _, dims, params, frozen, _, _, buckets = _small_problem(
+        cuda, ks=ks, dim=64, n_head=8)
+    dims = dims._replace(feature_dropout_mode="per_occurrence",
+                         feature_dropout=0.0)
+    xs = {k: torch.tensor(e[:128]) for k, e in buckets.items()}
+
+    def step(device, fz):
+        p = tr._tree_map(lambda t: t.detach().to(device).clone()
+                         .requires_grad_(True), params)
+        logits, recon = th.forward_buckets(
+            p, fz, dims, {k: v.to(device) for k, v in xs.items()},
+            generator=torch.Generator().manual_seed(3), train=True,
+            return_recon=True, attention_mode="per-k", recon_chrom=1)
+        loss = sum((lg ** 2).mean() for lg in logits.values()) + recon
+        loss.backward()
+        return float(loss.detach()), [
+            torch.zeros_like(t).cpu() if t.grad is None else t.grad.cpu()
+            for t in tr._leaves(p)]
+    before = _counts()
+    loss_card, g_card = step(cuda, frozen)
+    got = [a - b for a, b in zip(_counts(), before)]
+    assert got == [2, 2, 0, 0, 0, 0, 0], got
+    loss_cpu, g_cpu = step("cpu", _cpu_frozen(frozen))
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    top = max(float(g.abs().max()) for g in g_cpu)
+    for a, b in zip(g_card, g_cpu):
+        scale = max(float(b.abs().max()), 1e-3 * top)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_recon_bf16_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The recon decode with bf16 operands (MATCHA_RECON_BF16): the card's
+    loss against the CPU's (1e-5 relative: the same rounded operands, f32
+    sums in another order) and against the f32 decode (2e-2)."""
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.train import runtime as tr
+    _, dims, params, frozen, _, _, _ = _small_problem(cuda, dim=64,
+                                                      n_head=8)
+    table = th.encode_node_table(params, frozen, dims).detach()
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, dims.num_nodes + 1, 20_000))
+    got = {}
+    for on in (True, False):
+        monkeypatch.setattr(th, "_RECON_BF16", on)
+        card = float(th.recon_loss_node(params, frozen, dims, x.to(cuda),
+                                        table, 2))
+        cpu = float(th.recon_loss_node(
+            tr._tree_map(lambda t: t.cpu(), params), _cpu_frozen(frozen),
+            dims, x, table.cpu(), 2))
+        assert abs(card - cpu) <= 1e-5 * abs(cpu)
+        got[on] = card
+    assert got[True] != got[False]
+    assert abs(got[True] - got[False]) <= 2e-2 * abs(got[False])

@@ -1,6 +1,7 @@
 """matcha_tpu_torch imports neither jax nor anything of matcha_tpu, nor the
 packages the machine with the card lacks (scikit-learn, optax, orbax), nor
-h5py (only reading an .mcool file needs it, inside the function)."""
+h5py and matplotlib (only reading or writing an .mcool file and plotting
+need them, inside the functions that do)."""
 
 import json
 import os
@@ -17,7 +18,7 @@ mods = sorted(m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 banned = ("jax", "jaxlib", "matcha_tpu", "sklearn", "optax", "orbax",
-          "h5py")
+          "h5py", "matplotlib")
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in banned)
 print(json.dumps({"modules": mods, "leaked": leaked}))
@@ -34,6 +35,9 @@ def test_port_imports_no_jax_and_nothing_of_matcha_tpu():
     assert "matcha_tpu_torch.apps.predict_multiway" in report["modules"]
     for mod in ("ops.propose", "ops.fused_tail", "train.metrics",
                 "train.logging", "config", "pipeline", "data.store",
-                "data.kmers", "data.mcool", "native.kmer_native"):
+                "data.kmers", "data.mcool", "native.kmer_native",
+                "data.legacy", "apps.pairwise_fast", "apps.denoise_contact",
+                "apps.outlier", "apps.analysis_bands",
+                "apps.plot_embedding"):
         assert f"matcha_tpu_torch.{mod}" in report["modules"]
     assert report["leaked"] == []

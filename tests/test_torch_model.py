@@ -137,19 +137,23 @@ def test_node_embeddings(tiny_genome, rng):
 
 
 def test_training_paths_raise(tiny_genome, rng):
-    """What the training slice leaves out raises: per-occurrence feature
-    dropout in train mode, and a recon loss with neither a generator nor a
-    chromosome to draw r from."""
+    """A recon loss with neither a generator nor a chromosome to draw r
+    from raises, in either feature-dropout mode.  The per-occurrence mode
+    itself runs in train mode, and its node table stays clean."""
     (_, _, _), (tp, tf, td) = _model(tiny_genome, rng)
     x = torch.from_numpy(_batch(rng, tiny_genome.num_nodes))
     gen = torch.Generator().manual_seed(0)
     occ = td._replace(feature_dropout_mode="per_occurrence")
-    with pytest.raises(NotImplementedError, match="per_occurrence"):
-        th.forward(tp, tf, occ, x, train=True, generator=gen)
-    with pytest.raises(NotImplementedError, match="per_occurrence"):
-        th.encode_node_table(tp, tf, occ, train=True, generator=gen)
+    out, recon = th.forward(tp, tf, occ, x, train=True, generator=gen,
+                            return_recon=True)
+    assert torch.isfinite(out).all() and torch.isfinite(recon)
+    assert torch.equal(th.encode_node_table(tp, tf, occ, train=True,
+                                            generator=gen),
+                       th.encode_node_table(tp, tf, td))
     with pytest.raises(ValueError, match="generator or r"):
         th.forward(tp, tf, td, x, return_recon=True)
+    with pytest.raises(ValueError, match="generator or r"):
+        th.forward(tp, tf, occ, x, train=True, return_recon=True)
 
 
 @pytest.mark.parametrize("mode", ["corrcoef-ae", "table"])
