@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, training step, Trainer.fit,
-run_train (through the CLI), the apps on a bundle and the model's modes on
-one NVIDIA GPU.
+run_train (through the CLI), the apps on a bundle, the model's modes and the
+walk pretraining on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a GPU
 
@@ -29,7 +29,12 @@ Phases, all in this process; any failure exits non-zero before the last line:
      plain version and bit-equal across two calls; K4 on the same ids, and
      against torch.bincount on uniform, Zipf, hub and out-of-range ids at n
      = 3,068, 60,000 and 1,000,000 (both of its routes), its idx starting on
-     and off a 16-byte boundary.
+     and off a 16-byte boundary; K3 and K4 at the walk pretraining's SGNS
+     shapes (f32, d = 64, n = 3,067, T = 4,096 and 24,576 unigram-skewed
+     ids: K3 1e-5, K4 exactly, each the same bits twice); the walks'
+     co-occurrence scatter (plain torch) on 8,282 hyperedges of 2-25 nodes
+     against scipy's CSR product (rtol 1e-6, atol 1e-7) and the same bits
+     twice.
   4. serving end to end at full width: the hg38 1 Mb genome (23 chromosomes,
      3,067 nodes), random weights from a seed at dim 64 / 8 heads in bf16,
      saved as a bundle; run_predict_multiway over 20,000 candidates for each
@@ -67,12 +72,19 @@ Phases, all in this process; any failure exits non-zero before the last line:
      propose_impl="pallas"; stage 1 (1 epoch of 10 steps, no filters), then
      stage 2 (3 epochs of 10 steps against the filters) with the mixed-size
      eval after each epoch (10,000 pooled test rows -> 4 batches of 2,048),
-     the best-AUPRC checkpoint, a resume snapshot per epoch and the embedding
-     export.  The counts are zeroed just before stage 2 and read after each
-     epoch: each step must launch K1 x3, K2 x3, K3 x1, K4 x1, K5 x4 and K6
-     forward and backward x1, each eval batch K1 x1, K4 x1 (the recon loss's
-     counts) and K5 x4.  Losses finite, per-k metrics printed; then a fresh
-     Trainer resumes from the epoch-1 snapshot and its epoch 2 must equal the
+     the best-AUPRC checkpoint, a resume snapshot per epoch, the embedding
+     export and a profile of epoch 1 (profile_dir), run twice from one
+     state: overlapped (the default: epoch N's host work on a worker thread
+     while epoch N+1 is dispatched) and serial (MATCHA_FIT_OVERLAP=0).  The
+     counts are zeroed just before each stage 2 and read at the start of
+     every epoch's training: each step must launch K1 x3, K2 x3, K3 x1, K4
+     x1, K5 x4 and K6 forward and backward x1, each eval batch K1 x1, K4 x1
+     (the recon loss's counts) and K5 x4.  The two runs must be bit-equal:
+     history, final params, every checkpoint and resume snapshot, every
+     embeddings file; each writes one non-empty trace.  Both runs' epoch
+     walls (training part, eval dispatch, total) are printed.  Losses
+     finite, per-k metrics printed; then a fresh Trainer resumes from an
+     overlapped run's epoch-1 snapshot and its epoch 2 must equal the
      uninterrupted epoch 2.
   9. times: K5 at each k and K6 forward / backward at the main-path shapes
      (CUDA events around the wrapper, and the kernels' device time from
@@ -133,6 +145,26 @@ Phases, all in this process; any failure exits non-zero before the last line:
      off (2e-2 relative), synchronised steps of a gate-off and a gate-on
      Trainer in turns (off, on, on, off; 12 each), and an epoch of 10 steps
      (K1 x3, K2 x3, K3 x1, K4 x1 per step).
+ 15. walk pretraining at full width, right after phase 11 and on its
+     temp_dir (3,067 nodes, 8,282 clusters): `pretrain` through
+     pipeline.main in this process with the JAX package's defaults
+     (embed_dim 64, hypergraph walks, 10 walks of 80 steps, window 10, 5
+     negatives, batch 4,096, 1 epoch), the counts zeroed just before and
+     read just after: exactly 2 K3 and 2 K4 per minibatch and nothing else;
+     walk_embeddings.npy (3,067, 64) and finite; the mean loss of the
+     epoch's last tenth of minibatches below its first tenth's; one f32
+     SGNS step with injected uniforms on the card against the CPU, on the
+     run's first minibatch and on it with a hub row (every entry within
+     its row's f32 rounding bound; the run's also within 1e-5 of each
+     table's largest entry).  Prints the walk build's parts, the walk
+     simulation, the pair building and the SGNS rate, the rate and the
+     device's idle share over a profiled window of 50 minibatches, and K3
+     and K4 at these shapes (events, device time, bound, plain version,
+     index_add_ / torch.bincount).  Then a table-mode model initialised
+     from the embeddings (init_model(embedding_mode="table", table_init=))
+     trains a 10-step stage-2 epoch at phase 6's configuration, the counts
+     zeroed just before and read just after: K1 x3, K2 x3, K3 x1 per step
+     and no K4 (the recon loss is 0 in table mode).
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -141,6 +173,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -177,15 +210,19 @@ from matcha_tpu_torch.ops.hyperedge_attention import (
     hyperedge_attention, hyperedge_attention_bwd_cuda,
     hyperedge_attention_bwd_plain, hyperedge_attention_cuda,
     hyperedge_attention_plain, pack_ln)
+from matcha_tpu_torch.ops.incidence import PaddedIncidence, pair_cooccurrence
 from matcha_tpu_torch.sampler import bloom as tb
 from matcha_tpu_torch.sampler.bloom import build_bloom_dict
 from matcha_tpu_torch.sampler.negative import ChromTable, sample_negatives
+from matcha_tpu_torch.train import runtime
 from matcha_tpu_torch.train.runtime import (Trainer, TrainSettings,
                                             _bucket_bce_and_preds, _leaves,
                                             _sample_all_negatives, _tree_map,
                                             load_checkpoint,
                                             load_model_bundle,
                                             save_model_bundle)
+from matcha_tpu_torch.walks import skipgram
+from matcha_tpu_torch.walks.hyper import incidence_matrices
 
 SEED = 0
 HG38 = [248_956_422, 242_193_529, 198_295_559, 190_214_555, 181_538_259,
@@ -244,6 +281,21 @@ OUTLIER_PER_EDGE, TOL_SCORES_F32, TOL_SCORES_BF16 = 20, 1e-4, 3e-2
 JAX_GATHERED_W1_BYTES = 4 * TRAIN_BATCH * sum(TRAIN_KS) * 249 * DIM * 2
 # recon loss with bf16 decode operands vs the f32 decode, relative
 TOL_RECON_BF16 = 2e-2
+# walk pretraining at the hg38 1 Mb shape: the vocabulary (nodes), the SGNS
+# minibatch, negatives per pair, the table width, and the K3 / K4 token
+# counts of one minibatch (the centers; the contexts and negatives)
+SGNS_V, SGNS_M, SGNS_NEG, SGNS_D = 3_067, 4_096, 5, 64
+SGNS_T = (SGNS_M, SGNS_M * (1 + SGNS_NEG))
+# minibatches of the profiled SGNS window, and of the hg38-size random
+# hypergraph the co-occurrence scatter is checked on (phase 11's cluster count)
+SGNS_PROFILE_STEPS, COOC_EDGES = 50, 8_282
+# SGNS step f32 card vs f32 CPU (f32 sums in another order): every entry
+# within its row's f32 rounding bound (sgns_step_limits), and on the run's
+# own pairs also within this share of each table's largest entry; the loss
+# relative; the co-occurrence weights against scipy's
+# float64 CSR product (the f32 rounding of 1/|e| and of the sums), as
+# tests/test_walks.py holds the JAX package's
+TOL_SGNS_STEP, TOL_COOC_RTOL, TOL_COOC_ATOL = 1e-5, 1e-6, 1e-7
 
 
 def fail(msg: str):
@@ -527,6 +579,96 @@ def check_bincount(device):
     print("K4 vs torch.bincount: uniform, Zipf, hub and out-of-range ids, n "
           "= 3,068 / 60,000 / 1,000,000, aligned and unaligned idx: exact ok",
           flush=True)
+
+
+def sgns_ids(rng, T: int) -> np.ndarray:
+    """T node ids drawn as the SGNS step draws its negatives: from the
+    unigram^0.75 of Zipf-by-rank visit counts (p_i ~ 1/i over the SGNS_V
+    nodes in a random order: the busiest node takes ~4% of the draws)."""
+    counts = (1.0 / rng.permutation(np.arange(1, SGNS_V + 1))) ** 0.75
+    cdf = np.cumsum(counts / counts.sum())
+    return np.minimum(np.searchsorted(cdf, rng.random(T)),
+                      SGNS_V - 1).astype(np.int32)
+
+
+def sgns_kernel_inputs(device, T: int, hub: bool = False):
+    """K3's and K4's inputs as one SGNS minibatch gives them: f32 update
+    rows (T, 64) at the scale of the step's gradients and unigram-skewed
+    ids (T,).  ``hub`` puts half of the ids on row 3 and makes the rows
+    multiples of 1/4, so every sum is exact in f32 whatever the order."""
+    rng = np.random.default_rng(SEED + T)
+    g = (rng.integers(-8, 9, (T, SGNS_D)) / 4 if hub
+         else rng.standard_normal((T, SGNS_D)) * 0.01)
+    ids = sgns_ids(rng, T)
+    if hub:
+        ids[rng.permutation(T)[:T // 2]] = 3
+    return (torch.tensor(g, dtype=torch.float32, device=device),
+            torch.from_numpy(ids).to(device))
+
+
+def check_sgns_kernels(device) -> float:
+    """Phase 3: K3 and K4 at the SGNS shapes (f32, d = 64, n = 3,067 rows,
+    T = 4,096 and 24,576 unigram-skewed ids, and the same with a hub row
+    holding half of T) against their plain versions (K3 1e-5, K4 exactly),
+    each the same bits across two calls.  -> the worst K3 error."""
+    worst = 0.0
+    for T in SGNS_T:
+        for hub in (False, True):
+            g, idx = sgns_kernel_inputs(device, T, hub)
+            got = ts.scatter_add_cuda(g, idx, SGNS_V)
+            ref = ts.scatter_add_plain(g, idx, SGNS_V)
+            cnt = ts.bincount_cuda(idx, SGNS_V)
+            same = (torch.equal(got, ts.scatter_add_cuda(g, idx, SGNS_V))
+                    and torch.equal(cnt, ts.bincount_cuda(idx, SGNS_V)))
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            exact = torch.equal(cnt, ts.bincount_plain(idx, SGNS_V))
+            ok = same and exact and torch.allclose(got, ref, rtol=1e-5,
+                                                   atol=1e-5)
+            ids = "hub" if hub else "unigram"
+            print(f"K3 / K4 vs plain at the SGNS shape T={T} n={SGNS_V} d="
+                  f"{SGNS_D} f32, {ids} ids: K3 max_abs_err={err:.3e} "
+                  f"tol=1e-05, K4 exact {exact}, same bits twice {same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K3 / K4 disagree with their plain versions at the "
+                     f"SGNS shape T={T} ({ids} ids)")
+            worst = max(worst, err)
+    return worst
+
+
+def cooc_edges(rng):
+    """COOC_EDGES hyperedges of 2-25 distinct members (0-based) over
+    SGNS_V nodes: the hg38 1 Mb pretraining's size."""
+    return [np.sort(rng.choice(SGNS_V, rng.integers(2, 26), replace=False))
+            for _ in range(COOC_EDGES)]
+
+
+def check_cooccurrence(device):
+    """Phase 3: the walks' co-occurrence scatter (``pair_cooccurrence``,
+    plain torch in sorted-key order) on the card: the same bits across two
+    calls, and against scipy's CSR product VE_od @ EV_od with the diagonal
+    dropped (rtol 1e-6, atol 1e-7)."""
+    edges = cooc_edges(np.random.default_rng(SEED + 31))
+    inc = PaddedIncidence.from_ragged([e + 1 for e in edges], device=device)
+    w = torch.tensor([1.0 / len(e) for e in edges], dtype=torch.float32,
+                     device=device)
+    got = pair_cooccurrence(inc, w, SGNS_V)
+    same = torch.equal(got, pair_cooccurrence(inc, w, SGNS_V))
+    got = got.cpu().numpy()[1:, 1:]
+    _, ev_od = incidence_matrices(SGNS_V, edges)
+    ref = (ev_od.T @ ev_od).toarray()
+    np.fill_diagonal(ref, 0.0)
+    err = float(np.abs(got - ref).max())
+    ok = same and np.allclose(got, ref, rtol=TOL_COOC_RTOL,
+                              atol=TOL_COOC_ATOL)
+    print(f"pair_cooccurrence on the card ({COOC_EDGES} edges, {SGNS_V} "
+          f"nodes) vs scipy: max_abs_err={err:.3e} rtol={TOL_COOC_RTOL} "
+          f"atol={TOL_COOC_ATOL}, same bits twice {same} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("pair_cooccurrence on the card disagrees with scipy or is not "
+             "deterministic")
 
 
 def np_hash_rows(rows: np.ndarray):
@@ -1312,12 +1454,100 @@ def same(a: dict, b: dict, keys=("bce", "recon")) -> float:
     return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in keys)
 
 
+def same_values(a, b) -> bool:
+    """Two checkpoint pickles' contents hold the same values, types and
+    shapes, bit for bit."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_values(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_values(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and np.array_equal(a, b))
+    return a == b
+
+
+def recorded_fit(trainer, buckets, test, tmp, overlap: bool, log,
+                 **fit_kw) -> dict:
+    """One stage-2 Trainer.fit of FIT_EPOCHS epochs with the best-AUPRC
+    checkpoint, a resume snapshot per epoch, the embedding export and a
+    profile of epoch 1, under MATCHA_FIT_OVERLAP = 1 (the default) or 0.
+    Records every checkpoint / snapshot pickle and embeddings file written,
+    the launch counts and the host clock at the start of each epoch's
+    training dispatch and at the end of the fit (so an epoch's window holds
+    its training and its eval), and the host wall of each eval dispatch
+    (``eval_epoch`` in the serial loop, ``eval_epoch_pinned_launch`` in the
+    overlapped one).  The counts are zeroed just before the fit."""
+    tag = "overlap" if overlap else "serial"
+    writes, embs, marks, eval_walls = [], [], [], []
+    launch = trainer.train_epoch_indexed_launch
+
+    def marked_launch(batcher):
+        marks.append((time.perf_counter(), launch_counts()))
+        return launch(batcher)
+    trainer.train_epoch_indexed_launch = marked_launch
+    name = "eval_epoch_pinned_launch" if overlap else "eval_epoch"
+    ev = getattr(trainer, name)
+
+    def timed_eval(*args, **kw):
+        t = time.perf_counter()
+        res = ev(*args, **kw)
+        eval_walls.append(time.perf_counter() - t)
+        return res
+    setattr(trainer, name, timed_eval)
+    write_real, save_real = runtime._write_checkpoint, np.save
+
+    def write(path, *args):
+        write_real(path, *args)
+        with open(path, "rb") as f:
+            writes.append((os.path.basename(path).split("_")[0],
+                           pickle.load(f)))
+
+    def save(path, arr, *args, **kw):
+        embs.append(np.array(arr))
+        save_real(path, arr, *args, **kw)
+    prof = os.path.join(tmp, f"profile_{tag}")
+    os.environ["MATCHA_FIT_OVERLAP"] = "1" if overlap else "0"
+    try:
+        with unittest.mock.patch.object(runtime, "_write_checkpoint",
+                                        write), \
+                unittest.mock.patch.object(np, "save", save):
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            hist = trainer.fit(
+                buckets, test, epochs=FIT_EPOCHS, log=log,
+                checkpoint_path=os.path.join(tmp, f"ckpt_{tag}.chkpt"),
+                resume_path=os.path.join(tmp, f"resume_{tag}.snap"),
+                embeddings_path=os.path.join(tmp, f"emb_{tag}.npy"),
+                profile_dir=prof, **fit_kw)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            counts = launch_counts()
+    finally:
+        os.environ.pop("MATCHA_FIT_OVERLAP")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".pt.trace.json")] if os.path.isdir(prof) else []
+    ends = marks[1:] + [(t_end, counts)]
+    return {"hist": hist, "writes": writes, "embs": embs,
+            "epoch_counts": [{k: c1[k] - c0[k] for k in c0} for
+                             (_, c0), (_, c1) in zip(marks, ends)],
+            "epoch_wall_s": [t1 - t0_ for (t0_, _), (t1, _) in
+                             zip(marks, ends)],
+            "eval_wall_s": eval_walls, "fit_s": t_end - t0,
+            "counts": counts,
+            "trace_bytes": [os.path.getsize(f) for f in traces]}
+
+
 def fit_phase(problem, genome, card) -> dict:
     """Phase 8: Trainer.fit at full width on the opt-in kernels' path, the
-    fused tail and the "pallas" proposals (stage 1, then stage 2 with eval, checkpoints and
-    the embedding export), its launches per epoch, and a resume from the
-    epoch-1 snapshot; -> the stage-2 launch counts, the walls and the
-    results."""
+    fused tail and the "pallas" proposals: stage 1, then stage 2 with eval,
+    checkpoints, resume snapshots, the embedding export and a profile of
+    epoch 1, overlapped (the default) and serial (MATCHA_FIT_OVERLAP=0)
+    from one state: the two must be bit-equal (history, final params, every
+    checkpoint and snapshot, every embeddings file); each epoch's launches;
+    each run's epoch walls; and a resume from an overlapped run's epoch-1
+    snapshot.  -> the overlapped stage 2's launch counts and the results."""
     set_fuse_tail(True)
     dims, params, frozen, buckets, blooms, table = problem
     test = random_buckets(genome, np.random.default_rng(SEED + 12),
@@ -1327,10 +1557,8 @@ def fit_phase(problem, genome, card) -> dict:
     fit_kw = dict(batch_size=TRAIN_BATCH, num_batch_per_iter=TRAIN_STEPS,
                   seed=SEED)
     n_eval = EVAL_SAMPLES // TRAIN_BATCH
-    marks = []
 
     def log(msg):
-        marks.append((msg, time.perf_counter(), launch_counts()))
         print(msg, flush=True)
 
     # stage 1: alpha 0 / beta 1, no filters
@@ -1348,50 +1576,33 @@ def fit_phase(problem, genome, card) -> dict:
         fail(f"fit stage 1 launched {got1}, expected {want1}")
     p1 = _tree_map(lambda t: t.detach().clone(), s1.params)
 
-    # stage 2, the opt-in path's run: counts zeroed just before, read
-    # after every epoch (at its valid line)
+    # stage 2, overlapped (the default; the opt-in path's run) and serial,
+    # each from the stage-1 params and one seed
     tmp = tempfile.mkdtemp()
-    ck = os.path.join(tmp, "model.chkpt")
-    emb = os.path.join(tmp, "embeddings.npy")
     s2 = TrainSettings(alpha=1.0, beta=0.001, **common)
-    trainer = Trainer(p1, frozen, dims, table, s2, blooms=blooms,
-                      seed=SEED + 1)
-    eval_walls = []
-    eval_epoch = trainer.eval_epoch
-
-    def timed_eval(*args, **kw):
-        """eval_epoch under a host clock (it ends in its result fetch)"""
-        t = time.perf_counter()
-        res = eval_epoch(*args, **kw)
-        eval_walls.append(time.perf_counter() - t)
-        return res
-    trainer.eval_epoch = timed_eval
-    marks.clear()
-    zero_launch_counts()
-    t0 = time.perf_counter()
-    hist = trainer.fit(buckets, test, epochs=FIT_EPOCHS, log=log,
-                       checkpoint_path=ck,
-                       resume_path=os.path.join(tmp, "resume_a.snap"),
-                       embeddings_path=emb, **fit_kw)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    counts = launch_counts()
     want_epoch = added(scaled(step_counts(True, True), TRAIN_STEPS),
                        scaled(eval_counts(True), n_eval))
-    valid = [(t, c) for m, t, c in marks if "] valid bce" in m]
-    prev_t, prev_c = t0, {k: 0 for k in counts}
-    epoch_walls = []
-    for i, (t, c) in enumerate(valid):
-        got = {k: c[k] - prev_c[k] for k in c}
-        print(f"fit stage 2 epoch {i}: launches {got} (expected "
-              f"{want_epoch})", flush=True)
-        if got != want_epoch:
-            fail(f"fit stage-2 epoch {i} launched {got}, expected "
-                 f"{want_epoch}")
-        epoch_walls.append(t - prev_t)
-        prev_t, prev_c = t, c
-    if len(hist) != FIT_EPOCHS or len(valid) != FIT_EPOCHS:
-        fail(f"fit ran {len(hist)} epochs, expected {FIT_EPOCHS}")
+    runs, trainers = {}, {}
+    for overlap in (True, False):
+        trainers[overlap] = Trainer(p1, frozen, dims, table, s2,
+                                    blooms=blooms, seed=SEED + 1)
+        runs[overlap] = run = recorded_fit(trainers[overlap], buckets, test,
+                                           tmp, overlap, log, **fit_kw)
+        what = "overlapped" if overlap else "serial"
+        for i, got in enumerate(run["epoch_counts"]):
+            print(f"fit stage 2 ({what}) epoch {i}: launches {got} "
+                  f"(expected {want_epoch})", flush=True)
+            if got != want_epoch:
+                fail(f"fit stage-2 ({what}) epoch {i} launched {got}, "
+                     f"expected {want_epoch}")
+        hist = run["hist"]
+        if len(hist) != FIT_EPOCHS or len(run["epoch_counts"]) != FIT_EPOCHS:
+            fail(f"fit ({what}) ran {len(hist)} epochs, expected "
+                 f"{FIT_EPOCHS}")
+        if len(run["trace_bytes"]) != 1 or not run["trace_bytes"][0]:
+            fail(f"fit ({what}) profile_dir holds traces of "
+                 f"{run['trace_bytes']} bytes, expected one non-empty")
+    hist = runs[True]["hist"]
     for i, h in enumerate(h1 + hist):
         vals = [h[p][k] for p in ("train", "valid") for k in ("bce",
                                                               "recon")]
@@ -1399,17 +1610,43 @@ def fit_phase(problem, genome, card) -> dict:
             fail(f"fit epoch results are not finite: {vals}")
         if set(h["valid"]["metrics"]) != {"all", *TRAIN_KS}:
             fail(f"fit valid metrics miss a size: {h['valid']['metrics']}")
-    best = load_checkpoint(ck, full=True,
-                           device=_leaves(trainer.params)[0].device)
-    if not all(torch.equal(a, b) for a, b in zip(_leaves(best["params"]),
-                                                 _leaves(trainer.params))):
+
+    # overlapped == serial, bit for bit
+    ov, se = runs[True], runs[False]
+    keys = ("bce", "recon", "metrics", "fallback_bloom_rate",
+            "fallback_orig_rate")
+    equal = {
+        "history": all(a[p][k] == b[p][k] for a, b in zip(ov["hist"],
+                                                          se["hist"])
+                       for p in ("train", "valid") for k in keys),
+        "final_params": all(torch.equal(a, b) for a, b in zip(
+            _leaves(trainers[True].params), _leaves(trainers[False].params))),
+        "checkpoints_and_snapshots": (
+            [n for n, _ in ov["writes"]] == [n for n, _ in se["writes"]]
+            and all(same_values(a, b) for (_, a), (_, b) in
+                    zip(ov["writes"], se["writes"]))),
+        "embeddings_files": (len(ov["embs"]) == len(se["embs"])
+                             == FIT_EPOCHS
+                             and all(np.array_equal(a, b) for a, b in
+                                     zip(ov["embs"], se["embs"])))}
+    n_snaps = sum(n == "resume" for n, _ in ov["writes"])
+    print(f"fit overlapped vs serial: bit-equal {json.dumps(equal)} "
+          f"({len(ov['writes'])} pickles, {n_snaps} resume snapshots, "
+          f"{len(ov['embs'])} embeddings files)", flush=True)
+    if not all(equal.values()) or n_snaps != FIT_EPOCHS:
+        fail(f"the overlapped fit differs from the serial one: {equal}")
+    best = load_checkpoint(os.path.join(tmp, "ckpt_overlap.chkpt"),
+                           full=True,
+                           device=_leaves(trainers[True].params)[0].device)
+    if not all(torch.equal(a, b) for a, b in zip(
+            _leaves(best["params"]), _leaves(trainers[True].params))):
         fail("the params after fit are not the best checkpoint's")
-    emb_shape = np.load(emb).shape
+    emb_shape = ov["embs"][-1].shape
     if emb_shape != (genome.num_nodes, DIM):
         fail(f"embeddings of shape {emb_shape}")
 
     # resume: a fresh Trainer from the same stage-1 params runs epochs 0-1
-    # with snapshots, another resumes from the epoch-1 snapshot
+    # overlapped with snapshots, another resumes from the epoch-1 snapshot
     snap = os.path.join(tmp, "resume_b.snap")
     quiet = lambda msg: None                                   # noqa: E731
     hb = Trainer(p1, frozen, dims, table, s2, blooms=blooms,
@@ -1431,12 +1668,16 @@ def fit_phase(problem, genome, card) -> dict:
     if len(hc) != 1 or max(diffs.values()) > TOL_RESUME:
         fail("the resumed epoch 2 differs from the uninterrupted one")
 
+    walls = {("overlapped" if o else "serial"): {
+        "fit_s": runs[o]["fit_s"], "epoch_wall_s": runs[o]["epoch_wall_s"],
+        "train_elapsed_s": [h["train"]["elapsed"] for h in runs[o]["hist"]],
+        "eval_wall_s": runs[o]["eval_wall_s"]} for o in (True, False)}
     result = {
         "metric": "fit_stage2", "epochs": FIT_EPOCHS,
         "steps_per_epoch": TRAIN_STEPS, "eval_batches": n_eval,
-        "stage1_s": stage1_s, "stage2_fit_s": fit_s,
-        "epoch_wall_s": epoch_walls, "eval_wall_s": eval_walls,
-        "train_elapsed_s": [h["train"]["elapsed"] for h in hist],
+        "stage1_s": stage1_s, **walls["overlapped"], "walls": walls,
+        "equal_overlapped_serial": equal,
+        "profile_trace_bytes": runs[True]["trace_bytes"],
         "train_hyperedges_per_s": [h["train"]["hyperedges_per_sec"]
                                    for h in hist],
         "fallback_bloom_rate": [h["train"]["fallback_bloom_rate"]
@@ -1449,7 +1690,7 @@ def fit_phase(problem, genome, card) -> dict:
                    for k, v in h["train"]["metrics"].items()} for h in hist],
         "best_epoch": best["epoch"], "resume": diffs, "card": card}
     print(json.dumps(result), flush=True)
-    return {"counts": counts, "result": result}
+    return {"counts": runs[True]["counts"], "result": result}
 
 
 def k5_bytes(args, S: int, md: int) -> int:
@@ -1788,97 +2029,362 @@ def write_train_inputs(temp: str, genome, rng) -> int:
     return len(clusters)
 
 
-def cli_train_phase(genome, card) -> dict:
+def cli_train_phase(genome, card, tmp: str) -> dict:
     """Phase 11: ``run_train`` through the CLI on the card at full width.
     Writes the inputs (``write_train_inputs``) and a config.JSON (k = 2..5,
     embed_dim 64, 8 heads, compute "auto", batch 2,048, 10 batches per
-    epoch, 1 + 1 epochs), runs ``python -m matcha_tpu_torch kmers`` in a
-    subprocess and the ``train`` stage through the same entry in this
-    process (``pipeline.main``), with the launch counts zeroed just before
-    and read just after; then scores candidates with the bundle it wrote."""
+    epoch, 1 + 1 epochs) under ``tmp``, runs ``python -m matcha_tpu_torch
+    kmers`` in a subprocess and the ``train`` stage through the same entry
+    in this process (``pipeline.main``), with the launch counts zeroed just
+    before and read just after; then scores candidates with the bundle it
+    wrote.  -> the results, with the config's path ("config")."""
     import contextlib
     import importlib.util
     import io
     from matcha_tpu_torch.native import cluster_native, kmer_native
     from matcha_tpu_torch.pipeline import main as cli_main
     out = {"metric": "run_train_cli", "card": card}
-    with tempfile.TemporaryDirectory() as tmp:
-        temp = os.path.join(tmp, "temp")
-        t0 = time.perf_counter()
-        out["clusters"] = write_train_inputs(temp, genome,
-                                             np.random.default_rng(SEED + 70))
-        out["inputs_s"] = time.perf_counter() - t0
-        cfg = os.path.join(tmp, "config.JSON")
-        with open(cfg, "w") as f:
-            json.dump({"temp_dir": temp, "resolution": genome.resolution,
-                       "chrom_list": genome.chrom_names,
-                       "max_cluster_size": 25,
-                       "min_distance": 0, "k-mer_size": list(TRAIN_KS),
-                       "min_freq_cutoff": 2, "embed_dim": CLI_DIM,
-                       "n_head": N_HEAD, "batch_size": CLI_BATCH,
-                       "num_batch_per_iter": TRAIN_STEPS,
-                       "stage1_epochs": 1, "stage2_epochs": 1}, f)
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "matcha_tpu_torch",
-                              "kmers", "-c", cfg],
-                             cwd=os.path.dirname(os.path.abspath(__file__)),
-                             capture_output=True, text=True, timeout=600)
-        out["kmers_s"] = time.perf_counter() - t0
-        print(res.stdout.strip(), flush=True)
-        if res.returncode != 0:
-            fail(f"python -m matcha_tpu_torch kmers exited {res.returncode}:"
-                 f"\n{res.stderr[-3000:]}")
-        out["native_parser"] = cluster_native.available()
-        out["native_counter"] = kmer_native.available()
-        out["modules"] = {m: importlib.util.find_spec(m) is not None
-                          for m in ("h5py", "scipy", "matplotlib", "pandas")}
+    temp = os.path.join(tmp, "temp")
+    t0 = time.perf_counter()
+    out["clusters"] = write_train_inputs(temp, genome,
+                                         np.random.default_rng(SEED + 70))
+    out["inputs_s"] = time.perf_counter() - t0
+    cfg = os.path.join(tmp, "config.JSON")
+    with open(cfg, "w") as f:
+        json.dump({"temp_dir": temp, "resolution": genome.resolution,
+                   "chrom_list": genome.chrom_names,
+                   "max_cluster_size": 25,
+                   "min_distance": 0, "k-mer_size": list(TRAIN_KS),
+                   "min_freq_cutoff": 2, "embed_dim": CLI_DIM,
+                   "n_head": N_HEAD, "batch_size": CLI_BATCH,
+                   "num_batch_per_iter": TRAIN_STEPS,
+                   "stage1_epochs": 1, "stage2_epochs": 1}, f)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "matcha_tpu_torch",
+                          "kmers", "-c", cfg],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    out["kmers_s"] = time.perf_counter() - t0
+    print(res.stdout.strip(), flush=True)
+    if res.returncode != 0:
+        fail(f"python -m matcha_tpu_torch kmers exited {res.returncode}:"
+             f"\n{res.stderr[-3000:]}")
+    out["native_parser"] = cluster_native.available()
+    out["native_counter"] = kmer_native.available()
+    out["modules"] = {m: importlib.util.find_spec(m) is not None
+                      for m in ("h5py", "scipy", "matplotlib", "pandas")}
 
-        hs._FUSE_TAIL = None          # phase 10 set the gate; "auto" resets
-        os.environ.pop("MATCHA_FUSE_TAIL", None)
-        log = io.StringIO()
+    hs._FUSE_TAIL = None          # phase 10 set the gate; "auto" resets
+    os.environ.pop("MATCHA_FUSE_TAIL", None)
+    log = io.StringIO()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli_main(["train", "-c", cfg, "--device", "cuda"])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    text = log.getvalue()
+    print(text.strip(), flush=True)
+    sizes = [ln for ln in text.splitlines()
+             if ln.startswith("train sizes: ")]
+    perf = [ln for ln in text.splitlines()
+            if ln.startswith("resolved perf: ")]
+    out["train_sizes"] = sizes[0][len("train sizes: "):] if sizes \
+        else None
+    want_perf = ("'compute_dtype': 'bfloat16'", "'token_stream': 'merged'",
+                 "'propose_impl': 'xla'", "'fuse_tail': 'off'")
+    if not perf or not all(w in perf[0] for w in want_perf):
+        fail(f"run_train resolved {perf}, expected bf16 / merged / xla "
+             f"/ off")
+    missing = [p for p in (os.path.join(temp, "model2load", "params.pkl"),
+                           os.path.join(tmp, "embeddings.npy"),
+                           os.path.join(temp, "model.chkpt"),
+                           os.path.join(temp, "logs", "metrics.jsonl"))
+               if not os.path.exists(p)]
+    if missing:
+        fail(f"run_train did not write {missing}")
+    launched = out["launches"]
+    if not all(launched[k] for k in ("K1", "K2", "K3", "K4")) or any(
+            launched[k] for k in ("K5", "K6_fwd", "K6_bwd")):
+        fail(f"run_train launched {launched}: expected K1-K4, and no K5 "
+             f"or K6 on the shipped path")
+    inp = os.path.join(tmp, "candidates.txt")
+    with open(inp, "w") as f:
+        f.write("chr1:500000\tchr1:3500000\n"
+                "chr2:1000000\tchr2:9000000\tchr2:20000000\n"
+                "chr3:0\tchr3:4000000\tchr3:8000000\tchr3:9000000\n")
+    proba = run_predict_multiway(os.path.join(temp, "model2load"), inp,
+                                 os.path.join(tmp, "out.txt"),
+                                 device="cuda")
+    out["proba"] = [float(p) for p in proba]
+    if proba.shape != (3,) or not ((proba > 0) & (proba < 1)).all():
+        fail(f"the trained bundle scored {proba}")
+    print(json.dumps(out), flush=True)
+    return {**out, "config": cfg}
+
+
+# ----------------------------------------------------- walk pretraining
+def time_sgns_kernels(device) -> dict:
+    """K3 and K4 at the SGNS shapes (f32, d = 64, n = 3,067, T = 4,096 and
+    24,576 unigram-skewed ids): CUDA events around the wrapper and the
+    kernels' device time from torch.profiler, beside their bounds (each
+    input read once, the output written once), their plain versions and
+    ``index_add_`` / ``torch.bincount`` (by events and on the device)."""
+    out = {}
+    for T in SGNS_T:
+        g, idx = sgns_kernel_inputs(device, T)
+        idx64 = idx.long()
+        acc = torch.zeros((SGNS_V, SGNS_D), device=device)
+        out[f"K3_T{T}"] = {
+            "T": T, "n": SGNS_V, "d": SGNS_D, "dtype": "float32",
+            "ms": cuda_ms(lambda: ts.scatter_add_cuda(g, idx, SGNS_V)),
+            "device_ms": device_ms_per_call(
+                lambda: ts.scatter_add_cuda(g, idx, SGNS_V)),
+            "plain_ms": cuda_ms(lambda: ts.scatter_add_plain(g, idx,
+                                                             SGNS_V)),
+            "library_ms": cuda_ms(lambda: acc.index_add_(0, idx64, g)),
+            "library_device_ms": device_ms_per_call(
+                lambda: acc.index_add_(0, idx64, g)),
+            "library": "torch.Tensor.index_add_",
+            "bound_ms": (T * SGNS_D * 4 + T * 4 + SGNS_V * SGNS_D * 4)
+            / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        out[f"K4_T{T}"] = {
+            "T": T, "n": SGNS_V,
+            "ms": cuda_ms(lambda: ts.bincount_cuda(idx, SGNS_V)),
+            "device_ms": device_ms_per_call(
+                lambda: ts.bincount_cuda(idx, SGNS_V)),
+            "plain_ms": cuda_ms(lambda: ts.bincount_plain(idx, SGNS_V)),
+            "library_ms": cuda_ms(lambda: torch.bincount(
+                idx64, minlength=SGNS_V)),
+            "library_device_ms": device_ms_per_call(
+                lambda: torch.bincount(idx64, minlength=SGNS_V)),
+            "library": "torch.bincount",
+            "bound_ms": (T * 4 + SGNS_V * 4) / PEAK_BYTES * 1e3,
+            "bound_by": "bytes"}
+    return out
+
+
+def sgns_step_limits(emb_in, emb_out, centers, contexts, cdf, u, lr):
+    """Per-entry limits on |card - CPU| of the two tables after one
+    ``sgns_step`` from these (CPU) inputs: the sum of both sides' f32
+    rounding bounds.  A row's update is lr * (sum of its c terms) / c; a
+    term is g * v with |g| <= 1 and g from a d-term score, so each side is
+    off by at most 2^-24 * (c + d + neg + 5) * (lr * A / c + |table|), A
+    the row's sum of (1 + S_t) |v_t| over its terms, S_t the term's
+    absolute score sum |v_in * v|.  A long sum (a hub row) gets a wider
+    limit than a short one, whatever the table's largest entry."""
+    a_in, a_out = emb_in.double().numpy(), emb_out.double().numpy()
+    V, d = a_in.shape
+    c, x = centers.long().numpy(), contexts.long().numpy()
+    negs = np.minimum(np.searchsorted(cdf.numpy(), u.numpy()), V - 1)
+    neg = negs.shape[1]
+    v_in, v_pos, v_neg = a_in[c], a_out[x], a_out[negs]
+    s_pos = 1 + np.abs(v_in * v_pos).sum(-1)                     # (m,)
+    s_neg = 1 + np.abs(v_neg * v_in[:, None]).sum(-1)            # (m, neg)
+    t_in = (s_pos[:, None] * np.abs(v_pos)
+            + (s_neg[..., None] * np.abs(v_neg)).sum(1))
+    t_out = np.concatenate([s_pos[:, None] * np.abs(v_in),
+                            (s_neg[..., None] * np.abs(v_in)[:, None]
+                             ).reshape(-1, d)])
+    limits = []
+    for table, idx, terms in ((a_in, c, t_in),
+                              (a_out, np.concatenate([x, negs.reshape(-1)]),
+                               t_out)):
+        cnt = np.bincount(idx, minlength=V).astype(np.float64)[:, None]
+        A = np.zeros((V, d))
+        np.add.at(A, idx, terms)
+        limits.append(2 * 2.0 ** -24 * (cnt + d + neg + 5)
+                      * (lr * A / np.maximum(cnt, 1) + np.abs(table)))
+    return limits
+
+
+def sgns_step_check(pairs_b: np.ndarray, cdf: torch.Tensor, emb: np.ndarray,
+                    device) -> dict:
+    """One f32 SGNS step (``sgns_step``) on the card and on the CPU from the
+    same tables (the pretrained input table, a random output table) and the
+    same injected uniforms, over the first minibatch of the run's pairs and
+    over the same minibatch with half of its centers and half of its
+    contexts moved to one hub row.  -> per minibatch: the largest table
+    difference over that entry's rounding limit (``sgns_step_limits``),
+    over that table's largest entry, and the loss's relative difference."""
+    rng = np.random.default_rng(SEED + 41)
+    tables = [emb.astype(np.float32),
+              (rng.standard_normal(emb.shape) * 0.01).astype(np.float32)]
+    u = torch.from_numpy(rng.random((pairs_b.shape[1], SGNS_NEG)).astype(
+        np.float32))
+    out = {}
+    for name in ("run", "hub"):
+        ids = np.array(pairs_b[0], dtype=np.int32)               # (m, 2)
+        if name == "hub":
+            for col in (0, 1):
+                ids[rng.permutation(len(ids))[:len(ids) // 2], col] = 3
+        centers = torch.from_numpy(np.ascontiguousarray(ids[:, 0]))
+        contexts = torch.from_numpy(np.ascontiguousarray(ids[:, 1]))
+        cpu_in = [torch.from_numpy(a) for a in tables]
+        limits = sgns_step_limits(*cpu_in, centers, contexts, cdf.cpu(), u,
+                                  0.1)
+        results = []
+        for dev in (device, torch.device("cpu")):
+            t = [torch.tensor(a, device=dev) for a in tables]
+            loss = skipgram.sgns_step(t[0], t[1], centers.to(dev),
+                                      contexts.to(dev), cdf.to(dev),
+                                      u.to(dev), lr=0.1)
+            results.append([x.cpu() for x in t] + [float(loss)])
+        (a_in, a_out, a_loss), (b_in, b_out, b_loss) = results
+        pairs = ((a_in, b_in, limits[0]), (a_out, b_out, limits[1]))
+        out[name] = {
+            "of_limit": max(float(((a - b).abs().double().numpy()
+                                   / lim).max()) for a, b, lim in pairs),
+            "of_max": max(float((a - b).abs().max()) / float(b.abs().max())
+                          for a, b, _ in pairs),
+            "loss": abs(a_loss - b_loss) / abs(b_loss)}
+    return out
+
+
+def pretrain_phase(problem, genome, card, cfg: str,
+                   device=torch.device("cuda")) -> dict:
+    """Phase 15: ``python -m matcha_tpu_torch pretrain`` in process
+    (``pipeline.main``) on phase 11's ``temp_dir`` with the JAX package's
+    defaults, the counts zeroed just before and read just after (2 K3 and 2
+    K4 per minibatch, nothing else); the embeddings file, the loss's fall
+    over the epoch, an SGNS step card vs CPU; the SGNS rate over a profiled
+    window, K3 and K4 at these shapes; then a 10-step stage-2 epoch of a
+    table-mode model initialised from the embeddings at phase 6's
+    configuration, its launches pinned."""
+    import contextlib
+    import io
+    from matcha_tpu_torch import pipeline
+    with open(cfg) as f:
+        temp = json.load(f)["temp_dir"]
+    seen = {}
+    chunked = skipgram.sgns_epoch_chunked
+    pretrain = pipeline.pretrain_node_embeddings
+
+    def keep(emb_in, emb_out, pairs_b, cdf, *args, **kw):
+        seen.update(pairs_b=pairs_b, cdf=cdf)
+        res = chunked(emb_in, emb_out, pairs_b, cdf, *args, **kw)
+        seen["losses"] = res[2]
+        return res
+
+    def keep_timings(*args, **kw):
+        seen["timings"] = kw["timings"]
+        return pretrain(*args, **kw)
+    log = io.StringIO()
+    with unittest.mock.patch.object(skipgram, "sgns_epoch_chunked", keep), \
+            unittest.mock.patch.object(pipeline, "pretrain_node_embeddings",
+                                       keep_timings):
         zero_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
-            cli_main(["train", "-c", cfg, "--device", "cuda"])
+            pipeline.main(["pretrain", "-c", cfg, "--device",
+                           str(device)])
         torch.cuda.synchronize()
-        out["train_s"] = time.perf_counter() - t0
-        out["launches"] = launch_counts()
-        text = log.getvalue()
-        print(text.strip(), flush=True)
-        sizes = [ln for ln in text.splitlines()
-                 if ln.startswith("train sizes: ")]
-        perf = [ln for ln in text.splitlines()
-                if ln.startswith("resolved perf: ")]
-        out["train_sizes"] = sizes[0][len("train sizes: "):] if sizes \
-            else None
-        want_perf = ("'compute_dtype': 'bfloat16'", "'token_stream': 'merged'",
-                     "'propose_impl': 'xla'", "'fuse_tail': 'off'")
-        if not perf or not all(w in perf[0] for w in want_perf):
-            fail(f"run_train resolved {perf}, expected bf16 / merged / xla "
-                 f"/ off")
-        missing = [p for p in (os.path.join(temp, "model2load", "params.pkl"),
-                               os.path.join(tmp, "embeddings.npy"),
-                               os.path.join(temp, "model.chkpt"),
-                               os.path.join(temp, "logs", "metrics.jsonl"))
-                   if not os.path.exists(p)]
-        if missing:
-            fail(f"run_train did not write {missing}")
-        launched = out["launches"]
-        if not all(launched[k] for k in ("K1", "K2", "K3", "K4")) or any(
-                launched[k] for k in ("K5", "K6_fwd", "K6_bwd")):
-            fail(f"run_train launched {launched}: expected K1-K4, and no K5 "
-                 f"or K6 on the shipped path")
-        inp = os.path.join(tmp, "candidates.txt")
-        with open(inp, "w") as f:
-            f.write("chr1:500000\tchr1:3500000\n"
-                    "chr2:1000000\tchr2:9000000\tchr2:20000000\n"
-                    "chr3:0\tchr3:4000000\tchr3:8000000\tchr3:9000000\n")
-        proba = run_predict_multiway(os.path.join(temp, "model2load"), inp,
-                                     os.path.join(tmp, "out.txt"),
-                                     device="cuda")
-        out["proba"] = [float(p) for p in proba]
-        if proba.shape != (3,) or not ((proba > 0) & (proba < 1)).all():
-            fail(f"the trained bundle scored {proba}")
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    print(log.getvalue().strip(), flush=True)
+    timings = seen["timings"]
+    n_b = int(timings["minibatches"])
+    want = {k: 0 for k in counts}
+    want.update(K3=2 * n_b, K4=2 * n_b)
+    print(f"pretrain: {n_b} minibatches of {SGNS_M} pairs, launches "
+          f"{counts} (expected {want})", flush=True)
+    if counts != want:
+        fail(f"the pretraining launched {counts}, expected {want}")
+    emb = np.load(os.path.join(temp, "walk_embeddings.npy"))
+    if emb.shape != (genome.num_nodes, DIM) or not np.isfinite(emb).all():
+        fail(f"walk_embeddings.npy of shape {emb.shape} or not finite")
+    losses = seen["losses"].cpu().numpy()
+    tenth = max(len(losses) // 10, 1)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    if not last < first:
+        fail(f"the SGNS loss did not fall: first tenth {first}, last "
+             f"{last}")
+    err = sgns_step_check(seen["pairs_b"], seen["cdf"], emb, device)
+    for name, e in err.items():
+        ok = (e["of_limit"] <= 1.0 and e["loss"] <= TOL_SGNS_STEP
+              and (name == "hub" or e["of_max"] <= TOL_SGNS_STEP))
+        print(f"SGNS step f32 card vs CPU ({name} minibatch): "
+              f"{e['of_limit']:.3e} of the entry's rounding limit (tol 1), "
+              f"{e['of_max']:.3e} of each table's largest entry"
+              f"{'' if name == 'hub' else f' (tol {TOL_SGNS_STEP})'}, loss "
+              f"{e['loss']:.3e} relative (tol {TOL_SGNS_STEP}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the SGNS step on the card disagrees with the CPU ({name} "
+                 f"minibatch)")
+
+    # the SGNS rate over a window of minibatches, synchronised, and the
+    # device's idle share in it
+    pairs = torch.from_numpy(np.asarray(
+        seen["pairs_b"][:SGNS_PROFILE_STEPS], dtype=np.int32)).to(
+        device).transpose(1, 2).contiguous()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tables = [torch.tensor(emb, device=device),
+              torch.zeros(emb.shape, device=device)]
+
+    def window():
+        return skipgram.sgns_epoch(*tables, pairs, seen["cdf"], gen,
+                                   neg_num=SGNS_NEG, lr=0.1)
+    window()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    trace = device_profile(window)
+    n_pairs = SGNS_PROFILE_STEPS * SGNS_M
+    kern = time_sgns_kernels(device)
+
+    # a table-mode model from the embeddings, one stage-2 epoch
+    set_fuse_tail(False)
+    dims, _, frozen, buckets, blooms, table = problem
+    sizes = [int(e - s) for s, e in genome.chrom_range]
+    params = init_model(torch.Generator().manual_seed(SEED), dims, sizes,
+                        embedding_mode="table", device=device,
+                        table_init=emb)
+    if not np.array_equal(params["embed"]["table"][1:].cpu().numpy(), emb):
+        fail("the table-mode model's table is not the embeddings")
+    tm = Trainer(params, frozen, dims, table,
+                 TrainSettings(alpha=1.0, beta=0.001, neg_num=3, max_trials=8,
+                               token_stream="merged"),
+                 blooms=blooms, seed=SEED + 61)
+    batcher = BucketedBatcher(buckets, TRAIN_BATCH, TRAIN_STEPS, seed=SEED)
+    if not tm.pin_base_buckets(batcher):
+        fail("the table-mode buckets do not fit the pin budget")
+    n_attn = sum(1 for k in TRAIN_KS if k >= 3)
+    want_tm = {k: 0 for k in counts}
+    want_tm.update(K1=n_attn * TRAIN_STEPS, K2=n_attn * TRAIN_STEPS,
+                   K3=TRAIN_STEPS)
+    zero_launch_counts()
+    res = tm.train_epoch_indexed(batcher)
+    got_tm = launch_counts()
+    print(f"table-mode stage-2 epoch: launches {got_tm} (expected "
+          f"{want_tm}), train bce {res['bce']:.4f} recon {res['recon']}",
+          flush=True)
+    if got_tm != want_tm:
+        fail(f"the table-mode epoch launched {got_tm}, expected {want_tm}")
+    if not np.isfinite(res["bce"]) or res["recon"] != 0.0:
+        fail(f"the table-mode epoch gave bce {res['bce']}, recon "
+             f"{res['recon']} (expected finite, 0)")
+
+    out = {"metric": "pretrain", "pretrain_wall_s": wall,
+           "timings": timings, "minibatches": n_b, "launches": counts,
+           "sgns_pairs_per_s": timings["pairs"] / timings["sgns_s"],
+           "loss_first_tenth": first, "loss_last_tenth": last,
+           "sgns_step_card_vs_cpu": err,
+           "window_minibatches": SGNS_PROFILE_STEPS,
+           "window_wall_s": walls,
+           "window_pairs_per_s": n_pairs / statistics.median(walls),
+           "window_profile": trace, "kernels": kern,
+           "table_mode_epoch": {"launches": got_tm,
+                                "elapsed_s": res["elapsed"],
+                                "hyperedges_per_s":
+                                    res["hyperedges_per_sec"],
+                                "bce": res["bce"]},
+           "card": card}
     print(json.dumps(out), flush=True)
     return out
 
@@ -2271,6 +2777,8 @@ def main():
     worst_scatter = max(check_scatter_bincount(device),
                         check_scatter_skewed(device))
     check_bincount(device)
+    worst_scatter = max(worst_scatter, check_sgns_kernels(device))
+    check_cooccurrence(device)
     check_bloom(device)
     check_propose(device, hg38_genome())
     worst_tail = check_fused_tail(device)
@@ -2376,8 +2884,11 @@ def main():
     # 10. shapes the kernels do not take
     small_model_phase(genome, device, card)
 
-    # 11. run_train through the CLI
-    cli_train_phase(genome, card)
+    # 11. run_train through the CLI, 15. the pretraining on its temp_dir
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_train_phase(genome, card, tmp)
+        pre = pretrain_phase(train["problem"], genome, card, cli["config"])
+    sg = pre["kernels"]
 
     # 12. denoise and 13. outlier ranking on the serving bundle
     with tempfile.TemporaryDirectory() as tmp:
@@ -2439,12 +2950,14 @@ def main():
          "launches_regress_fit": regress["K3"],
          "launches_per_occurrence_epoch": occ["K3"],
          "launches_recon_bf16_epoch": rbf["K3"],
+         "launches_pretrain": pre["launches"]["K3"],
          "max_abs_err": worst_scatter,
          "ms": tk["K3"]["ms"], "device_ms": tk["K3"]["device_ms"],
          "plain_ms": tk["K3"]["plain_ms"],
          "bound_ms": tk["K3"]["bound_ms"], "bound_by": "bytes",
          "library_ms": tk["K3"]["library_ms"],
-         "library_device_ms": tk["K3"]["library_device_ms"]},
+         "library_device_ms": tk["K3"]["library_device_ms"],
+         "sgns": {f"T{T}": sg[f"K3_T{T}"] for T in SGNS_T}},
         {"name": "bincount", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",
          "replaces": "matcha_tpu/ops/table_scatter.py:112",
@@ -2455,12 +2968,14 @@ def main():
          "launches_regress_fit": regress["K4"],
          "launches_per_occurrence_epoch": occ["K4"],
          "launches_recon_bf16_epoch": rbf["K4"],
+         "launches_pretrain": pre["launches"]["K4"],
          "max_abs_err": 0.0,
          "ms": tk["K4"]["ms"], "device_ms": tk["K4"]["device_ms"],
          "plain_ms": tk["K4"]["plain_ms"],
          "bound_ms": tk["K4"]["bound_ms"], "bound_by": "bytes",
          "library_ms": tk["K4"]["library_ms"],
-         "library_device_ms": tk["K4"]["library_device_ms"]},
+         "library_device_ms": tk["K4"]["library_device_ms"],
+         "sgns": {f"T{T}": sg[f"K4_T{T}"] for T in SGNS_T}},
         {"name": "propose_phase1", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/propose.cu",
          "replaces": "matcha_tpu/ops/propose.py:94",

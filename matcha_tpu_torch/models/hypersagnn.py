@@ -110,20 +110,31 @@ def configure_fuse_tail(enabled: bool) -> None:
 # --------------------------------------------------------------------- init
 def init_model(generator: torch.Generator, dims: ModelDims,
                chrom_sizes: List[int], embedding_mode: str = "corrcoef-ae",
-               device="cuda") -> Dict:
+               device="cuda", table_init: Optional[np.ndarray] = None
+               ) -> Dict:
     """Build the parameter tree: the JAX package's keys and shapes, drawn
     from the same distributions with ``generator`` (a CPU generator; the
     tensors are moved to ``device`` afterwards).
 
     embedding_mode "corrcoef-ae": per-chromosome tied autoencoders over the
     frozen corrcoef tables; "table": a trainable (N+1, dim) table, row 0
-    zero."""
+    zero, the legacy Wrap_Embedding path (ref History_version/Code/
+    main_SPRITE.py:757-765): with ``table_init`` (N, dim), e.g. the walk
+    pretraining's embeddings, the table is a zero row followed by
+    ``table_init`` as f32 (no draw), else N(0, 0.02^2) draws.  The
+    inter-chromosome recon loss is 0 in table mode, as in the JAX
+    package."""
     dev = resolve_device(device)
     d = dims.dim
     if embedding_mode == "table":
         n_total = sum(int(c) for c in chrom_sizes)
-        table = torch.randn((n_total + 1, d), generator=generator) * 0.02
-        table[0] = 0.0
+        if table_init is not None:
+            table = torch.from_numpy(np.concatenate(
+                [np.zeros((1, d), np.float32),
+                 np.asarray(table_init, np.float32)]))
+        else:
+            table = torch.randn((n_total + 1, d), generator=generator) * 0.02
+            table[0] = 0.0
         embed = {"table": table}
     else:
         ae, recon = [], []

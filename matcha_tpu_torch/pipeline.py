@@ -9,11 +9,12 @@ interoperate with theirs:
   run_generate_kmers  <- python generate_kmers.py (hyperedge generation)
   run_merge_kmers        (merge per-shard k-mer counts)
   run_train           <- python main.py           (two-stage training)
+  run_pretrain           (walk + skip-gram node-embedding pretraining)
 
-``python -m matcha_tpu_torch {process,kmers,kmers-merge,train,all} -c
-config.JSON [--device cuda|cpu]`` runs them (``main``).  Training runs on
-the card unless ``--device cpu`` is given; without a card ``cuda`` raises.
-Not ported yet: the ``pretrain`` stage (walk pretraining) and multi-GPU
+``python -m matcha_tpu_torch {process,kmers,kmers-merge,train,pretrain,all}
+-c config.JSON [--walk-mode hyper|clique] [--device cuda|cpu]`` runs them
+(``main``).  Training and pretraining run on the card unless ``--device
+cpu`` is given; without a card ``cuda`` raises.  Not ported yet: multi-GPU
 meshes.
 """
 
@@ -22,11 +23,12 @@ from __future__ import annotations
 import os
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from matcha_tpu_torch.config import Config, load_config
-from matcha_tpu_torch.data.clusters import (load_edge_list, parse_clusters,
-                                            save_edge_list)
+from matcha_tpu_torch.data.clusters import (clusters_to_list, load_edge_list,
+                                            parse_clusters, save_edge_list)
 from matcha_tpu_torch.data.kmers import (generate_kmers,
                                          generate_kmers_shard,
                                          merge_kmer_shards)
@@ -44,6 +46,7 @@ from matcha_tpu_torch.sampler.negative import ChromTable
 from matcha_tpu_torch.train.logging import MetricsLogger
 from matcha_tpu_torch.train.runtime import (Trainer, TrainSettings,
                                             save_model_bundle)
+from matcha_tpu_torch.walks.pretrain import pretrain_node_embeddings
 
 # "auto" resolutions of the perf knobs, the JAX package's values: on the card
 # its accelerator default (the main path: bf16 compute with f32 master
@@ -226,6 +229,31 @@ def run_train(config: Config, device="cuda", *, log=print,
     return trainer2, history, store
 
 
+def run_pretrain(config: Config, device="cuda", *, walk_mode: str = "hyper",
+                 output: Optional[str] = None, log=print) -> np.ndarray:
+    """Walk + skip-gram node-embedding pretraining over the parsed clusters
+    (the legacy walk path, ref History_version/Code/main_SPRITE.py:640-765)
+    on ``device``, with the JAX package's defaults (10 walks of 80 steps,
+    window 10, 5 negatives, batch 4,096, 1 epoch).  Writes
+    ``temp_dir/walk_embeddings.npy`` (N, embed_dim) f32; feed it to
+    ``init_model(embedding_mode="table", table_init=...)``.  Logs the
+    per-epoch losses and the phases' host-clock seconds."""
+    dev = resolve_device(device)
+    genome = GenomeBins.load(config.temp_dir)
+    flat, offsets = load_edge_list(config.temp_dir)
+    edges = clusters_to_list(flat, offsets)
+    timings: dict = {}
+    emb, losses = pretrain_node_embeddings(
+        genome.num_nodes, edges, config.embed_dim, walk_mode=walk_mode,
+        seed=config.seed, device=dev, timings=timings)
+    log(f"skip-gram losses per epoch: {losses}")
+    log(f"pretrain timings: {timings}")
+    if output is None:
+        output = os.path.join(config.temp_dir, "walk_embeddings.npy")
+    np.save(output, emb)
+    return emb
+
+
 def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(prog="matcha_tpu_torch",
@@ -233,11 +261,13 @@ def main(argv=None):
                                             "(NVIDIA GPU)")
     p.add_argument("stage",
                    choices=["process", "kmers", "kmers-merge", "train",
-                            "all"])
+                            "pretrain", "all"])
     p.add_argument("-c", "--config", default=None, help="config.JSON path")
+    p.add_argument("--walk-mode", choices=["hyper", "clique"],
+                   default="hyper", help="pretrain: the random walks")
     p.add_argument("--device", default="cuda",
-                   help="train on this device: cuda (the default; raises "
-                        "without a GPU) or cpu")
+                   help="train and pretrain on this device: cuda (the "
+                        "default; raises without a GPU) or cpu")
     p.add_argument("--shard-index", type=int, default=None,
                    help="kmers: this host's shard (0-based)")
     p.add_argument("--shard-count", type=int, default=None,
@@ -255,7 +285,7 @@ def main(argv=None):
     if args.stage == "kmers-merge" and args.shard_count is None:
         p.error("kmers-merge requires --shard-count")
     config = load_config(args.config)
-    if args.stage in ("train", "all"):
+    if args.stage in ("train", "pretrain", "all"):
         resolve_device(args.device)     # fail before the host stages run
     if args.stage in ("process", "all"):
         run_process(config)
@@ -264,5 +294,7 @@ def main(argv=None):
                            shard_count=args.shard_count)
     if args.stage == "kmers-merge":
         run_merge_kmers(config, shard_count=args.shard_count)
+    if args.stage == "pretrain":
+        run_pretrain(config, args.device, walk_mode=args.walk_mode)
     if args.stage in ("train", "all"):
         run_train(config, args.device, resume=args.resume)

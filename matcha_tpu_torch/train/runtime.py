@@ -24,8 +24,11 @@ scalars; their params are the JAX package's tree, so its
 ``load_checkpoint`` reads them.  The regress task mode (the reference's
 pairwise-ranking variant) keeps the JAX package's per-bucket path: a padded
 ``forward`` per k, a softplus MSE against the quantile weights, and a per-k
-eval.  Not ported yet: the overlapped fit pipeline, orbax checkpoints and
-multi-GPU meshes.
+eval.  Indexed epochs overlap: epoch N's host work (fetches, logging,
+checkpoint pickles, the embeddings file) runs on a worker thread while epoch
+N+1 is dispatched, with results equal to the serial loop's
+(``MATCHA_FIT_OVERLAP=0``).  Not ported yet: orbax checkpoints and multi-GPU
+meshes.
 
 Bundle I/O: ``save_model_bundle`` / ``load_model_bundle``, file for file:
 ``params.pkl`` (the param tree as numpy arrays), ``meta.pkl`` (dims as a
@@ -35,6 +38,7 @@ bundle written by either package loads in the other.
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import pickle
 import time
@@ -59,6 +63,7 @@ from matcha_tpu_torch.sampler.negative import (ChromTable, sample_negatives,
 from matcha_tpu_torch.train.metrics import (device_metrics_fn,
                                             format_metrics,
                                             metrics_from_device)
+from matcha_tpu_torch.utils import profile_trace
 
 
 class TrainSettings(NamedTuple):
@@ -99,6 +104,22 @@ def _tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _tree_unflatten(template, leaves):
+    """The inverse of ``_leaves``: a tree shaped like ``template`` (its key
+    order kept) whose leaves are ``leaves``, taken in ``_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(template)
 
 
 def make_optimizer(params, s: TrainSettings) -> torch.optim.AdamW:
@@ -303,17 +324,41 @@ def _eval_mixed_loss(params, frozen, dims, table, blooms, settings, ks,
             "pred": torch.sigmoid(logits).reshape(-1)}
 
 
-def _fetch(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Several device tensors -> host float64 arrays in one copy (one host
-    synchronisation).  Counts stay exact in float64."""
-    names = list(tensors)
-    flat = [tensors[n].reshape(-1).to(torch.float64) for n in names]
-    host = torch.cat(flat).cpu().numpy()
-    out, i = {}, 0
-    for n, t in zip(names, flat):
-        out[n] = host[i:i + t.numel()].reshape(tuple(tensors[n].shape))
-        i += t.numel()
-    return out
+class _HostFetch:
+    """Several device tensors on their way to the host as float64 in one
+    copy (counts stay exact).  On the card the copy goes, without waiting,
+    into pinned host memory on the current stream, behind an event;
+    ``result()`` waits on that event (the one host synchronisation) and
+    splits the buffer.  On the CPU the values are there at once."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        self.shapes = {n: tuple(t.shape) for n, t in tensors.items()}
+        flat = torch.cat([t.reshape(-1).to(torch.float64)
+                          for t in tensors.values()])
+        self.event = None
+        if flat.is_cuda:
+            self.host = torch.empty(flat.shape, dtype=flat.dtype,
+                                    pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = flat
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def result(self) -> Dict[str, np.ndarray]:
+        self.wait()
+        host = self.host.numpy()
+        out, i = {}, 0
+        for n, shape in self.shapes.items():
+            size = int(np.prod(shape))
+            out[n] = host[i:i + size].reshape(shape)
+            i += size
+        return out
+
 
 
 def labels_for_batch(batch, settings: TrainSettings):
@@ -332,6 +377,107 @@ def labels_for_batch(batch, settings: TrainSettings):
             ys.append(y)
             sizes.append(np.full(n, k, dtype=np.int32))
     return np.concatenate(ys), np.concatenate(sizes)
+
+
+def _pool_test_rows(test_buckets):
+    """The reference eval's pooled test set: every non-empty bucket's rows
+    padded with 0 to the largest k, sorted by k -> (ks, rows (n, L) int32,
+    sizes (n,) int32, weights (n,) f32)."""
+    ks = tuple(sorted(test_buckets))
+    L = max(ks)
+    xs, szs, ws = [], [], []
+    for k, (e, w) in sorted(test_buckets.items()):
+        e = np.asarray(e, np.int32)
+        xs.append(np.pad(e, ((0, 0), (0, L - k))))
+        szs.append(np.full(len(e), k, np.int32))
+        ws.append(np.asarray(w, np.float32).reshape(-1))
+    return ks, np.concatenate(xs), np.concatenate(szs), np.concatenate(ws)
+
+
+class _Snapshot:
+    """The training state at the end of an epoch on its way to the host: the
+    params (and with ``state`` AdamW's exp_avg, exp_avg_sq and step, and the
+    generator's state), and with ``emb`` the node embeddings of those
+    params.
+
+    One ``torch.cat`` on the current stream copies the params and moments
+    into a device buffer (the device snapshot: the next epoch's in-place
+    AdamW updates do not reach it), the embeddings are computed from that
+    buffer, and a side stream that waits on an event after both copies them
+    into pinned host memory, behind another event; the sources are kept
+    alive for the side stream with ``record_stream``.  ``result()`` waits on
+    that event and gives host values only.  On the CPU the copies are the
+    host values."""
+
+    def __init__(self, trainer: "Trainer", state: bool, emb: bool):
+        leaves = _leaves(trainer.params)
+        self.template = trainer.params
+        self.shapes = [tuple(t.shape) for t in leaves]
+        self.state = state
+        self.key = trainer.generator.get_state().numpy() if state else None
+        self.step = []
+        parts = [t.detach() for t in leaves]
+        if state:
+            opt = [trainer.optimizer.state.get(t, {}) for t in leaves]
+            self.step = [float(st["step"]) if "step" in st else 0.0
+                         for st in opt]
+            for name in ("exp_avg", "exp_avg_sq"):
+                parts += [st[name] if name in st else torch.zeros_like(t)
+                          for st, t in zip(opt, leaves)]
+        with torch.no_grad():
+            flat = torch.cat([t.reshape(-1).float() for t in parts])
+            emb_dev = None
+            if emb:
+                params = _tree_unflatten(self.template, [
+                    v.view(shape) for v, shape in zip(
+                        flat[:sum(t.numel() for t in leaves)].split(
+                            [t.numel() for t in leaves]), self.shapes)])
+                emb_dev = node_embeddings(params, trainer.frozen,
+                                          trainer.dims).float()
+        self.event = None
+        if not flat.is_cuda:
+            self.flat, self.emb = flat, emb_dev
+            return
+        ready = torch.cuda.Event()
+        ready.record()
+        side = torch.cuda.Stream(device=flat.device)
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            self.flat = torch.empty(flat.shape, dtype=flat.dtype,
+                                    pin_memory=True)
+            self.flat.copy_(flat, non_blocking=True)
+            flat.record_stream(side)
+            self.emb = None
+            if emb_dev is not None:
+                self.emb = torch.empty(emb_dev.shape, dtype=emb_dev.dtype,
+                                       pin_memory=True)
+                self.emb.copy_(emb_dev, non_blocking=True)
+                emb_dev.record_stream(side)
+            self.event = torch.cuda.Event()
+            self.event.record(side)
+
+    def result(self) -> Dict:
+        """-> {"params": numpy tree, "opt_state": AdamW's state dict as
+        ``_adamw_state`` gives it (with ``state``), "key", "emb"}."""
+        if self.event is not None:
+            self.event.synchronize()
+        host = self.flat.numpy()
+        arrays, i = [], 0
+        for _ in range(3 if self.state else 1):
+            for shape in self.shapes:
+                n = int(np.prod(shape))
+                arrays.append(host[i:i + n].reshape(shape))
+                i += n
+        n_leaves = len(self.shapes)
+        out = {"params": _tree_unflatten(self.template, arrays[:n_leaves]),
+               "opt_state": None, "key": self.key,
+               "emb": None if self.emb is None else self.emb.numpy()}
+        if self.state:
+            out["opt_state"] = {
+                "exp_avg": arrays[n_leaves:2 * n_leaves],
+                "exp_avg_sq": arrays[2 * n_leaves:],
+                "step": self.step}
+        return out
 
 
 class Trainer:
@@ -397,27 +543,45 @@ class Trainer:
         device, then the epoch result: losses, sampler counters and the
         per-size metrics of the step predictions (computed where they lie),
         fetched in one synchronisation; ``elapsed`` ends there."""
+        return self._finish_indexed(self._launch_epoch(stacked), t0=t0)
+
+    def _launch_epoch(self, stacked) -> Dict:
+        """Dispatch the steps over stacked {k: (edges (S, B, k), weights
+        (S, B))} -> the epoch's device aux (``_launch_result``)."""
         steps = next(iter(stacked.values()))[0].shape[0]
         auxs = [self.train_step({k: (e[s], w[s])
                                  for k, (e, w) in stacked.items()})
                 for s in range(steps)]
-        return self._epoch_result(auxs, stacked, t0)
+        return self._launch_result(auxs, stacked)
 
-    def _epoch_result(self, auxs, stacked, t0: Optional[float] = None):
+    def _launch_result(self, auxs, stacked) -> Dict:
         """Per-step aux dicts of stacked {k: (edges (S, B, k), weights (S,
-        B))} -> losses, sampler counters and per-size metrics, fetched in one
-        synchronisation; with ``t0`` also the elapsed time, which ends
-        there, and the rate."""
-        steps = len(auxs)
+        B))} -> the epoch's aux: the losses, sampler counters and per-size
+        metric values computed on the device, their copy to the host started
+        (``_HostFetch``) and not waited for."""
         aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
         y, size = labels_for_batch({k: (e[0], w[0]) for k, (e, w) in
                                     stacked.items()}, self.settings)
         mfn = device_metrics_fn(y, size)
         vals = mfn(aux["pred"])
-        host = _fetch({**{k: v for k, v in aux.items() if k != "pred"},
-                       **{f"metric_{g}": v for g, v in vals.items()}})
-        metrics = metrics_from_device({g: host[f"metric_{g}"] for g in vals},
-                                      mfn.group_sizes, steps)
+        fetch = _HostFetch({**{k: v for k, v in aux.items() if k != "pred"},
+                            **{f"metric_{g}": v for g, v in vals.items()}})
+        return {"fetch": fetch, "groups": list(vals),
+                "group_sizes": mfn.group_sizes, "steps": len(auxs),
+                "pred_size": aux["pred"].numel()}
+
+    def _finish_indexed(self, aux: Dict, elapsed: Optional[float] = None,
+                        t0: Optional[float] = None) -> Dict:
+        """The one fetch of an epoch's aux (``_launch_result``) and the
+        result: losses, sampler fallback rates, per-size metrics and, with
+        ``elapsed`` (or ``t0``, then the time until the fetch ends), the
+        elapsed time and the rate.  Touches host arrays only."""
+        host = aux["fetch"].result()
+        if t0 is not None:
+            elapsed = time.perf_counter() - t0
+        metrics = metrics_from_device(
+            {g: host[f"metric_{g}"] for g in aux["groups"]},
+            aux["group_sizes"], aux["steps"])
         rows = max(int(host["fallback_rows"].sum()), 1)
         out = {"bce": float(host["bce"].mean()),
                "recon": float(host["recon"].mean()),
@@ -426,9 +590,9 @@ class Trainer:
                    float(host["fallback_bloom"].sum()) / rows,
                "fallback_orig_rate":
                    float(host["fallback_orig"].sum()) / rows}
-        if t0 is not None:
-            out["elapsed"] = time.perf_counter() - t0
-            out["hyperedges_per_sec"] = aux["pred"].numel() / out["elapsed"]
+        if elapsed is not None:
+            out["elapsed"] = elapsed
+            out["hyperedges_per_sec"] = aux["pred_size"] / elapsed
         return out
 
     def pin_base_buckets(self, batcher: BucketedBatcher,
@@ -450,19 +614,26 @@ class Trainer:
         self._pinned_shape = (batcher.num_batch_per_iter, batcher.batch_size)
         return True
 
-    def train_epoch_indexed(self, batcher: BucketedBatcher) -> Dict:
-        """One epoch over the pinned base arrays: the host draws the epoch's
-        indices (the same ring state as ``train_epoch``), they are copied to
-        the card and the batches gathered there."""
+    def train_epoch_indexed_launch(self, batcher: BucketedBatcher) -> Dict:
+        """Dispatch one epoch over the pinned base arrays -> its device aux,
+        not fetched (``_finish_indexed`` fetches it).  The host draws the
+        epoch's indices (the same ring state as ``train_epoch``), they are
+        copied to the card and the batches gathered there."""
         if self._pinned is None:
             raise RuntimeError("call pin_base_buckets first")
-        t0 = time.perf_counter()
         stacked = {}
         for k, idx in batcher.next_epoch_indices().items():
             e, w = self._pinned[k]
             idx = torch.as_tensor(idx, device=e.device).long()
             stacked[k] = (e[idx], w[idx])
-        return self._run_epoch(stacked, t0)
+        return self._launch_epoch(stacked)
+
+    def train_epoch_indexed(self, batcher: BucketedBatcher) -> Dict:
+        """One epoch over the pinned base arrays (launch, then the one
+        fetch); ``elapsed`` ends when the result is on the host."""
+        t0 = time.perf_counter()
+        return self._finish_indexed(self.train_epoch_indexed_launch(batcher),
+                                    t0=t0)
 
     def train_epoch(self, batcher: BucketedBatcher) -> Dict:
         """One epoch with the batches gathered on the host and copied."""
@@ -491,37 +662,39 @@ class Trainer:
 
         The regress mode keeps the per-k eval (``_eval_epoch_perk``): its
         pairwise comparisons need same-size pairs."""
-        nan = {"bce": float("nan"), "recon": float("nan"), "metrics": {}}
         test_buckets = {k: v for k, v in test_buckets.items()
                         if len(v[0]) > 0}
         if not test_buckets:
-            return nan
+            return self._finish_eval(None)
         if self.settings.task_mode == "regress":
             return self._eval_epoch_perk(test_buckets, batch_size,
                                          max_samples, seed)
-        ks = tuple(sorted(test_buckets))
-        L = max(ks)
-        xs, szs, ws = [], [], []
-        for k, (e, w) in sorted(test_buckets.items()):
-            e = np.asarray(e, np.int32)
-            xs.append(np.pad(e, ((0, 0), (0, L - k))))
-            szs.append(np.full(len(e), k, np.int32))
-            ws.append(np.asarray(w, np.float32).reshape(-1))
-        xs, szs, ws = np.concatenate(xs), np.concatenate(szs), \
-            np.concatenate(ws)
+        ks, xs, szs, ws = _pool_test_rows(test_buckets)
         take = min(len(xs), max_samples)
         bs = min(batch_size, take)
         if bs == 0:
-            return nan
+            return self._finish_eval(None)
         n_batches = take // bs
         if indices is None:
             indices = np.random.default_rng(seed).permutation(len(xs))
         indices = np.asarray(indices)[:n_batches * bs]
         sizes_drawn = szs[indices].reshape(n_batches, bs)
         dev = _leaves(self.params)[0].device
-        x = to_device(xs[indices].reshape(n_batches, bs, L), dev)
+        x = to_device(xs[indices].reshape(n_batches, bs, -1), dev)
         sz = to_device(sizes_drawn, dev)
         w = to_device(ws[indices].reshape(n_batches, bs), dev)
+        return self._finish_eval(self._launch_eval(ks, x, sz, w, sizes_drawn,
+                                                   return_pred))
+
+    def _launch_eval(self, ks, x, sz, w, sizes_drawn: np.ndarray,
+                     return_pred: bool = False) -> Dict:
+        """Dispatch the mixed-size eval batches x (n_b, bs, L), sizes (n_b,
+        bs), weights (n_b, bs) on the params' device -> a handle for
+        ``_finish_eval``: the losses and per-size metric values computed on
+        the device, their copy to the host started and not waited for.  The
+        negatives and the recon chromosome draw from the Trainer's generator
+        here, so it has advanced past this eval when the call returns."""
+        n_batches, bs = sizes_drawn.shape
         with torch.no_grad():
             node_table = encode_node_table(self.params, self.frozen,
                                            self.dims, train=False)
@@ -543,16 +716,62 @@ class Trainer:
                **{f"metric_{g}": v for g, v in vals.items()}}
         if return_pred:
             got["pred"] = pred
-        host = _fetch(got)
+        return {"fetch": _HostFetch(got), "groups": list(vals),
+                "group_sizes": mfn.group_sizes}
+
+    def _finish_eval(self, handle: Optional[Dict]) -> Dict:
+        """The one fetch of an eval dispatch (``_launch_eval``) and its
+        result; None (an empty or too small test set) gives the NaN result.
+        Touches host arrays only."""
+        if handle is None:
+            return {"bce": float("nan"), "recon": float("nan"),
+                    "metrics": {}}
+        host = handle["fetch"].result()
         out = {"bce": float(host["bce"].mean()),
                "recon": float(host["recon"].mean()),
                "metrics": metrics_from_device(
-                   {g: host[f"metric_{g}"] for g in vals}, mfn.group_sizes,
-                   1),
+                   {g: host[f"metric_{g}"] for g in handle["groups"]},
+                   handle["group_sizes"], 1),
                "fallback_bloom_rate": 0.0, "fallback_orig_rate": 0.0}
-        if return_pred:
+        if "pred" in host:
             out["pred"] = host["pred"].astype(np.float32).reshape(-1)
         return out
+
+    def _pin_eval_pool(self, test_buckets, batch_size: int,
+                       max_samples: int = 10_000) -> Optional[Dict]:
+        """The pooled, padded test rows (as ``eval_epoch`` pools them) on
+        the params' device, once per stage, with the batch plan; each
+        ``eval_epoch_pinned_launch`` then copies only its drawn indices.
+        None for an empty or too small test set, and in the regress mode
+        (its per-k eval has no pool)."""
+        test_buckets = {k: v for k, v in test_buckets.items()
+                        if len(v[0]) > 0}
+        if not test_buckets or self.settings.task_mode == "regress":
+            return None
+        ks, xs, szs, ws = _pool_test_rows(test_buckets)
+        take = min(len(xs), max_samples)
+        bs = min(batch_size, take)
+        if bs == 0:
+            return None
+        dev = _leaves(self.params)[0].device
+        return {"pool": tuple(torch.as_tensor(a, device=dev)
+                              for a in (xs, szs, ws)),
+                "szs_host": szs, "n_rows": len(xs), "ks": ks, "bs": bs,
+                "n_batches": take // bs}
+
+    def eval_epoch_pinned_launch(self, pinned: Dict, seed: int = 0) -> Dict:
+        """Dispatch one mixed-size eval over the pinned pool
+        (``_pin_eval_pool``) -> a handle for ``_finish_eval``.  It draws the
+        rows ``eval_epoch(seed=seed)`` draws and gathers them on the device,
+        so the result is ``eval_epoch``'s bit for bit."""
+        bs, n_b = pinned["bs"], pinned["n_batches"]
+        indices = np.random.default_rng(seed).permutation(
+            pinned["n_rows"])[:n_b * bs]
+        sizes_drawn = pinned["szs_host"][indices].reshape(n_b, bs)
+        xs, szs, ws = pinned["pool"]
+        idx = to_device(indices.reshape(n_b, bs), xs.device)
+        return self._launch_eval(pinned["ks"], xs[idx], szs[idx], ws[idx],
+                                 sizes_drawn)
 
     def _eval_epoch_perk(self, test_buckets, batch_size: int,
                          max_samples: int, seed: int) -> Dict:
@@ -593,13 +812,14 @@ class Trainer:
                                split_generator(self.generator, 1)[0],
                                node_table, False)[1]
                     for i in range(n_batches)]
-        return self._epoch_result(auxs, stacked)
+        return self._finish_indexed(self._launch_result(auxs, stacked))
 
     # ----------------------------------------------------------------- stage
     def fit(self, train_buckets, test_buckets, *, epochs: int,
             batch_size: int = 96, num_batch_per_iter: int = 1000,
             checkpoint_path: Optional[str] = None, log=print, seed: int = 0,
             metrics_logger=None, stage: str = "stage",
+            profile_dir: Optional[str] = None,
             embeddings_path: Optional[str] = None,
             checkpoint_format: str = "pickle",
             resume_path: Optional[str] = None, resume: bool = False,
@@ -620,8 +840,25 @@ class Trainer:
           continues after the last snapshotted epoch, exactly as the
           uninterrupted run would (the batcher is fast-forwarded and every
           eval draw is seeded by ``seed + epoch``).
-        embeddings_path: the node embeddings (``export_embeddings``) at the
-          start of every epoch."""
+        embeddings_path: the node embeddings (``export_embeddings``) of the
+          params at the start of every epoch.
+        profile_dir: a ``torch.profiler`` trace of epoch 1's training and
+          eval (the first epoch after the warm-up epoch 0) under this
+          directory (``utils.profile_trace``); the same window whether or
+          not the epochs overlap.
+
+        Indexed epochs outside the regress mode overlap (MATCHA_FIT_OVERLAP,
+        default "1"; "0" runs the serial loop): epoch N's host work (the
+        fetches of its results, the logging, the history, the metrics log,
+        the checkpoint and resume pickles and the embeddings file) runs on
+        one worker thread while this thread dispatches epoch N+1.  This
+        thread still dispatches everything the device runs, in the serial
+        order (train N, eval N over the pinned pool, train N+1), so the
+        generator's stream and every result equal the serial loop's; after
+        eval N it takes a snapshot of the params, AdamW's state and the
+        generator (``_Snapshot``), from which the worker writes.  The worker
+        sees host arrays only.  A failure there is raised here at the next
+        join (after epoch N+1's dispatch, or at the end)."""
         if checkpoint_format == "orbax":
             raise NotImplementedError(
                 "checkpoint_format='orbax' (sharded asynchronous "
@@ -667,13 +904,13 @@ class Trainer:
                     batcher.skip_epoch()
                 log(f"resumed from {resume_path}: continuing at epoch "
                     f"{start_epoch} (best {best:.4f})")
-        for epoch in range(start_epoch, epochs):
-            if embeddings_path is not None:
-                self.export_embeddings(embeddings_path)
-            tr = (self.train_epoch_indexed(batcher) if use_indexed
-                  else self.train_epoch(batcher))
-            ev = self.eval_epoch(test_buckets, batch_size=batch_size,
-                                 seed=seed + epoch)
+
+        def post_epoch(epoch, tr, ev, save):
+            """An epoch's bookkeeping: the log lines, the history, the
+            metrics log, the checkpoint on the best AUPRC and the resume
+            snapshot; save(path, epoch, best or None for a checkpoint)
+            writes the epoch's state."""
+            nonlocal best
             roc, aupr, _ = format_metrics(tr["metrics"])
             fb = ""
             if tr["fallback_bloom_rate"] or tr["fallback_orig_rate"]:
@@ -696,11 +933,75 @@ class Trainer:
                 val_aupr = -float(ev["bce"])
             if checkpoint_path and val_aupr >= best:
                 best = val_aupr
-                save_checkpoint(checkpoint_path, self.params, self.optimizer,
-                                epoch)
+                save(checkpoint_path, epoch, None)
             if resume_path:
-                save_checkpoint(resume_path, self.params, self.optimizer,
-                                epoch, generator=self.generator, best=best)
+                save(resume_path, epoch, best)
+
+        def save_live(path, epoch, best_):
+            save_checkpoint(path, self.params, self.optimizer, epoch,
+                            generator=None if best_ is None
+                            else self.generator, best=best_)
+
+        def finalize(epoch, aux, elapsed, ev_handle, snap):
+            """Epoch ``epoch``'s host work, on the worker thread."""
+            ev = self._finish_eval(ev_handle)
+            tr = self._finish_indexed(aux, elapsed)
+            host = snap.result() if snap is not None else {"emb": None}
+
+            def save_host(path, ep, best_):
+                _write_checkpoint(path, host["params"], host["opt_state"],
+                                  ep, None if best_ is None else host["key"],
+                                  best_)
+            post_epoch(epoch, tr, ev, save_host)
+            if host["emb"] is not None:
+                # the serial loop's export at the top of epoch + 1
+                np.save(embeddings_path, host["emb"])
+
+        overlap = (use_indexed and self.settings.task_mode != "regress"
+                   and os.environ.get("MATCHA_FIT_OVERLAP", "1") == "1")
+        pinned_eval = (self._pin_eval_pool(test_buckets, batch_size)
+                       if overlap else None)
+        worker = (concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="matcha-fit")
+            if overlap else None)
+        pending = None
+        try:
+            for epoch in range(start_epoch, epochs):
+                if embeddings_path is not None and (not overlap
+                                                    or epoch == start_epoch):
+                    # later epochs' exports come from the snapshots
+                    self.export_embeddings(embeddings_path)
+                # the trace covers the epoch's training and eval either way
+                prof = profile_trace(profile_dir if epoch == 1 else None)
+                if overlap:
+                    with prof:
+                        t0 = time.perf_counter()
+                        aux = self.train_epoch_indexed_launch(batcher)
+                        aux["fetch"].wait()
+                        elapsed = time.perf_counter() - t0
+                        ev_handle = (self.eval_epoch_pinned_launch(
+                            pinned_eval, seed=seed + epoch)
+                            if pinned_eval is not None else None)
+                    state = bool(checkpoint_path or resume_path)
+                    emb = embeddings_path is not None and epoch + 1 < epochs
+                    snap = (_Snapshot(self, state=state, emb=emb)
+                            if state or emb else None)
+                    if pending is not None:
+                        pending.result()
+                    pending = worker.submit(finalize, epoch, aux, elapsed,
+                                            ev_handle, snap)
+                    continue
+                with prof:
+                    tr = (self.train_epoch_indexed(batcher) if use_indexed
+                          else self.train_epoch(batcher))
+                    ev = self.eval_epoch(test_buckets, batch_size=batch_size,
+                                         seed=seed + epoch)
+                post_epoch(epoch, tr, ev, save_live)
+            if pending is not None:
+                pending.result()
+        finally:
+            if worker is not None:
+                worker.shutdown(wait=True)
         if checkpoint_path and os.path.exists(checkpoint_path):
             self._restore_params(load_checkpoint(
                 checkpoint_path, device=_leaves(self.params)[0].device))
@@ -773,14 +1074,20 @@ def save_checkpoint(path: str, params, optimizer=None, epoch=None,
     ``load_checkpoint``), "opt_state" (AdamW's exp_avg / exp_avg_sq / step
     per leaf in ``_leaves`` order), "epoch", "key" (the Trainer generator's
     state, for resume snapshots) and "best"."""
+    _write_checkpoint(path, params_to_numpy(params),
+                      None if optimizer is None
+                      else _adamw_state(params, optimizer), epoch,
+                      None if generator is None
+                      else generator.get_state().numpy(), best)
+
+
+def _write_checkpoint(path: str, params_np, opt_np, epoch, key, best) -> None:
+    """``save_checkpoint``'s file, from host values: the numpy param tree,
+    the AdamW state dict, the generator state as uint8."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
-        pickle.dump({"params": params_to_numpy(params),
-                     "opt_state": (None if optimizer is None
-                                   else _adamw_state(params, optimizer)),
-                     "epoch": epoch,
-                     "key": (None if generator is None
-                             else generator.get_state().numpy()),
+        pickle.dump({"params": params_np, "opt_state": opt_np,
+                     "epoch": epoch, "key": key,
                      "best": None if best is None else float(best)}, f)
 
 

@@ -18,7 +18,9 @@ whose shapes the fixed-width kernels do not take (dim 16, k = 7 proposals)
 through a training step, scoring and the sampler on the card: it launches
 none of K1, K2, K5 and K6 and matches the same computation on the CPU.  The
 last three hold the closed-form pair scorer, a per-occurrence training step
-and the recon decode with bf16 operands on the card against the CPU.
+and the recon decode with bf16 operands on the card against the CPU.  The
+walk pretraining's: K3 and K4 at the SGNS shapes, one SGNS step card
+against CPU, and the co-occurrence scatter's determinism.
 """
 
 import numpy as np
@@ -665,3 +667,134 @@ def test_recon_bf16_on_the_card_matches_the_cpu(cuda, monkeypatch):
         got[on] = card
     assert got[True] != got[False]
     assert abs(got[True] - got[False]) <= 2e-2 * abs(got[False])
+
+
+# ------------------------------------------- walk pretraining: SGNS, cooc
+def _sgns_problem(device, V=3067, d=64, m=4096, neg=5, seed=0, hub=False):
+    """One SGNS minibatch at the hg38 1 Mb pretraining shape: tables as
+    ``train_skipgram`` starts them (emb_out moved off zero), centers and
+    contexts drawn from the unigram^0.75 of Zipf-by-rank visit counts (p_i
+    ~ 1/i over the nodes in a random order: the busiest node takes ~4%
+    of the draws), the uniforms of the negatives.  ``hub`` puts half of the
+    centers and half of the contexts on row 3."""
+    rng = np.random.default_rng(seed)
+    counts = (1.0 / rng.permutation(np.arange(1, V + 1))) ** 0.75
+    cdf = np.cumsum(counts / counts.sum()).astype(np.float32)
+
+    def draw(n):
+        ids = np.minimum(np.searchsorted(cdf, rng.random(n)), V - 1)
+        if hub:
+            ids[rng.permutation(n)[:n // 2]] = 3
+        return ids.astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (t(((rng.random((V, d)) - 0.5) / d).astype(np.float32)),
+            t((rng.standard_normal((V, d)) * 0.01).astype(np.float32)),
+            t(draw(m)), t(draw(m)), t(cdf),
+            t(rng.random((m, neg)).astype(np.float32)))
+
+
+def _sgns_step_limits(emb_in, emb_out, centers, contexts, cdf, u, lr):
+    """Per-entry limits on |card - CPU| of the two tables after one
+    ``sgns_step`` from these (CPU) inputs: the sum of both sides' f32
+    rounding bounds.  A row's update is lr * (sum of its c terms) / c; a
+    term is g * v with |g| <= 1 and g from a d-term score, so each side is
+    off by at most 2^-24 * (c + d + neg + 5) * (lr * A / c + |table|), A
+    the row's sum of (1 + S_t) |v_t| over its terms, S_t the term's
+    absolute score sum |v_in * v|.  A long sum (a hub row) gets a wider
+    limit than a short one, whatever the table's largest entry."""
+    a_in, a_out = emb_in.double().numpy(), emb_out.double().numpy()
+    V, d = a_in.shape
+    c, x = centers.long().numpy(), contexts.long().numpy()
+    negs = np.minimum(np.searchsorted(cdf.numpy(), u.numpy()), V - 1)
+    neg = negs.shape[1]
+    v_in, v_pos, v_neg = a_in[c], a_out[x], a_out[negs]
+    s_pos = 1 + np.abs(v_in * v_pos).sum(-1)                     # (m,)
+    s_neg = 1 + np.abs(v_neg * v_in[:, None]).sum(-1)            # (m, neg)
+    t_in = (s_pos[:, None] * np.abs(v_pos)
+            + (s_neg[..., None] * np.abs(v_neg)).sum(1))
+    t_out = np.concatenate([s_pos[:, None] * np.abs(v_in),
+                            (s_neg[..., None] * np.abs(v_in)[:, None]
+                             ).reshape(-1, d)])
+    limits = []
+    for table, idx, terms in ((a_in, c, t_in),
+                              (a_out, np.concatenate([x, negs.reshape(-1)]),
+                               t_out)):
+        cnt = np.bincount(idx, minlength=V).astype(np.float64)[:, None]
+        A = np.zeros((V, d))
+        np.add.at(A, idx, terms)
+        limits.append(2 * 2.0 ** -24 * (cnt + d + neg + 5)
+                      * (lr * A / np.maximum(cnt, 1) + np.abs(table)))
+    return limits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub", [False, True])
+@pytest.mark.parametrize("T", [4096, 24_576])
+def test_k3_k4_at_the_sgns_shapes(cuda, T, hub):
+    """K3 and K4 as the SGNS step calls them (f32, d = 64, V = 3,067 rows;
+    T = 4,096 centers or 4,096 contexts + 20,480 negatives), on
+    unigram-skewed ids and on ids with a hub row holding half of T: K3 at
+    1e-5 of its plain version and the same bits twice, K4 exactly and the
+    same twice.  With the hub, g holds multiples of 1/4, so every sum is
+    exact in f32 whatever the order and 1e-5 bounds a wrong or missing
+    token even on the hub's row of T / 2 terms."""
+    rng = np.random.default_rng(T)
+    _, _, centers, _, cdf, _ = _sgns_problem(cuda, m=T, seed=T, hub=hub)
+    g = (rng.integers(-8, 9, (T, 64)) / 4 if hub
+         else rng.standard_normal((T, 64)) * 0.01)
+    g = torch.tensor(g, dtype=torch.float32, device=cuda)
+    before = (ts.scatter_add.launches, ts.bincount.launches)
+    got = ts.scatter_add(g, centers, 3067)
+    cnt = ts.bincount(centers, 3067)
+    assert (ts.scatter_add.launches, ts.bincount.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, ts.scatter_add_plain(g, centers, 3067),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ts.scatter_add(g, centers, 3067))
+    assert torch.equal(cnt, ts.bincount_plain(centers, 3067))
+    assert torch.equal(cnt, ts.bincount(centers, 3067))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub", [False, True])
+def test_sgns_step_on_the_card_matches_the_cpu(cuda, hub):
+    """One f32 SGNS step with the same uniforms on the card and on the CPU
+    (f32 sums in another order), on unigram-skewed ids and with a hub row
+    holding half of the centers and contexts: every table entry within
+    ``_sgns_step_limits`` (the f32 rounding bound of its own row's update),
+    the loss at 1e-5 relative; two K3 and two K4 launches.  The unigram
+    draw also keeps each table within 1e-5 of its largest entry."""
+    from matcha_tpu_torch.walks.skipgram import sgns_step
+    card = _sgns_problem(cuda, hub=hub)
+    cpu = [t.to("cpu", copy=True) for t in card]
+    limits = _sgns_step_limits(*cpu, lr=0.1)
+    before = (ts.scatter_add.launches, ts.bincount.launches)
+    loss_card = float(sgns_step(*card, lr=0.1))
+    assert (ts.scatter_add.launches, ts.bincount.launches) == (
+        before[0] + 2, before[1] + 2)
+    loss_cpu = float(sgns_step(*cpu, lr=0.1))
+    for a, b, lim in zip(card[:2], cpu[:2], limits):
+        diff = (a.cpu() - b).abs().double().numpy()
+        assert (diff <= lim).all(), float((diff / lim).max())
+        if not hub:
+            assert diff.max() <= 1e-5 * float(b.abs().max())
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+
+
+@pytest.mark.cuda
+def test_pair_cooccurrence_is_deterministic_on_the_card(cuda):
+    """8,282 hyperedges of 2-25 members over 3,067 nodes (the hg38 1 Mb
+    pretraining's size): two calls give the same bits, and the CPU's sums
+    agree at 1e-6 of the largest weight."""
+    from matcha_tpu_torch.ops.incidence import (PaddedIncidence,
+                                                pair_cooccurrence)
+    rng = np.random.default_rng(0)
+    edges = [np.sort(rng.choice(np.arange(1, 3068), rng.integers(2, 26),
+                                replace=False)) for _ in range(8282)]
+    inc = PaddedIncidence.from_ragged(edges, device=cuda)
+    w = torch.tensor([1.0 / len(e) for e in edges], device=cuda)
+    a = pair_cooccurrence(inc, w, 3067)
+    b = pair_cooccurrence(inc, w, 3067)
+    assert torch.equal(a, b)
+    ref = pair_cooccurrence(PaddedIncidence(inc.members.cpu()), w.cpu(), 3067)
+    assert float((a.cpu() - ref).abs().max()) <= 1e-6 * float(ref.max())

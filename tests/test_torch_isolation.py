@@ -38,6 +38,8 @@ def test_port_imports_no_jax_and_nothing_of_matcha_tpu():
                 "data.kmers", "data.mcool", "native.kmer_native",
                 "data.legacy", "apps.pairwise_fast", "apps.denoise_contact",
                 "apps.outlier", "apps.analysis_bands",
-                "apps.plot_embedding"):
+                "apps.plot_embedding", "utils", "ops.incidence",
+                "walks.alias", "walks.clique", "walks.hyper",
+                "walks.skipgram", "walks.pretrain", "data.generic"):
         assert f"matcha_tpu_torch.{mod}" in report["modules"]
     assert report["leaked"] == []
