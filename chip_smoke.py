@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, training step, Trainer.fit,
-run_train (through the CLI), the apps on a bundle, the model's modes and the
-walk pretraining on one NVIDIA GPU.
+run_train (through the CLI), the apps on a bundle, the model's modes, the
+walk pretraining and multi-rank training on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a GPU
 
@@ -165,6 +165,27 @@ Phases, all in this process; any failure exits non-zero before the last line:
      trains a 10-step stage-2 epoch at phase 6's configuration, the counts
      zeroed just before and read just after: K1 x3, K2 x3, K3 x1 per step
      and no K4 (the recon loss is 0 in table mode).
+ 16. multi-rank training on the one card (parallel/): K1-K4 against their
+     plain versions at one rank's shapes for W = 2 and 4 ranks; (a) a world
+     of one on NCCL through init_distributed (the launcher's environment
+     set here), a 1 x 1 mesh, phase 6's configuration: its step bit-equal
+     to the no-mesh step on the same draws, and an OrbaxCheckpointer round
+     trip of its params, AdamW state and generator, bit for bit; (b) the
+     meshes 2 x 1, 1 x 2 and 2 x 2, their ranks spawned on gloo and sharing
+     the card (NCCL refuses two ranks on one device), each rank building
+     phase 6's problem from the seed: a deterministic f32 step (dropout off,
+     fixed negatives and recon chromosome, TF32 off) whose gradients, summed
+     over the ranks, must equal one rank's with n_shards = D within 1e-5 of
+     each gradient's max; a warm-up and a timed bf16 epoch of 10 steps,
+     the counts zeroed just before and read just after the timed one on
+     every rank (K1 x3, K2 x3, K3 x1, K4 x1 per step), finite losses and the
+     params equal across the ranks bit for bit; per rank the synchronised
+     step, the gradient all-reduce (gloo through the host: not an NCCL
+     number), the frozen tables' bytes (smaller on the model axis) and the
+     peak memory; (c) on the 2 x 1 mesh a stage-2 fit of 2 epochs with the
+     fused tail and the "pallas" proposals (K5, K6 on every rank, counts
+     pinned with the eval batches') and "orbax" checkpoints, then a resume
+     in fresh Trainers for one more epoch.
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -211,10 +232,16 @@ from matcha_tpu_torch.ops.hyperedge_attention import (
     hyperedge_attention_bwd_plain, hyperedge_attention_cuda,
     hyperedge_attention_plain, pack_ln)
 from matcha_tpu_torch.ops.incidence import PaddedIncidence, pair_cooccurrence
+from matcha_tpu_torch.parallel.distributed import (free_port,
+                                                   init_distributed, spawn)
+from matcha_tpu_torch.parallel.mesh import (frozen_nbytes, make_mesh,
+                                            using_active_mesh)
+from matcha_tpu_torch.parallel.stream import shard_concat
 from matcha_tpu_torch.sampler import bloom as tb
 from matcha_tpu_torch.sampler.bloom import build_bloom_dict
 from matcha_tpu_torch.sampler.negative import ChromTable, sample_negatives
 from matcha_tpu_torch.train import runtime
+from matcha_tpu_torch.train.checkpoint import OrbaxCheckpointer
 from matcha_tpu_torch.train.runtime import (Trainer, TrainSettings,
                                             _bucket_bce_and_preds, _leaves,
                                             _sample_all_negatives, _tree_map,
@@ -2754,6 +2781,410 @@ def modes_phase(problem, genome, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 16
+# multi-rank training on the one card: the meshes (data x model) whose
+# ranks share it on gloo, the stage-2 fit of the 2 x 1 mesh, and the
+# deterministic step's tolerance against one rank with n_shards = D (each
+# gradient's max error relative to its largest entry, floored as phase 6
+# floors it: the ranks' sums and K3's scatter run in another order)
+MESH_SHAPES, MESH_FIT_EPOCHS, TOL_MESH_GRAD = ((2, 1), (1, 2), (2, 2)), 2, 1e-5
+
+
+def check_rank_shapes(device) -> dict:
+    """Phase 16: K1, K2, K3 and K4 against their plain versions at the
+    shapes one rank of a mesh of W = 2 and 4 gives them (8,192 / W edges
+    per k, L = 3, 4, 5, bf16; 114,688 / W tokens, n = 3,068) -> the worst
+    errors."""
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    names = ["gx", "gln", "gwq", "gwk", "gwv", "gfw", "gfb"]
+    for world in (2, 4):
+        E = 4 * TRAIN_BATCH // world
+        for L in (3, 4, 5):
+            x, args = attention_inputs(device, E, L, "bfloat16",
+                                       seed=SEED + 60 + world + L)
+            y = hyperedge_attention_cuda(x, *args, N_HEAD, True)
+            y_ref = hyperedge_attention_plain(x, *args, N_HEAD, True)
+            g = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+                E + L), dtype=torch.float32).to(device, x.dtype)
+            got = hyperedge_attention_bwd_cuda(x, *args, g, N_HEAD, True)
+            ref = hyperedge_attention_bwd_plain(x, *args, g, N_HEAD, True)
+            torch.cuda.synchronize()
+            e1 = float((y.float() - y_ref.float()).abs().max())
+            e2 = max(rel_err(a, b) for a, b in zip(got, ref))
+            tol = TOL_KERNEL["bfloat16"]
+            ok = (torch.allclose(y.float(), y_ref.float(), rtol=tol, atol=tol)
+                  and e2 <= TOL_K2["bfloat16"])
+            print(f"rank shapes (W={world}): K1 E={E} L={L} max_abs_err="
+                  f"{e1:.3e} (tol {tol}), K2 worst rel-to-max {e2:.3e} (tol "
+                  f"{TOL_K2['bfloat16']}) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"K1/K2 disagree with their plain versions at E={E}")
+            worst["K1"] = max(worst["K1"], e1)
+            worst["K2"] = max(worst["K2"], e2)
+        T, n = 4 * TRAIN_BATCH * sum(TRAIN_KS) // world, 3_068
+        gen = torch.Generator().manual_seed(SEED + 64 + world)
+        g = torch.randn((T, DIM), generator=gen).to(device, torch.bfloat16)
+        idx = torch.randint(0, n, (T,), generator=gen,
+                            dtype=torch.int32).to(device)
+        got = ts.scatter_add_cuda(g, idx, n)
+        ref = ts.scatter_add_plain(g, idx, n)
+        exact = torch.equal(ts.bincount_cuda(idx, n),
+                            ts.bincount_plain(idx, n))
+        torch.cuda.synchronize()
+        e3 = float((got - ref).abs().max())
+        ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5) and exact
+        print(f"rank shapes (W={world}): K3 T={T} max_abs_err={e3:.3e} (tol "
+              f"1e-05), K4 exact {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"K3/K4 disagree with their plain versions at T={T}")
+        worst["K3"] = max(worst["K3"], e3)
+    return worst
+
+
+def mesh_step_inputs(problem, device) -> dict:
+    """The deterministic step's fixed inputs: CHECK_BATCH positives per k,
+    their negatives sampled once on the card, the recon chromosome."""
+    dims, params, frozen, buckets, blooms, table = problem
+    gen = torch.Generator().manual_seed(SEED + 61)
+    out = {"r": min(5, dims.num_chroms - 1)}
+    for k in TRAIN_KS:
+        e, w = buckets[k]
+        pos = torch.from_numpy(e[:CHECK_BATCH]).to(device)
+        neg = sample_negatives(gen, pos, table, 0, blooms[k], neg_num=3)
+        out[f"pos{k}"], out[f"w{k}"] = e[:CHECK_BATCH], w[:CHECK_BATCH]
+        out[f"neg{k}"] = neg.cpu().numpy()
+    return out
+
+
+def mesh_step(trainer, inp, device, n_data: int):
+    """One step of ``trainer``'s params under its mesh with dropout off on
+    the fixed inputs (the per-k forward, weighted BCE + 0.001 recon), the
+    rows laid out for n_data shards and the gradients summed over the
+    ranks -> (loss, gradients on the host)."""
+    xs = {k: shard_concat([torch.from_numpy(inp[f"pos{k}"]).to(device),
+                           torch.from_numpy(inp[f"neg{k}"]).to(device)],
+                          n_data) for k in TRAIN_KS}
+    batch = {k: (torch.from_numpy(inp[f"pos{k}"]).to(device),
+                 torch.from_numpy(inp[f"w{k}"]).to(device))
+             for k in TRAIN_KS}
+    world = 1 if trainer.mesh is None else trainer.mesh.size
+    trainer.optimizer.zero_grad(set_to_none=False)
+    with using_active_mesh(trainer.mesh):
+        logits, recon = forward_buckets(
+            trainer.params, trainer.frozen, trainer.dims, xs,
+            return_recon=True, attention_mode="per-k",
+            recon_chrom=int(inp["r"]), n_shards=n_data)
+        bce, _ = _bucket_bce_and_preds(logits, batch,
+                                       {k: b[1] for k, b in batch.items()},
+                                       n_data)
+        loss = bce + 0.001 * recon
+        (loss / world).backward()
+    trainer._sum_grads()
+    return float(loss.detach()), [t.grad.float().cpu()
+                                  for t in _leaves(trainer.params)]
+
+
+def shipped_settings(**kw) -> TrainSettings:
+    """Phase 6's stage-2 settings (the shipped path)."""
+    return TrainSettings(alpha=1.0, beta=0.001, neg_num=3, max_trials=8,
+                         token_stream="merged", **kw)
+
+
+def mesh_rank(rank, device, n_data, n_model, tmp, fit, sizes):
+    """One rank of a phase-16 mesh (spawned; ``sizes`` overrides this
+    module's size constants for a rehearsal and is empty on the card):
+    the deterministic f32 step, a warm-up and a timed bf16 epoch of
+    TRAIN_STEPS steps with the counts zeroed just before and read just
+    after, synchronised steps and gradient all-reduces, and with ``fit``
+    the stage-2 fit on the opt-in path with "orbax" checkpoints and a
+    resume.  Writes its results to tmp/rank<r>.pt."""
+    globals().update(sizes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh = make_mesh(n_data, n_model)
+    genome = hg38_genome()
+    dims, params, frozen, buckets, blooms, table = train_problem(genome,
+                                                                 device)
+    inp = dict(np.load(os.path.join(tmp, "step_inputs.npz")))
+    out = {"rank": rank}
+    t32 = Trainer(params, frozen, dims._replace(compute_dtype="float32"),
+                  table, shipped_settings(), blooms=blooms, seed=SEED + 1,
+                  mesh=mesh)
+    out["loss_f32"], out["grads_f32"] = mesh_step(t32, inp, device, n_data)
+    del t32
+
+    trainer = Trainer(params, frozen, dims, table, shipped_settings(),
+                      blooms=blooms, seed=SEED + 1, mesh=mesh)
+    out["frozen_bytes"] = frozen_nbytes(trainer.frozen)
+    batcher = BucketedBatcher(buckets, TRAIN_BATCH, TRAIN_STEPS, seed=SEED)
+    if not trainer.pin_base_buckets(batcher):
+        fail("the buckets do not fit the pin budget")
+    out["warm"] = trainer.train_epoch_indexed(batcher)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    out["timed"] = trainer.train_epoch_indexed(batcher)
+    out["counts"] = launch_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card else 0
+    out["params"] = [t.detach().cpu() for t in _leaves(trainer.params)]
+    idx = np.random.default_rng(SEED + 5).permutation(
+        len(buckets[2][0]))[:TRAIN_BATCH]
+    batch = {k: (e[torch.as_tensor(idx, device=e.device)],
+                 w[torch.as_tensor(idx, device=e.device)])
+             for k, (e, w) in trainer._pinned.items()}
+    steps, reduces = [], []
+    for _ in range(6):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        sync()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(10):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        trainer._sum_grads()
+        sync()
+        reduces.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"], out["all_reduce_ms"] = steps, reduces
+    out["grad_bytes"] = sum(t.numel() * 4 for t in _leaves(trainer.params))
+    if fit:
+        out["fit"] = mesh_fit(rank, mesh, genome, dims, params, frozen,
+                              buckets, blooms, table, tmp)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def mesh_fit(rank, mesh, genome, dims, params, frozen, buckets, blooms,
+             table, tmp) -> dict:
+    """Phase 16 (c): a stage-2 fit of MESH_FIT_EPOCHS epochs on the mesh
+    with the fused tail and the "pallas" proposals (K5, K6 on every rank)
+    and "orbax" checkpoints, the counts zeroed just before and read just
+    after; then a fresh Trainer resumes from its resume directory for one
+    more epoch."""
+    set_fuse_tail(True)
+    settings = shipped_settings(propose_impl="pallas")
+    test = random_buckets(genome, np.random.default_rng(SEED + 62),
+                          TEST_PER_K)
+    log = print if rank == 0 else (lambda *a, **k: None)
+    kw = dict(batch_size=TRAIN_BATCH, num_batch_per_iter=TRAIN_STEPS,
+              checkpoint_path=os.path.join(tmp, "best"),
+              resume_path=os.path.join(tmp, "resume"),
+              checkpoint_format="orbax", log=log, seed=SEED)
+    trainer = Trainer(params, frozen, dims, table, settings, blooms=blooms,
+                      seed=SEED + 63, mesh=mesh)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit(buckets, test, epochs=MESH_FIT_EPOCHS, **kw)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    again = Trainer(params, frozen, dims, table, settings, blooms=blooms,
+                    seed=SEED + 63, mesh=mesh)
+    more = again.fit(buckets, test, epochs=MESH_FIT_EPOCHS + 1, resume=True,
+                     **kw)
+    set_fuse_tail(False)
+    pick = lambda h: {"bce": h["train"]["bce"], "recon": h["train"]["recon"],
+                      "valid_bce": h["valid"]["bce"]}
+    return {"counts": counts, "wall_s": wall,
+            "history": [pick(h) for h in hist],
+            "resumed": [pick(h) for h in more],
+            "params": [t.detach().cpu() for t in _leaves(trainer.params)]}
+
+
+def world_of_one_phase(problem, card) -> dict:
+    """Phase 16 (a): a world of one on NCCL through init_distributed (the
+    launcher's environment, set here), a 1 x 1 mesh: its step equals the
+    no-mesh step on the same draws bit for bit (the mesh's gradient
+    all-reduce runs on NCCL), and an OrbaxCheckpointer round trip of its
+    params, AdamW state and generator gives the same bits."""
+    dims, params, frozen, buckets, blooms, table = problem
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
+    os.environ.update(env)
+    try:
+        init_distributed()
+        backend = str(torch.distributed.get_backend())
+        mesh = make_mesh(1, 1)
+        batch = {k: (torch.from_numpy(e[:TRAIN_BATCH]).cuda(),
+                     torch.from_numpy(w[:TRAIN_BATCH]).cuda())
+                 for k, (e, w) in buckets.items()}
+        runs = {}
+        for name, m in (("no_mesh", None), ("mesh_1x1", mesh)):
+            t = Trainer(params, frozen, dims, table, shipped_settings(),
+                        blooms=blooms, seed=SEED + 70, mesh=m)
+            zero_launch_counts()
+            aux = t.train_step(batch)
+            torch.cuda.synchronize()
+            runs[name] = (t, aux, launch_counts())
+        (ta, aa, ca), (tb, ab, cb) = runs["no_mesh"], runs["mesh_1x1"]
+        equal = (all(torch.equal(a, b) for a, b in
+                     zip(_leaves(ta.params), _leaves(tb.params)))
+                 and all(torch.equal(aa[k], ab[k]) for k in aa))
+        with tempfile.TemporaryDirectory() as tmp:
+            opt = runtime._adamw_state(tb.params, tb.optimizer)
+            key = tb.generator.get_state().numpy()
+            with OrbaxCheckpointer(tmp) as ck:
+                ck.save(0, tb.params, opt, epoch=0, key=key, best=0.5)
+                p, o, ep = ck.restore(like_params=tb.params,
+                                      like_opt_state=opt)
+                meta = ck.last_meta
+        round_trip = (ep == 0 and meta["best"] == 0.5
+                      and np.array_equal(np.asarray(meta["key"], np.uint8),
+                                         key)
+                      and all(torch.equal(a, b) for a, b in
+                              zip(_leaves(tb.params), _leaves(p)))
+                      and all(np.array_equal(np.asarray(a), np.asarray(b))
+                              for a, b in zip(opt["exp_avg"] + opt["exp_avg_sq"],
+                                              o["exp_avg"] + o["exp_avg_sq"])))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for name in env:
+            os.environ.pop(name, None)
+    out = {"backend": backend, "step_bit_equal": equal,
+           "launches_no_mesh": ca, "launches_mesh_1x1": cb,
+           "orbax_round_trip": round_trip}
+    print(f"world of one ({backend}), mesh 1x1: {json.dumps(out)}",
+          flush=True)
+    if "nccl" not in backend:
+        fail("the world of one did not take NCCL")
+    if not equal or ca != cb:
+        fail("the 1x1 mesh's step differs from the no-mesh step")
+    if not round_trip:
+        fail("the OrbaxCheckpointer round trip lost bits")
+    return out
+
+
+def grad_errors(got, ref, names) -> dict:
+    """Each gradient's max error relative to its largest entry, floored at
+    1e-3 of the largest entry of any gradient (as phase 6)."""
+    top = max(float(b.abs().max()) for b in ref)
+    return {n: float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                1e-3 * top)
+            for n, a, b in zip(names, got, ref)}
+
+
+def mesh_phase(problem, genome, card, sizes=None,
+               device=torch.device("cuda")) -> dict:
+    """Phase 16: (a) the world of one on NCCL; (b) the meshes 2 x 1, 1 x 2
+    and 2 x 2 of ranks sharing the card on gloo: each rank's launches per
+    step, the deterministic f32 step against one rank with n_shards = D,
+    a bf16 epoch's params equal across the ranks, the step and all-reduce
+    times, the frozen tables' bytes and the peak memory per rank; (c) the
+    2 x 1 mesh's stage-2 fit on the opt-in path, "orbax" checkpoints and a
+    resume.  ``sizes`` and ``device``: a rehearsal's smaller constants
+    (passed to the ranks) and its device."""
+    sizes = sizes or {}
+    out = {"world_of_one": world_of_one_phase(problem, card)}
+    dims, params, frozen, buckets, blooms, table = problem
+    inp = mesh_step_inputs(problem, device)
+    names = leaf_names(params)
+    refs = {}
+    for n_data in sorted({d for d, _ in MESH_SHAPES}):
+        t = Trainer(params, frozen, dims._replace(compute_dtype="float32"),
+                    table, shipped_settings(n_shards=n_data), blooms=blooms,
+                    seed=SEED + 1)
+        refs[n_data] = mesh_step(t, inp, device, n_data)
+        whole = frozen_nbytes(t.frozen)      # one rank's, as a Trainer holds
+        del t
+    want_step = {k: v * TRAIN_STEPS for k, v in
+                 step_counts(False, False).items()}
+    for n_data, n_model in MESH_SHAPES:
+        world = n_data * n_model
+        fit = (n_data, n_model) == (2, 1)
+        with tempfile.TemporaryDirectory() as tmp:
+            np.savez(os.path.join(tmp, "step_inputs.npz"), **inp)
+            t0 = time.perf_counter()
+            try:
+                spawn(mesh_rank, world, n_data, n_model, tmp, fit, sizes,
+                      backend="gloo", device=device.type)
+            except Exception as e:          # noqa: BLE001 - a rank failed
+                fail(f"a rank of the {n_data}x{n_model} mesh failed: {e}")
+            wall = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                                weights_only=False) for r in range(world)]
+        ref_loss, ref_grads = refs[n_data]
+        cell = {"ranks": world, "wall_s": wall,
+                "loss_f32_rel_err": max(abs(r["loss_f32"] - ref_loss)
+                                        / abs(ref_loss) for r in ranks)}
+        errs = [grad_errors(r["grads_f32"], ref_grads, names) for r in ranks]
+        worst = max(max(e.values()) for e in errs)
+        cell["grad_rel_to_max_err_f32"] = worst
+        cell["launches_per_rank_epoch"] = [r["counts"] for r in ranks]
+        cell["step_ms_per_rank"] = [statistics.median(r["step_ms"])
+                                    for r in ranks]
+        cell["all_reduce_ms_per_rank"] = [statistics.median(r["all_reduce_ms"])
+                                          for r in ranks]
+        cell["all_reduce_note"] = ("gloo through the host, one card; not an "
+                                   "NCCL number")
+        cell["grad_bytes"] = ranks[0]["grad_bytes"]
+        cell["frozen_bytes_per_rank"] = [r["frozen_bytes"] for r in ranks]
+        cell["frozen_bytes_unsharded"] = whole
+        cell["peak_memory_gb_per_rank"] = [r["peak_bytes"] / 1e9
+                                           for r in ranks]
+        cell["timed_epoch"] = {k: ranks[0]["timed"][k] for k in
+                               ("bce", "recon", "elapsed",
+                                "hyperedges_per_sec")}
+        same_params = all(torch.equal(a, b) for r in ranks[1:]
+                          for a, b in zip(r["params"], ranks[0]["params"]))
+        finite = all(np.isfinite(r[e][k]) for r in ranks
+                     for e in ("warm", "timed") for k in ("bce", "recon"))
+        cell["params_equal_across_ranks"] = same_params
+        print(f"mesh {n_data}x{n_model}: {json.dumps(cell)} (expected "
+              f"launches per rank {want_step}; grad tol {TOL_MESH_GRAD})",
+              flush=True)
+        if any(r["counts"] != want_step for r in ranks):
+            fail(f"a rank of the {n_data}x{n_model} mesh launched other "
+                 "counts")
+        if not worst <= TOL_MESH_GRAD or not cell["loss_f32_rel_err"] <= \
+                TOL_MESH_GRAD:
+            fail(f"the {n_data}x{n_model} mesh's step differs from one rank "
+                 f"with n_shards = {n_data}")
+        if not (same_params and finite):
+            fail(f"the {n_data}x{n_model} mesh's epoch is not finite or its "
+                 "ranks' params differ")
+        if n_model > 1 and not all(
+                b < cell["frozen_bytes_unsharded"]
+                for b in cell["frozen_bytes_per_rank"]):
+            fail("the model axis did not shard the frozen tables")
+        if fit:
+            cell["fit"] = mesh_fit_check(ranks)
+        out[f"{n_data}x{n_model}"] = cell
+    print(json.dumps({"metric": "mesh_training", **out, "card": card}),
+          flush=True)
+    return out
+
+
+def mesh_fit_check(ranks) -> dict:
+    """Phase 16 (c)'s checks on the ranks' results: the counts of every
+    rank, finite histories, params equal across the ranks, the resume ran
+    the one remaining epoch."""
+    n_eval = EVAL_SAMPLES // TRAIN_BATCH
+    want = added(scaled(step_counts(True, True),
+                        MESH_FIT_EPOCHS * TRAIN_STEPS),
+                 scaled(eval_counts(True), MESH_FIT_EPOCHS * n_eval))
+    fits = [r["fit"] for r in ranks]
+    out = {"launches_per_rank": [f["counts"] for f in fits],
+           "expected": want, "wall_s": [f["wall_s"] for f in fits],
+           "history": fits[0]["history"], "resumed": fits[0]["resumed"]}
+    print(f"mesh 2x1 fit (fused tail, pallas, orbax): {json.dumps(out)}",
+          flush=True)
+    if any(f["counts"] != want for f in fits):
+        fail("a rank of the mesh's fit launched other counts")
+    if any(len(f["history"]) != MESH_FIT_EPOCHS or len(f["resumed"]) != 1
+           for f in fits):
+        fail("the mesh's fit or its resume ran other epochs")
+    if not all(np.isfinite(v) for f in fits for h in f["history"] +
+               f["resumed"] for v in h.values()):
+        fail("the mesh's fit lost finiteness")
+    if not all(torch.equal(a, b) for f in fits[1:]
+               for a, b in zip(f["params"], fits[0]["params"])):
+        fail("the mesh's fit left the ranks with other params")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2904,6 +3335,20 @@ def main():
     occ = modes["per_occurrence"]["epoch_launches"]
     rbf = modes["recon_bf16"]["epoch_launches"]
 
+    # 16. multi-rank training on the one card
+    check_rank_shapes(device)
+    set_fuse_tail(False)
+    mesh = mesh_phase(train["problem"], genome, card)
+    mesh_counts = {f"{d}x{m}": {k: v // TRAIN_STEPS for k, v in
+                                mesh[f"{d}x{m}"]["launches_per_rank_epoch"][0]
+                                .items()} for d, m in MESH_SHAPES}
+    mesh_fit_counts = mesh["2x1"]["fit"]["launches_per_rank"][0]
+
+    def mesh_launches(name):
+        return {"launches_mesh_per_rank_step": {
+            shape: c[name] for shape, c in mesh_counts.items()},
+            "launches_mesh_fit_per_rank": mesh_fit_counts[name]}
+
     k2 = tk["K2_L5"]
     k5 = nk["K5_k5"]
     step_path = train["counts"]
@@ -2919,6 +3364,7 @@ def main():
          "launches_regress_fit": regress["K1"],
          "launches_per_occurrence_epoch": occ["K1"],
          "launches_recon_bf16_epoch": rbf["K1"],
+         **mesh_launches("K1"),
          "device_ms": k1_dev,
          "device_ms_step_L345": [tk[f"K1_L{L}"]["device_ms"]
                                  for L in (3, 4, 5)],
@@ -2935,6 +3381,7 @@ def main():
          "launches_regress_fit": regress["K2"],
          "launches_per_occurrence_epoch": occ["K2"],
          "launches_recon_bf16_epoch": rbf["K2"],
+         **mesh_launches("K2"),
          "max_abs_err": worst_bwd["bfloat16"]["gx_abs"],
          "max_err_rel_to_max": worst_bwd["bfloat16"]["rel_to_max"],
          "max_err_rel_to_max_f32": worst_bwd["float32"]["rel_to_max"],
@@ -2951,6 +3398,7 @@ def main():
          "launches_per_occurrence_epoch": occ["K3"],
          "launches_recon_bf16_epoch": rbf["K3"],
          "launches_pretrain": pre["launches"]["K3"],
+         **mesh_launches("K3"),
          "max_abs_err": worst_scatter,
          "ms": tk["K3"]["ms"], "device_ms": tk["K3"]["device_ms"],
          "plain_ms": tk["K3"]["plain_ms"],
@@ -2969,6 +3417,7 @@ def main():
          "launches_per_occurrence_epoch": occ["K4"],
          "launches_recon_bf16_epoch": rbf["K4"],
          "launches_pretrain": pre["launches"]["K4"],
+         **mesh_launches("K4"),
          "max_abs_err": 0.0,
          "ms": tk["K4"]["ms"], "device_ms": tk["K4"]["device_ms"],
          "plain_ms": tk["K4"]["plain_ms"],
@@ -2980,6 +3429,7 @@ def main():
          "source": "matcha_tpu_torch/csrc/propose.cu",
          "replaces": "matcha_tpu/ops/propose.py:94",
          "launches": counts["K5"], "max_abs_err": 0.0,
+         **mesh_launches("K5"),
          "ms": k5["ms"], "device_ms": k5["device_ms"],
          "in_sampler_ms_per_step": nk["K5_in_sampler"]["step_ms"],
          "plain_ms": k5["plain_ms"],
@@ -2991,6 +3441,7 @@ def main():
          "tc_route": "bf16: wgmma, two blocks of two warpgroups per SM over "
                      "tiles of 64 tokens; f32: CUDA cores",
          "launches": counts["K6_fwd"],
+         **mesh_launches("K6_fwd"),
          "tflops_achieved": nk["K6_fwd"]["tflops_achieved"],
          "device_ms_eval": nk["K6_fwd_eval"]["device_ms"],
          "max_abs_err": worst_tail["fwd_abs_bf16"],
@@ -3005,6 +3456,7 @@ def main():
          "tc_route": "bf16: wgmma, two warpgroups per block over tiles of "
                      "64 tokens; f32: CUDA cores",
          "launches": counts["K6_bwd"],
+         **mesh_launches("K6_bwd"),
          "tflops_achieved": nk["K6_bwd"]["tflops_achieved"],
          "max_abs_err": worst_tail["gy_abs_bf16"],
          "max_err_rel_to_max": worst_tail["bfloat16"],

@@ -18,8 +18,21 @@ fused tail on (``configure_fuse_tail`` / ``MATCHA_FUSE_TAIL``),
 (K6 on a CUDA tensor).  ``MATCHA_RECON_BF16=1`` runs the recon decode with
 bf16 operands and f32 accumulation.  Feature dropout is drawn per node row
 of the table (``per_node``, the default) or per token occurrence
-(``per_occurrence``, the reference's placement).  Not ported yet: the
-sharded (n_shards) stream layout.
+(``per_occurrence``, the reference's placement).
+
+``forward_buckets(n_shards=ns)`` lays the merged stream out shard-major
+(``parallel/stream.py``), as a mesh of ns data shards does.  Under an
+active mesh (``parallel/mesh.py``, installed by the Trainer) every rank
+takes the whole batch and computes its block of rows of every bucket
+(``rank_rows``): the gather (``table_gather_sharded``, K3), the attention
+(K1/K2), the tail (``fused_tail_sharded``, K6) and the classifier run on
+those rows; the dropout masks are drawn for the whole batch and sliced, so
+a mesh trains as one rank with ``n_shards = D`` does; the logits reach every
+rank through one all-gather.  The encode runs on the rank's row block of
+each feature table (the model axis) and an all-gather builds the whole node
+table; the recon loss runs over the rank's rows of ``inter_z`` with the
+global token counts (``bincount_sharded``, K4) and is summed over the
+model axis.  Per-occurrence feature dropout does not train under a mesh.
 """
 
 from __future__ import annotations
@@ -38,8 +51,16 @@ from matcha_tpu_torch.models.modules import (dropout, encoder_layer,
                                              linear_init, mha_dynamic, pff,
                                              pff_init, rand, split_generator)
 from matcha_tpu_torch.ops.fused_tail import (D as TAIL_D, fused_tail,
-                                             pack_ln6)
-from matcha_tpu_torch.ops.table_scatter import bincount, table_gather
+                                             fused_tail_sharded, pack_ln6)
+from matcha_tpu_torch.ops.table_scatter import (bincount, bincount_sharded,
+                                                table_gather,
+                                                table_gather_sharded)
+from matcha_tpu_torch.parallel.mesh import (active_data_mesh,
+                                            all_gather_blocks,
+                                            all_gather_rows, rank_rows,
+                                            rank_sizes)
+from matcha_tpu_torch.parallel.stream import (divisible, shard_concat,
+                                              shard_split, stream_positions)
 
 
 class ModelDims(NamedTuple):
@@ -230,6 +251,12 @@ def build_frozen_tables(genome, intra_adj: np.ndarray, inter_adj: np.ndarray,
 
 
 # ---------------------------------------------------------------- embedding
+def _model_sharded(mesh) -> bool:
+    """Whether the frozen node-axis tables are row-sharded (a model axis
+    above 1)."""
+    return mesh is not None and mesh.shape["model"] > 1
+
+
 def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
                       *, generator: Optional[torch.Generator] = None,
                       train: bool = False) -> torch.Tensor:
@@ -239,7 +266,13 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
     table is the node table.  In train mode with a generator, feature
     dropout (rate ``dims.feature_dropout``) is drawn once per node row per
     step; in the ``per_occurrence`` mode the table stays clean (the
-    dropout is drawn on the gathered rows, ``_per_occurrence_embed``)."""
+    dropout is drawn on the gathered rows, ``_per_occurrence_embed``).
+
+    Under a mesh with a model axis, each feature table holds this rank's
+    block of its (padded) rows: the rank encodes its rows with the masks of
+    the whole table's draw, and an autograd all-gather over the model axis
+    builds the whole table (its backward hands each rank the gradient of
+    its rows, summed over the model axis)."""
     cdt = dims.cdt
     if "table" in params["embed"]:
         table = params["embed"]["table"].clone()
@@ -247,13 +280,22 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
         return table.to(cdt)
     if dims.feature_dropout_mode == "per_occurrence":
         train = False
+    mesh = active_data_mesh()
+    sharded = _model_sharded(mesh)
     feats = frozen.features
     widths = [f.shape[1] for f in feats]     # true row counts = col counts
-    rows = [f.shape[0] for f in feats]
+    rows = [f.shape[0] for f in feats]       # this rank's (padded) rows
     R, W = max(rows), max(widths)
     rate = dims.feature_dropout
     drop = train and generator is not None and rate > 0.0
     zero_row = torch.zeros((1, dims.dim), dtype=cdt, device=feats[0].device)
+
+    def global_rows(c, n, top):
+        """The whole table's row of each of this rank's n rows of
+        chromosome c, clipped to top - 1 (pad rows take any mask row:
+        their features are zero)."""
+        return np.minimum(mesh.model_index * rows[c] + np.arange(n), top - 1)
+
     # the JAX package's gate (pad-independent table volume): all chromosomes
     # as one zero-padded batched chain, else a per-chromosome loop
     if len(feats) > 1 and len(feats) * W * W * 4 <= (64 << 20):
@@ -262,10 +304,18 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
             for f in feats])                                     # (C, R, W)
         if drop:
             # the mask is drawn at the pad-independent shape (C, W, W) (a
-            # corrcoef table's true row count is its width) and padded
-            # with keep, as the JAX package draws it
+            # corrcoef table's true row count is its width) and its rows
+            # are those of the rank's rows, as the JAX package draws it
             keep = rand(generator, (len(feats), W, W), x.device) < 1.0 - rate
-            keep = torch.nn.functional.pad(keep, (0, 0, 0, R - W), value=True)
+            if sharded:
+                keep = keep[to_device(np.arange(len(feats))[:, None],
+                                      x.device),
+                            to_device(np.stack([global_rows(c, R, W) for c in
+                                                range(len(feats))]),
+                                      x.device)]
+            else:
+                keep = torch.nn.functional.pad(keep, (0, 0, 0, R - W),
+                                               value=True)
             x = torch.where(keep, x / (1.0 - rate),
                             torch.zeros((), dtype=cdt, device=x.device))
         w1 = torch.stack([torch.nn.functional.pad(
@@ -274,19 +324,33 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
         w2 = torch.stack([p["w2"].to(cdt)
                           for p in params["embed"]["ae"]])       # (C, d, d)
         h = torch.bmm(torch.tanh(torch.bmm(x, w1)), w2)          # (C, R, d)
-        # row gather: node id i (1-based) -> (chrom c, local row) in h
-        flat_idx = to_device(np.concatenate(
-            [c * R + np.arange(w) for c, w in enumerate(widths)]), h.device)
-        table = h.reshape(len(feats) * R, dims.dim)[flat_idx]
-        return torch.cat([zero_row, table], dim=0)
-    gens = split_generator(generator if drop else None, len(feats))
-    blocks = [zero_row]
-    for c, x in enumerate(feats):
-        ae = params["embed"]["ae"][c]
-        x = dropout(x.to(cdt), rate, train, gens[c])
-        h = torch.tanh(x @ ae["w1"].to(cdt)) @ ae["w2"].to(cdt)
-        blocks.append(h[:x.shape[1]])
-    return torch.cat(blocks, dim=0)
+        local = h.reshape(len(feats) * R, dims.dim)
+        offsets = [c * R for c in range(len(feats))]
+    else:
+        gens = split_generator(generator if drop else None, len(feats))
+        blocks = []
+        for c, x in enumerate(feats):
+            ae = params["embed"]["ae"][c]
+            x = dropout(x.to(cdt), rate, train, gens[c],
+                        (widths[c], to_device(global_rows(
+                            c, rows[c], widths[c]), x.device))
+                        if sharded else None)
+            h = torch.tanh(x @ ae["w1"].to(cdt)) @ ae["w2"].to(cdt)
+            blocks.append(h if sharded else h[:x.shape[1]])
+        if not sharded:
+            return torch.cat([zero_row] + blocks, dim=0)
+        local = torch.cat(blocks)
+        offsets = np.concatenate([[0], np.cumsum(rows)[:-1]]).tolist()
+    # row gather: node id i (1-based) -> (rank m, chrom c, local row) of the
+    # model axis's blocks (one rank without a model axis)
+    size = local.shape[0]
+    if sharded:
+        local = all_gather_rows(local, mesh.model_group)
+    flat_idx = to_device(np.concatenate(
+        [(g // rows[c]) * size + offsets[c] + g % rows[c]
+         for c, g in ((c, np.arange(w)) for c, w in enumerate(widths))]),
+        local.device)
+    return torch.cat([zero_row, local[flat_idx]], dim=0)
 
 
 def _per_occurrence_embed(params: Dict, frozen: FrozenTables,
@@ -390,12 +454,29 @@ def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
     """Per-node form of ``recon_loss_with_chrom`` (equal up to f32 summation
     order): every token of a node shares its embedding row, so the
     token-mean MSE is the node MSE weighted by the node's token count (K4
-    on a CUDA tensor).  Decodes N node rows instead of T token rows."""
-    R = int(min(node_table.shape[0], frozen.inter_z.shape[0],
+    on a CUDA tensor).  Decodes N node rows instead of T token rows.
+
+    Under a mesh x_flat is this rank's token block: the counts are summed
+    over the ranks (``bincount_sharded``).  With a model axis, inter_z
+    holds this rank's block of rows: the rank decodes those rows (the JAX
+    package's row-local ``inter_z[:R, cols]``) against the global
+    normaliser, and the partial losses are summed over the model axis by an
+    autograd all-gather."""
+    mesh = active_data_mesh()
+    sharded = _model_sharded(mesh)
+    n_z = int(frozen.inter_z.shape[0])                  # this rank's rows
+    R = int(min(node_table.shape[0],
+                n_z * (mesh.shape["model"] if sharded else 1),
                 frozen.chrom_of_node.shape[0]))
-    cnt = bincount(x_flat.reshape(-1), R)                       # (R,) f32
+    cnt = (bincount_sharded(x_flat.reshape(-1), R, mesh) if mesh is not None
+           else bincount(x_flat.reshape(-1), R))                # (R,) f32
     node_ids = torch.arange(R, device=cnt.device)
     w_n = cnt * ((frozen.chrom_of_node[:R] != r) & (node_ids != 0))
+    denom = w_n.sum()
+    lo, hi = 0, R
+    if sharded:
+        lo = min(mesh.model_index * n_z, R)
+        hi = min(lo + n_z, R)
 
     w_r, b_r, cols, col_ok, width_r = _padded_recon_parts(params, frozen, r)
     widths = [f.shape[1] for f in frozen.features]
@@ -404,10 +485,10 @@ def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
         # inter_z carries >= f_max zero pad columns (the Trainer adds them):
         # the target is a contiguous slice; the pad columns are masked
         start = int(sum(widths[:r]))
-        target = frozen.inter_z[:R, start:start + f_max].float()
+        target = frozen.inter_z[:hi - lo, start:start + f_max].float()
     else:
-        target = frozen.inter_z[:R][:, cols].float()             # (R, F)
-    h_dec = torch.tanh(node_table[:R].float())
+        target = frozen.inter_z[:hi - lo][:, cols].float()       # (R, F)
+    h_dec = torch.tanh(node_table[lo:hi].float())
     if _recon_decode_bf16():
         # bf16 operands, f32 accumulation and an unrounded f32 result, as
         # the JAX package's preferred_element_type=float32: a bf16 x bf16
@@ -422,10 +503,11 @@ def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
     sq = torch.where(col_ok[None, :], (target - recon) ** 2,
                      torch.zeros((), device=recon.device))
     per_node = sq.sum(dim=-1) / width_r
-    denom = w_n.sum()
     loss = torch.where(denom > 0,
-                       (per_node * w_n).sum() / denom.clamp_min(1.0),
+                       (per_node * w_n[lo:hi]).sum() / denom.clamp_min(1.0),
                        torch.zeros((), device=denom.device))
+    if sharded:
+        loss = all_gather_rows(loss.reshape(1), mesh.model_group).sum()
     return loss * 100.0
 
 
@@ -478,6 +560,12 @@ def _recon(params, frozen, dims, x_flat, node_table, emb_tok, g_rec, r):
                                  _recon_chrom(dims, g_rec, r))
 
 
+def _no_per_occurrence_under(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "per_occurrence feature dropout does not train under a mesh")
+
+
 def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
             x: torch.Tensor, *, generator: Optional[torch.Generator] = None,
             train: bool = False, return_recon: bool = False,
@@ -487,17 +575,26 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
     """Score a padded hyperedge batch x (B, L) of node ids (0 = pad) -> raw
     logits (B, 1) f32; with ``return_recon`` also the recon loss, with
     ``return_positions`` also the per-position scores (B, L) before the
-    masked mean."""
+    masked mean.  Under a mesh the rank scores its block of the rows and
+    every rank gets all of them."""
     g_tab, g_rec, g_enc = _streams(generator)
     if node_table is None:
         node_table = encode_node_table(params, frozen, dims,
                                        generator=g_tab, train=train)
+    mesh = active_data_mesh()
+    b_all = int(x.shape[0])
+    drop_rows = None
+    if mesh is not None:
+        lo, hi = rank_rows(b_all, mesh)
+        x = x[lo:hi]
+        drop_rows = (b_all, slice(lo, hi))
     x = x.long()
     npm = (x != 0).to(torch.float32)[..., None]          # (B, L, 1)
 
     attr_proj = linear(params["attr_nn"], frozen.attr_table.to(dims.cdt))
     emb_tok = None
     if _per_occurrence(params, dims, train, g_tab):
+        _no_per_occurrence_under(mesh)
         emb_tok = _per_occurrence_embed(params, frozen, dims, x, g_tab)
         emb = emb_tok.reshape(*x.shape, dims.dim) + attr_proj[x]
     else:
@@ -508,7 +605,8 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
 
     dynamic, static = encoder_layer(
         params["encoder"], h, npm.to(h.dtype), dims.n_head, dims.dim,
-        dims.dim, diag_mask=dims.diag_mask, generator=g_enc, train=train)
+        dims.dim, diag_mask=dims.diag_mask, generator=g_enc, train=train,
+        drop_rows=drop_rows)
 
     dynamic = layer_norm(params["ln_dynamic"], dynamic)
     static = layer_norm(params["ln_static"], static)
@@ -516,6 +614,11 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
     per_pos = pff(params["pff_classifier"], out).to(torch.float32)
     out = ((per_pos * npm).sum(dim=-2)                   # logits in f32
            / (npm.sum(dim=-2) + 1e-15))
+    if mesh is not None:
+        sizes = rank_sizes(b_all, mesh)
+        out = all_gather_blocks(out, sizes, mesh.world)
+        if return_positions:
+            per_pos = all_gather_blocks(per_pos, sizes, mesh.world)
     rest = ()
     if return_recon:
         rest += (_recon(params, frozen, dims, x.reshape(-1), node_table,
@@ -531,7 +634,7 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
                     train: bool = False, return_recon: bool = False,
                     node_table: Optional[torch.Tensor] = None,
                     attention_mode: str = "per-k",
-                    recon_chrom: Optional[int] = None):
+                    recon_chrom: Optional[int] = None, n_shards: int = 1):
     """Forward over several per-k buckets (no padding) as one merged token
     stream: every per-token stage (the gather, next_w, pff_n1, the
     LayerNorms, the classifier, recon) runs once over the concatenated
@@ -544,11 +647,21 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     k with the pad token's h and run as one attention (pads take part as
     keys, the reference's training-time semantics).
 
+    n_shards: the data-shard count of the batch axis; above 1 the
+    cross-bucket concatenations and splits take the shard-major layout
+    (``parallel/stream.py``), which changes where each row's dropout mask
+    is drawn and nothing else (an exact inverse pair).
+
     With the fused tail on, ``dims.diag_mask`` and ``dims.dim`` the kernel's
     width (64), the attention output's dropout moves into the fused tail
     (K6), whose masks come from one seed drawn on the host from the tail's
     generator; the tail trains only with a generator, as the unfused tail's
     dropouts do.  At any other width the unfused chain runs.
+
+    Under a mesh (see the module docstring) the rank computes its block of
+    every bucket's rows and the logits of all rows come back through one
+    all-gather; the masks are those of the whole stream's draw in the
+    n_shards layout.
 
     -> {k: (n_k, 1) logits}, and the recon loss with ``return_recon``."""
     if attention_mode not in ("per-k", "pad-max"):
@@ -559,9 +672,22 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
         node_table = encode_node_table(params, frozen, dims,
                                        generator=g_tab, train=train)
     ks = sorted(xs.keys())
-    shapes = [(int(xs[k].shape[0]), int(k)) for k in ks]
+    n_all = [int(xs[k].shape[0]) for k in ks]
+    tok_all = [n * k for n, k in zip(n_all, ks)]
+    ns = n_shards if divisible(n_all, n_shards) else 1
+    mesh = active_data_mesh()
+    if mesh is None:
+        spans = [(0, n) for n in n_all]
+        flat = shard_concat([xs[k].reshape(-1) for k in ks], ns)  # (T,)
+    else:
+        spans = [rank_rows(n, mesh) for n in n_all]
+        flat = torch.cat([xs[k][lo:hi].reshape(-1)
+                          for k, (lo, hi) in zip(ks, spans)])
+    shapes = [(hi - lo, k) for k, (lo, hi) in zip(ks, spans)]
     tok_sizes = [n_k * k for (n_k, k) in shapes]
-    flat = torch.cat([xs[k].reshape(-1) for k in ks])            # (T,)
+    # the shard-major layout within this process: one rank's own rows are
+    # laid out plainly (its masks are taken from the whole stream's draw)
+    lay = 1 if mesh is not None else ns
 
     # node + projected-attribute tables combined per node, then ONE (T, d)
     # gather of the combined table; with the per-occurrence embedding the
@@ -571,8 +697,11 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     combined = node_table + attr_proj
     emb_tok = None
     if _per_occurrence(params, dims, train, g_tab):
+        _no_per_occurrence_under(mesh)
         emb_tok = _per_occurrence_embed(params, frozen, dims, flat, g_tab)
         emb = emb_tok + attr_proj[flat.long()]
+    elif mesh is not None:
+        emb = table_gather_sharded(combined, flat, mesh)
     else:
         emb = table_gather(combined, flat)
     h = torch.tanh(feed_forward(params["next_w"], emb))          # (T, d)
@@ -586,74 +715,120 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     attn_drop = 0.0 if use_fused_tail else 0.3
     if attention_mode == "pad-max" and len(shapes) > 1:
         dyn = _attention_pad_max(params, dims, h, shapes, gens, train,
-                                 combined, attn_drop)
+                                 combined, attn_drop, ns,
+                                 None if mesh is None else (n_all, spans))
     else:
-        dyn = torch.cat([
+        dyn = shard_concat([
             mha_dynamic(mha, hk.reshape(n_k, k, -1), dims.n_head, dims.dim,
                         dims.dim, diag_mask=dims.diag_mask, generator=gen,
-                        drop_rate=attn_drop, train=train).reshape(n_k * k, -1)
-            for (n_k, k), hk, gen in zip(shapes, h.split(tok_sizes), gens)])
+                        drop_rate=attn_drop, train=train,
+                        drop_rows=None if mesh is None
+                        else (n, slice(lo, hi))).reshape(n_k * k, -1)
+            for (n_k, k), hk, gen, n, (lo, hi) in zip(
+                shapes, shard_split(h, lay, tok_sizes), gens, n_all, spans)],
+            lay)
     if use_fused_tail:
         pn = params["encoder"]["pff_n1"]
         cl = params["pff_classifier"]["layers"][0]
         ft_train = train and gens[-1] is not None
         seed = (int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gens[-1]))
                 if ft_train else 0)
-        per_pos = fused_tail(
-            dyn, h, pack_ln6(pn["ln"], params["ln_dynamic"],
-                             params["ln_static"]),
-            pn["layers"][0]["w"], pn["layers"][0]["b"], pn["layers"][1]["w"],
-            pn["layers"][1]["b"], cl["w"], cl["b"], seed, 0.3, 0.4,
-            ft_train)                                            # (T, 1) f32
+        ft_args = (dyn, h, pack_ln6(pn["ln"], params["ln_dynamic"],
+                                    params["ln_static"]),
+                   pn["layers"][0]["w"], pn["layers"][0]["b"],
+                   pn["layers"][1]["w"], pn["layers"][1]["b"], cl["w"],
+                   cl["b"], seed, 0.3, 0.4, ft_train)
+        per_pos = (fused_tail_sharded(*ft_args, mesh) if mesh is not None
+                   else fused_tail(*ft_args))                    # (T, 1) f32
     else:
+        rows = None
+        if mesh is not None:
+            rows = (sum(tok_all), stream_positions(
+                tok_all, ns, [(lo * k, hi * k) for k, (lo, hi)
+                              in zip(ks, spans)], device=h.device))
         dyn = pff(params["encoder"]["pff_n1"], dyn, residual=True,
-                  generator=gens[-1], drop_rate=0.4, train=train)
+                  generator=gens[-1], drop_rate=0.4, train=train,
+                  drop_rows=rows)
         dynamic = layer_norm(params["ln_dynamic"], dyn)
         static = layer_norm(params["ln_static"], h)
         out = (dynamic - static) ** 2 if dims.diag_mask else dynamic
         per_pos = pff(params["pff_classifier"], out).to(torch.float32)
 
-    logits = {k: pp.reshape(n_k, k).mean(dim=-1, keepdim=True)
-              for k, (n_k, _), pp in zip(ks, shapes,
-                                         per_pos[:, 0].split(tok_sizes))}
+    means = [pp.reshape(n_k, k).mean(dim=-1, keepdim=True)
+             for (n_k, k), pp in zip(shapes, shard_split(per_pos[:, 0], lay,
+                                                         tok_sizes))]
+    if mesh is not None:
+        means = _gather_bucket_rows(means, n_all, mesh)
+    logits = dict(zip(ks, means))
     if return_recon:
         return logits, _recon(params, frozen, dims, flat, node_table,
                               emb_tok, g_rec, recon_chrom)
     return logits
 
 
+def _gather_bucket_rows(parts: List[torch.Tensor], n_all: List[int],
+                        mesh) -> List[torch.Tensor]:
+    """Every rank's block of rows of each bucket (``parts[j]``, this rank's
+    ``rank_rows`` of n_all[j]) -> each bucket's rows of all ranks, in one
+    autograd all-gather over the mesh."""
+    per_rank = [rank_sizes(n, mesh) for n in n_all]        # [bucket][rank]
+    totals = [sum(col) for col in zip(*per_rank)]           # per rank
+    got = all_gather_blocks(torch.cat(parts), totals, mesh.world)
+    sizes = [per_rank[j][r] for r in range(mesh.size)
+             for j in range(len(n_all))]
+    pieces = got.split(sizes)
+    return [torch.cat([pieces[r * len(n_all) + j] for r in range(mesh.size)])
+            for j in range(len(n_all))]
+
+
 def _attention_pad_max(params, dims, h, shapes, gens, train, combined,
-                       drop_rate=0.3):
+                       drop_rate=0.3, n_shards=1, rank=None):
     """pad-max attention over the merged stream (see forward_buckets):
     k = 2 closed form; k >= 3 padded to L with the pad token's h (node id 0:
     zero embedding + attribute row 0, through next_w) and run as one
-    attention; the real positions go back into the stream."""
+    attention; the real positions go back into the stream, laid out
+    shard-major for n_shards.  rank: under a mesh, (the buckets' row
+    counts, this rank's spans of them): h holds the rank's rows laid out
+    plainly, and the masks are its rows of the whole batch's draw in the
+    n_shards layout."""
+    lay = n_shards if rank is None else 1
     mha = params["encoder"]["mha"]
     L = max(k for _, k in shapes)
     h_pad = torch.tanh(feed_forward(params["next_w"], combined[0][None, :]))
-    parts = h.split([n_k * k for (n_k, k) in shapes])
+    parts = shard_split(h, lay, [n_k * k for (n_k, k) in shapes])
     dyn_parts = [None] * len(shapes)
     padded = []
     for i, ((n_k, k), hk) in enumerate(zip(shapes, parts)):
         hk = hk.reshape(n_k, k, -1)
         if k == 2:
+            rows = None
+            if rank is not None:
+                rows = (rank[0][i], slice(*rank[1][i]))
             dyn_parts[i] = mha_dynamic(
                 mha, hk, dims.n_head, dims.dim, dims.dim,
                 diag_mask=dims.diag_mask, generator=gens[i],
-                drop_rate=drop_rate, train=train).reshape(n_k * k, -1)
+                drop_rate=drop_rate, train=train,
+                drop_rows=rows).reshape(n_k * k, -1)
         else:
             pad = h_pad[None].expand(n_k, L - k, h.shape[-1]).to(hk.dtype)
             padded.append((i, n_k, k, torch.cat([hk, pad], dim=1)))
     if padded:
-        dynp = mha_dynamic(mha, torch.cat([p[3] for p in padded]),
+        rows = None
+        if rank is not None:
+            idx = [p[0] for p in padded]
+            n_pad = [rank[0][i] for i in idx]
+            rows = (sum(n_pad), stream_positions(
+                n_pad, n_shards, [rank[1][i] for i in idx],
+                device=h.device))
+        dynp = mha_dynamic(mha, shard_concat([p[3] for p in padded], lay),
                            dims.n_head, dims.dim, dims.dim,
                            diag_mask=dims.diag_mask,
                            generator=gens[padded[0][0]], drop_rate=drop_rate,
-                           train=train)
-        for (i, n_k, k, _), dk in zip(padded,
-                                      dynp.split([p[1] for p in padded])):
+                           train=train, drop_rows=rows)
+        for (i, n_k, k, _), dk in zip(padded, shard_split(
+                dynp, lay, [p[1] for p in padded])):
             dyn_parts[i] = dk[:, :k, :].reshape(n_k * k, -1)
-    return torch.cat(dyn_parts)
+    return shard_concat(dyn_parts, lay)
 
 
 def node_embeddings(params: Dict, frozen: FrozenTables,

@@ -27,6 +27,7 @@ import torch
 
 from matcha_tpu_torch.ops.hyperedge_attention import (hyperedge_attention,
                                                       kernel_takes, pack_ln)
+from matcha_tpu_torch.parallel.mesh import active_data_mesh
 
 Params = Dict
 
@@ -95,12 +96,22 @@ def rand(gen: torch.Generator, shape, device) -> torch.Tensor:
 
 
 def dropout(x, rate: float, train: bool = False,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, rows=None):
     """Inverted dropout (torch semantics).  No-op in eval, at rate 0, or
-    without a generator."""
+    without a generator.
+
+    rows: (n, index) when x holds some rows of a tensor of n rows (a rank's
+    rows under a mesh): the mask is drawn for all n rows, as the whole
+    tensor would draw it, and x takes its rows' ``mask[index]`` (index a
+    slice or an int64 tensor)."""
     if not train or generator is None or rate <= 0.0:
         return x
-    keep = rand(generator, x.shape, x.device) < 1.0 - rate
+    if rows is None:
+        keep = rand(generator, x.shape, x.device) < 1.0 - rate
+    else:
+        n, index = rows
+        keep = (rand(generator, (int(n),) + tuple(x.shape[1:]), x.device)
+                < 1.0 - rate)[index]
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
@@ -132,15 +143,15 @@ def pff_init(gen: torch.Generator, dims: Sequence[int], use_bias: bool = True,
 
 
 def pff(p: Params, x, *, residual: bool = False, generator=None,
-        drop_rate: float = 0.0, train: bool = False):
+        drop_rate: float = 0.0, train: bool = False, drop_rows=None):
     """tanh-MLP with dropout between layers, then (iff dims[0] == dims[-1])
-    residual add and LayerNorm."""
+    residual add and LayerNorm.  drop_rows: ``dropout``'s rows."""
     out = x
     layers = p["layers"]
     for lp in layers[:-1]:
         out = tanh(linear(lp, out))
         generator, gd = split_generator(generator, 2)
-        out = dropout(out, drop_rate, train, gd)
+        out = dropout(out, drop_rate, train, gd, drop_rows)
     out = linear(layers[-1], out)
     if layers[0]["w"].shape[0] == layers[-1]["w"].shape[1]:
         if residual:
@@ -196,9 +207,22 @@ def _attention_flat(p: Params, x, n_head: int, d_k: int, d_v: int,
     return linear(p["fc1"], out).reshape(b, L, -1)
 
 
+def mha_fused(p: Params, x, n_head: int, diag_mask: bool, mesh=None):
+    """The fused hyperedge attention (K1 forward, K2 backward on a CUDA
+    tensor).  Under a mesh (``parallel.mesh``) x holds this rank's rows of
+    the edges (``rank_rows``), which go through the kernels; the weights
+    are replicated, and their gradients are summed over the ranks by the
+    Trainer's one gradient all-reduce, as the JAX package's shard_map
+    transpose sums them over its kernel axes."""
+    del mesh     # the rows are the rank's already; see the docstring
+    return hyperedge_attention(x, pack_ln(p), p["wq"], p["wk"], p["wv"],
+                               p["fc1"]["w"], p["fc1"]["b"], n_head,
+                               diag_mask)
+
+
 def mha_dynamic(p: Params, x, n_head: int, d_k: int, d_v: int, *,
                 diag_mask: bool = True, generator=None,
-                drop_rate: float = 0.0, train: bool = False):
+                drop_rate: float = 0.0, train: bool = False, drop_rows=None):
     """Self-excluding (diag-masked) self-attention over one hyperedge.
 
     Pads take part as keys and values: the reference never applies its
@@ -209,19 +233,17 @@ def mha_dynamic(p: Params, x, n_head: int, d_k: int, d_v: int, *,
     Hopper kernel for any batch size; the rest goes to the JAX package's
     own formulation (``_attention_flat``) on either device, as the JAX
     package routes it.  The output takes dropout ``drop_rate`` in train
-    mode."""
+    mode (drop_rows: ``dropout``'s rows)."""
     if diag_mask and x.shape[1] == 2:
         # each row of the softmax has one unmasked key: weight 1 on the other
         # member, so the output is fc1(v_other)
         v = layer_norm(p["ln_v"], x) @ p["wv"].to(x.dtype)
         out = linear(p["fc1"], v.flip(1))
     elif kernel_takes(x, p["wq"], p["wk"], p["wv"], p["fc1"]["w"], n_head):
-        out = hyperedge_attention(x, pack_ln(p), p["wq"], p["wk"], p["wv"],
-                                  p["fc1"]["w"], p["fc1"]["b"], n_head,
-                                  diag_mask)
+        out = mha_fused(p, x, n_head, diag_mask, active_data_mesh())
     else:
         out = _attention_flat(p, x, n_head, d_k, d_v, diag_mask)
-    return dropout(out, drop_rate, train, generator)
+    return dropout(out, drop_rate, train, generator, drop_rows)
 
 
 def encoder_layer_init(gen: torch.Generator, n_head: int, d_model: int,
@@ -235,13 +257,15 @@ def encoder_layer_init(gen: torch.Generator, n_head: int, d_model: int,
 
 def encoder_layer(p: Params, x, non_pad_mask, n_head: int, d_k: int,
                   d_v: int, *, diag_mask: bool = True, generator=None,
-                  train: bool = False):
+                  train: bool = False, drop_rows=None):
     """Returns (dynamic, static); static is the unmodified input, as in the
     reference (Code/Modules.py:611-617).  Dropouts: 0.3 after attention fc1,
-    0.4 inside pff_n1."""
+    0.4 inside pff_n1 (drop_rows: ``dropout``'s rows of x's batch)."""
     ga, gp = split_generator(generator, 2)
     dyn = mha_dynamic(p["mha"], x, n_head, d_k, d_v, diag_mask=diag_mask,
-                      generator=ga, drop_rate=0.3, train=train)
+                      generator=ga, drop_rate=0.3, train=train,
+                      drop_rows=drop_rows)
     dyn = pff(p["pff_n1"], dyn * non_pad_mask, residual=True, generator=gp,
-              drop_rate=0.4, train=train) * non_pad_mask
+              drop_rate=0.4, train=train,
+              drop_rows=drop_rows) * non_pad_mask
     return dyn, x

@@ -355,3 +355,21 @@ def fused_tail(y, h, ln6, w1, b1, w2, b2, wc, bc, seed: int, r0: float,
                             w2.contiguous(), b2.contiguous(),
                             wc.contiguous(), bc.contiguous(), int(seed),
                             float(r0), float(r1), bool(train))
+
+
+SHARD_SEED_STRIDE = 1 << 20
+
+
+def fused_tail_sharded(y, h, ln6, w1, b1, w2, b2, wc, bc, seed: int,
+                       r0: float, r1: float, train: bool,
+                       mesh) -> torch.Tensor:
+    """``fused_tail`` of this rank's token block under a mesh (the
+    counterpart of the JAX package's ``fused_tail_sharded``).  The mask
+    rule is the JAX package's: the seed is offset by the rank's data index
+    times 2^20 (the data index only, also on a mixed mesh: the model ranks
+    of one data row draw the same counter stream), and the counters run
+    over the rank's local token index.  The weights' gradients are summed
+    over the ranks by the Trainer's one gradient all-reduce."""
+    return fused_tail(y, h, ln6, w1, b1, w2, b2, wc, bc,
+                      int(seed) + int(mesh.data_index) * SHARD_SEED_STRIDE,
+                      r0, r1, train)

@@ -195,3 +195,24 @@ class _TableGather(torch.autograd.Function):
 def table_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx] with the scatter-add gradient of K3."""
     return _TableGather.apply(table, idx)
+
+
+def table_gather_sharded(table: torch.Tensor, idx: torch.Tensor,
+                         mesh) -> torch.Tensor:
+    """``table_gather`` of this rank's token block ``idx`` under a mesh
+    (``parallel.mesh``; the counterpart of the JAX package's shard_map
+    over its kernel axes): K3 scatters this rank's cotangent rows in the
+    backward.  The table is replicated; its gradient's sum over the ranks
+    is the Trainer's one gradient all-reduce (the table reaches the params
+    linearly), as the JAX package's shard_map transpose sums it."""
+    del mesh     # the ids are the rank's block already
+    return table_gather(table, idx)
+
+
+def bincount_sharded(idx: torch.Tensor, n_rows: int, mesh) -> torch.Tensor:
+    """Token counts of the whole step under a mesh: K4 on this rank's token
+    block ``idx``, then a SUM over every rank of the mesh (the JAX
+    package's ``psum`` over its kernel axes), so the recon weights see the
+    global counts."""
+    from matcha_tpu_torch.parallel.mesh import all_reduce_sum
+    return all_reduce_sum(bincount(idx, n_rows), mesh.world)

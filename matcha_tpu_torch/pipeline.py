@@ -14,8 +14,10 @@ interoperate with theirs:
 ``python -m matcha_tpu_torch {process,kmers,kmers-merge,train,pretrain,all}
 -c config.JSON [--walk-mode hyper|clique] [--device cuda|cpu]`` runs them
 (``main``).  Training and pretraining run on the card unless ``--device
-cpu`` is given; without a card ``cuda`` raises.  Not ported yet: multi-GPU
-meshes.
+cpu`` is given; without a card ``cuda`` raises.  A config with
+``mesh_data * mesh_model > 1`` trains on that mesh of ranks, one process
+each: ``torchrun --nproc-per-node N -m matcha_tpu_torch train -c
+config.JSON`` (NCCL on the cards, gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -138,12 +140,31 @@ def run_train(config: Config, device="cuda", *, log=print,
     ``logs/metrics.jsonl``, the bundle ``model2load/`` and, one level above
     temp_dir, ``embeddings.npy``.  resume: continue from the resume
     snapshots (exact trajectory; a completed stage is skipped because its
-    snapshot is at its last epoch)."""
-    if int(config.mesh_data) * int(config.mesh_model) > 1:
-        raise NotImplementedError(
-            f"mesh_data * mesh_model = "
-            f"{int(config.mesh_data) * int(config.mesh_model)}: multi-GPU "
-            "training is not ported yet (ROADMAP.md, Queue 1 item 6)")
+    snapshot is at its last epoch).
+
+    With ``mesh_data * mesh_model = W > 1`` the run must be one of W
+    processes (``torchrun --nproc-per-node W``; WORLD_SIZE = W): each joins
+    the run (``init_distributed``: NCCL on ``cuda:LOCAL_RANK``, gloo on the
+    CPU), trains on the mesh, and only rank 0 logs and writes the files.
+    Otherwise it raises: a mesh config never trains on one device in
+    silence."""
+    mesh = None
+    n_mesh = int(config.mesh_data) * int(config.mesh_model)
+    if n_mesh > 1:
+        from matcha_tpu_torch.parallel.distributed import init_distributed
+        from matcha_tpu_torch.parallel.mesh import make_mesh
+        world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+        if world != n_mesh:
+            raise RuntimeError(
+                f"mesh_data * mesh_model = {n_mesh} needs a run of "
+                f"{n_mesh} processes (WORLD_SIZE = {world}): start it with "
+                f"torchrun --nproc-per-node {n_mesh} -m matcha_tpu_torch "
+                "train -c config.JSON")
+        local = init_distributed(device=torch.device(device).type)
+        device = local if local is not None else device
+        mesh = make_mesh(int(config.mesh_data), int(config.mesh_model))
+        if mesh.rank != 0:
+            log = _silent
     dev = resolve_device(device)
     temp_dir = config.temp_dir
     genome = GenomeBins.load(temp_dir)
@@ -171,7 +192,8 @@ def run_train(config: Config, device="cuda", *, log=print,
                                  device=dev)
     chrom_table = ChromTable.from_genome(genome, device=dev)
     ckpt = os.path.join(temp_dir, "model.chkpt")
-    mlog = MetricsLogger(os.path.join(temp_dir, "logs"), stdout=log)
+    mlog = (MetricsLogger(os.path.join(temp_dir, "logs"), stdout=log)
+            if mesh is None or mesh.rank == 0 else None)
     try:
         # ---- stage 1: reconstruction only (ref :637-643)
         s1 = TrainSettings(alpha=config.stage1_alpha,
@@ -183,7 +205,7 @@ def run_train(config: Config, device="cuda", *, log=print,
                            token_stream=perf["token_stream"],
                            propose_impl=perf["propose_impl"])
         trainer = Trainer(params, frozen, dims, chrom_table, s1, blooms=None,
-                          seed=config.seed)
+                          seed=config.seed, mesh=mesh)
         trainer.fit(store.train, store.test,
                     epochs=stage1_epochs if stage1_epochs is not None
                     else config.stage1_epochs,
@@ -205,7 +227,7 @@ def run_train(config: Config, device="cuda", *, log=print,
         # ---- stage 2: classification (fresh AdamW, ref :671-679)
         s2 = s1._replace(alpha=config.stage2_alpha, beta=config.stage2_beta)
         trainer2 = Trainer(trainer.params, frozen, dims, chrom_table, s2,
-                           blooms=blooms, seed=config.seed + 1)
+                           blooms=blooms, seed=config.seed + 1, mesh=mesh)
         history = trainer2.fit(
             store.train, store.test,
             epochs=stage2_epochs if stage2_epochs is not None
@@ -217,16 +239,22 @@ def run_train(config: Config, device="cuda", *, log=print,
             resume_path=os.path.join(temp_dir, "resume_stage2"),
             resume=resume)
     finally:
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
 
     # ---- export artifacts (ref :681-685)
     if embeddings_path is None:
         embeddings_path = os.path.join(os.path.dirname(
             os.path.abspath(temp_dir)), "embeddings.npy")
     trainer2.export_embeddings(embeddings_path)
-    save_model_bundle(os.path.join(temp_dir, "model2load"), trainer2.params,
-                      dims, genome, intra, inter)
+    if mesh is None or mesh.rank == 0:
+        save_model_bundle(os.path.join(temp_dir, "model2load"),
+                          trainer2.params, dims, genome, intra, inter)
     return trainer2, history, store
+
+
+def _silent(*args, **kwargs) -> None:
+    """The log of a rank other than 0."""
 
 
 def run_pretrain(config: Config, device="cuda", *, walk_mode: str = "hyper",

@@ -27,8 +27,17 @@ pairwise-ranking variant) keeps the JAX package's per-bucket path: a padded
 eval.  Indexed epochs overlap: epoch N's host work (fetches, logging,
 checkpoint pickles, the embeddings file) runs on a worker thread while epoch
 N+1 is dispatched, with results equal to the serial loop's
-(``MATCHA_FIT_OVERLAP=0``).  Not ported yet: orbax checkpoints and multi-GPU
-meshes.
+(``MATCHA_FIT_OVERLAP=0``).
+
+``Trainer(mesh=)`` trains on a ``parallel.mesh`` of ranks, one process
+each: params replicated, the frozen node-axis tables row-sharded on the
+model axis, every rank computing its block of each step's rows with the
+masks of the whole batch's draw (``TrainSettings.n_shards`` = the data
+axis), the whole loss on every rank scaled by 1 / W and one all-reduce of
+the flat gradient before AdamW.  A mesh run equals a single rank with
+``n_shards`` = D up to summation order.  ``fit(checkpoint_format="orbax")``
+checkpoints through ``train/checkpoint.py`` (``torch.distributed.checkpoint``;
+not orbax's format).
 
 Bundle I/O: ``save_model_bundle`` / ``load_model_bundle``, file for file:
 ``params.pkl`` (the param tree as numpy arrays), ``meta.pkl`` (dims as a
@@ -57,6 +66,11 @@ from matcha_tpu_torch.models.hypersagnn import (FrozenTables, ModelDims,
                                                 forward_buckets,
                                                 node_embeddings)
 from matcha_tpu_torch.models.modules import split_generator
+from matcha_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                            replicate_params, shard_frozen,
+                                            using_active_mesh)
+from matcha_tpu_torch.parallel.stream import (divisible, shard_concat,
+                                              shard_split)
 from matcha_tpu_torch.sampler.bloom import DeviceBloomFilter
 from matcha_tpu_torch.sampler.negative import (ChromTable, sample_negatives,
                                                sample_negatives_with_stats)
@@ -85,6 +99,10 @@ class TrainSettings(NamedTuple):
     # stream with one padded attention for every k >= 3; "padded": one
     # uniform pad-id-0 batch through ``forward``
     token_stream: str = "hybrid"
+    # data-shard count of the batch axis (the Trainer sets it from its
+    # mesh): the buckets' concatenations take the shard-major layout
+    # (parallel/stream.py); 1 = the plain layout
+    n_shards: int = 1
     # ((start, end), ...) node-id range per chromosome as host constants
     # (the Trainer sets them); None = the sampler's gather path
     chrom_bounds: Optional[tuple] = None
@@ -130,10 +148,18 @@ def make_optimizer(params, s: TrainSettings) -> torch.optim.AdamW:
                              weight_decay=s.weight_decay)
 
 
+def _resolve_ns(settings: TrainSettings, batch) -> int:
+    """The shard-major layout factor of a step: settings.n_shards when every
+    bucket's row count splits evenly over it, else 1 (the plain layout)."""
+    ns = settings.n_shards
+    return ns if divisible([batch[k][0].shape[-2] for k in batch], ns) else 1
+
+
 def _sample_all_negatives(table, blooms, settings: TrainSettings, batch,
-                          generator):
+                          generator, ns: int = 1):
     """Per-k negatives over a batch dict -> ({k: x = (pos; neg)},
-    {k: weights}, (bloom fallbacks, orig fallbacks, rows))."""
+    {k: weights}, (bloom fallbacks, orig fallbacks, rows)); the x rows are
+    laid out shard-major for ns > 1 (read back with ``shard_split``)."""
     xs, ws, fb = {}, {}, []
     gens = split_generator(generator, len(batch))
     for gen, k in zip(gens, sorted(batch.keys())):
@@ -150,21 +176,24 @@ def _sample_all_negatives(table, blooms, settings: TrainSettings, batch,
             propose_impl=settings.propose_impl)
         fb.append(torch.stack([st["bloom_fallback"], st["orig_fallback"],
                                st["rows"]]))
-        xs[k] = torch.cat([pos.to(torch.int32), neg])
+        xs[k] = shard_concat([pos.to(torch.int32), neg], ns)
         ws[k] = w
     fb = torch.stack(fb).sum(dim=0)
     return xs, ws, (fb[0], fb[1], fb[2])
 
 
-def _bucket_bce_and_preds(logits, batch, ws):
+def _bucket_bce_and_preds(logits, batch, ws, ns: int = 1):
     """Weighted BCE-with-logits averaged over buckets (positives weighted
     by their quantile weight, negatives by 1) and the sigmoid predictions,
-    for per-k logits of (pos; neg) rows."""
+    for per-k logits of (pos; neg) rows in the ns shard-major layout (the
+    predictions come back in (pos; neg) order)."""
     total = 0.0
     preds = []
     for k in sorted(batch.keys()):
         n_pos = batch[k][0].shape[0]
         lg = logits[k]
+        if ns > 1:
+            lg = torch.cat(shard_split(lg, ns, [n_pos, lg.shape[0] - n_pos]))
         dev = lg.device
         y = torch.cat([torch.ones(n_pos, device=dev),
                        torch.zeros(lg.shape[0] - n_pos, device=dev)])[:, None]
@@ -188,15 +217,17 @@ def _batch_loss_merged(params, frozen, dims, table, blooms, settings,
                        recon_chrom: Optional[int] = None):
     """The merged token-stream step loss (``forward_buckets``; "hybrid"
     runs it in pad-max attention mode, "merged" in per-k)."""
+    ns = _resolve_ns(settings, batch)
     g_neg, g_fwd = split_generator(generator, 2)
-    xs, ws, fb = _sample_all_negatives(table, blooms, settings, batch, g_neg)
+    xs, ws, fb = _sample_all_negatives(table, blooms, settings, batch, g_neg,
+                                       ns)
     mode = "pad-max" if settings.token_stream == "hybrid" else "per-k"
     logits, recon = forward_buckets(params, frozen, dims, xs,
                                     generator=g_fwd, train=train,
                                     return_recon=True, node_table=node_table,
                                     attention_mode=mode,
-                                    recon_chrom=recon_chrom)
-    bce, preds = _bucket_bce_and_preds(logits, batch, ws)
+                                    recon_chrom=recon_chrom, n_shards=ns)
+    bce, preds = _bucket_bce_and_preds(logits, batch, ws, ns)
     loss = settings.alpha * bce + settings.beta * recon
     return loss, _aux(bce, recon, preds, fb)
 
@@ -206,18 +237,21 @@ def _batch_loss_padded(params, frozen, dims, table, blooms, settings,
                        recon_chrom: Optional[int] = None):
     """One uniform pad-id-0 batch through a single ``forward`` call (pads
     take part as attention keys; masked mean over the real positions)."""
+    ns = _resolve_ns(settings, batch)
     g_neg, g_fwd = split_generator(generator, 2)
-    xs, ws, fb = _sample_all_negatives(table, blooms, settings, batch, g_neg)
+    xs, ws, fb = _sample_all_negatives(table, blooms, settings, batch, g_neg,
+                                       ns)
     ks = sorted(batch.keys())
     L = max(ks)
-    x_all = torch.cat([torch.nn.functional.pad(xs[k], (0, L - k))
-                       for k in ks])
+    x_all = shard_concat([torch.nn.functional.pad(xs[k], (0, L - k))
+                          for k in ks], ns)
     logits_all, recon = forward(params, frozen, dims, x_all,
                                 generator=g_fwd, train=train,
                                 return_recon=True, node_table=node_table,
                                 recon_chrom=recon_chrom)
-    logits = dict(zip(ks, logits_all.split([xs[k].shape[0] for k in ks])))
-    bce, preds = _bucket_bce_and_preds(logits, batch, ws)
+    logits = dict(zip(ks, shard_split(logits_all, ns,
+                                      [xs[k].shape[0] for k in ks])))
+    bce, preds = _bucket_bce_and_preds(logits, batch, ws, ns)
     loss = settings.alpha * bce + settings.beta * recon
     return loss, _aux(bce, recon, preds, fb)
 
@@ -481,19 +515,29 @@ class _Snapshot:
 
 
 class Trainer:
-    """Drives training steps over bucketed batches on one device.
+    """Drives training steps over bucketed batches on one device, or on a
+    mesh of ranks (one process each).
 
     The Trainer copies ``params`` (its own leaves, each a tensor that
     requires grad), pads ``frozen.inter_z`` with f_max zero columns (the
     recon target is then a contiguous slice) and hoists the chromosome
     ranges to host constants for the sampler.  ``seed`` seeds its CPU
     generator, from which every step splits its table, negative and
-    forward streams."""
+    forward streams.
+
+    mesh: a ``parallel.mesh.Mesh`` (every rank builds its Trainer with the
+    same arguments): the params are broadcast from rank 0 (replicated),
+    the padded frozen tables keep this rank's rows on the model axis,
+    ``settings.n_shards`` becomes the data axis, and every call runs under
+    the mesh.  Every rank draws from the same generator stream, samples the
+    whole batch's negatives and computes its rows; each gets the whole
+    step's loss, logits and metrics.  tensor_parallel raises (the next
+    slice)."""
 
     def __init__(self, params: Dict, frozen: FrozenTables, dims: ModelDims,
                  chrom_table: ChromTable, settings: TrainSettings,
                  blooms: Optional[Dict[int, DeviceBloomFilter]] = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None, tensor_parallel: bool = False):
         self.params = _tree_map(
             lambda t: t.detach().clone().requires_grad_(True), params)
         if frozen.features:
@@ -508,6 +552,11 @@ class Trainer:
                 (int(s), int(e)) for s, e in
                 zip(chrom_table.chrom_start.tolist(),
                     chrom_table.chrom_end.tolist())))
+        if mesh is not None or tensor_parallel:
+            replicate_params(self.params, mesh, tensor_parallel)
+            frozen = shard_frozen(frozen, mesh)
+            settings = settings._replace(n_shards=int(mesh.shape["data"]))
+        self.mesh = mesh
         self.frozen = frozen
         self.dims = dims
         self.chrom_table = chrom_table
@@ -526,17 +575,38 @@ class Trainer:
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One step on {k: (positives (B, k) int32, weights (B,))} on the
-        params' device -> aux tensors (no host synchronisation)."""
+        params' device -> aux tensors (no host synchronisation on one
+        device).  Under a mesh every rank passes the whole batch, backs the
+        whole loss / W through its rows, and the flat gradient is summed
+        over the ranks once (``_sum_grads``) before AdamW."""
         g_tab, g_loss = split_generator(self.generator, 2)
         self.optimizer.zero_grad(set_to_none=False)
-        node_table = encode_node_table(self.params, self.frozen, self.dims,
-                                       generator=g_tab, train=True)
-        loss, aux = batch_loss(self.params, self.frozen, self.dims,
-                               self.chrom_table, self.blooms, self.settings,
-                               batch, g_loss, node_table, True)
-        loss.backward()
+        with using_active_mesh(self.mesh):
+            node_table = encode_node_table(self.params, self.frozen,
+                                           self.dims, generator=g_tab,
+                                           train=True)
+            loss, aux = batch_loss(self.params, self.frozen, self.dims,
+                                   self.chrom_table, self.blooms,
+                                   self.settings, batch, g_loss, node_table,
+                                   True)
+            world = 1 if self.mesh is None else self.mesh.size
+            (loss / world if world > 1 else loss).backward()
+        self._sum_grads()
         self.optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
+
+    def _sum_grads(self) -> None:
+        """Under a mesh with a process group: one all-reduce (SUM) of every
+        leaf's gradient as a flat f32 buffer.  Each rank's gradient is that
+        of its copy of the loss / W through its own rows, so the sum is the
+        whole loss's gradient, every parameter summed exactly once."""
+        if self.mesh is None or self.mesh.world is None:
+            return
+        grads = [t.grad for t in _leaves(self.params)]
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        all_reduce_sum(flat, self.mesh.world)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view(g.shape))
 
     def _run_epoch(self, stacked, t0: float):
         """Steps over stacked {k: (edges (S, B, k), weights (S, B))} on the
@@ -671,7 +741,7 @@ class Trainer:
                                          max_samples, seed)
         ks, xs, szs, ws = _pool_test_rows(test_buckets)
         take = min(len(xs), max_samples)
-        bs = min(batch_size, take)
+        bs = self._eval_batch(min(batch_size, take))
         if bs == 0:
             return self._finish_eval(None)
         n_batches = take // bs
@@ -695,7 +765,7 @@ class Trainer:
         negatives and the recon chromosome draw from the Trainer's generator
         here, so it has advanced past this eval when the call returns."""
         n_batches, bs = sizes_drawn.shape
-        with torch.no_grad():
+        with torch.no_grad(), using_active_mesh(self.mesh):
             node_table = encode_node_table(self.params, self.frozen,
                                            self.dims, train=False)
             auxs = [_eval_mixed_loss(
@@ -718,6 +788,12 @@ class Trainer:
             got["pred"] = pred
         return {"fetch": _HostFetch(got), "groups": list(vals),
                 "group_sizes": mfn.group_sizes}
+
+    def _eval_batch(self, bs: int) -> int:
+        """An eval batch size cut to a multiple of the mesh's data axis, as
+        the JAX package cuts it (0 when smaller than the data axis)."""
+        nd = 1 if self.mesh is None else int(self.mesh.shape["data"])
+        return (bs // nd) * nd
 
     def _finish_eval(self, handle: Optional[Dict]) -> Dict:
         """The one fetch of an eval dispatch (``_launch_eval``) and its
@@ -750,7 +826,7 @@ class Trainer:
             return None
         ks, xs, szs, ws = _pool_test_rows(test_buckets)
         take = min(len(xs), max_samples)
-        bs = min(batch_size, take)
+        bs = self._eval_batch(min(batch_size, take))
         if bs == 0:
             return None
         dev = _leaves(self.params)[0].device
@@ -785,7 +861,7 @@ class Trainer:
         plan, n_batches = {}, None
         for k, (e, _) in sorted(test_buckets.items()):
             take = min(len(e), per_k)
-            bs = min(batch_size, take)
+            bs = self._eval_batch(min(batch_size, take))
             if bs == 0:
                 continue
             nb = take // bs
@@ -802,7 +878,7 @@ class Trainer:
             stacked[k] = (
                 to_device(np.asarray(e)[idx].reshape(n_batches, bs, k), dev),
                 to_device(np.asarray(w)[idx].reshape(n_batches, bs), dev))
-        with torch.no_grad():
+        with torch.no_grad(), using_active_mesh(self.mesh):
             node_table = encode_node_table(self.params, self.frozen,
                                            self.dims, train=False)
             auxs = [batch_loss(self.params, self.frozen, self.dims,
@@ -846,6 +922,18 @@ class Trainer:
           eval (the first epoch after the warm-up epoch 0) under this
           directory (``utils.profile_trace``); the same window whether or
           not the epochs overlap.
+        checkpoint_format: "pickle" (one file, ``save_checkpoint``) or
+          "orbax": ``checkpoint_path`` and ``resume_path`` are directories
+          of ``train/checkpoint.OrbaxCheckpointer`` step checkpoints
+          (``torch.distributed.checkpoint``, written in the background; the
+          JAX package's argument, not orbax's format); its epochs run in the
+          serial loop.
+
+        Under a mesh every rank runs ``fit`` with the same arguments: only
+        rank 0 logs and writes the pickles, the metrics log and the
+        embeddings (every rank takes part in an "orbax" save); every rank
+        reads the best checkpoint back at the end.  The epochs there run in
+        the serial loop (the overlapped pipeline is single-process).
 
         Indexed epochs outside the regress mode overlap (MATCHA_FIT_OVERLAP,
         default "1"; "0" runs the serial loop): epoch N's host work (the
@@ -859,14 +947,13 @@ class Trainer:
         generator (``_Snapshot``), from which the worker writes.  The worker
         sees host arrays only.  A failure there is raised here at the next
         join (after epoch N+1's dispatch, or at the end)."""
-        if checkpoint_format == "orbax":
-            raise NotImplementedError(
-                "checkpoint_format='orbax' (sharded asynchronous "
-                "checkpoints) is not ported yet; it comes with multi-GPU "
-                "training (ROADMAP.md, Queue 1 item 6)")
-        if checkpoint_format != "pickle":
-            raise ValueError(f"checkpoint_format must be 'pickle', got "
-                             f"{checkpoint_format!r}")
+        if checkpoint_format not in ("pickle", "orbax"):
+            raise ValueError(f"checkpoint_format must be 'pickle' or "
+                             f"'orbax', got {checkpoint_format!r}")
+        multi = self.mesh is not None and self.mesh.size > 1
+        rank0 = self.mesh is None or self.mesh.rank == 0
+        if not rank0:
+            log, metrics_logger = (lambda *a, **k: None), None
         if device_epochs == "auto":
             device_epochs = os.environ.get("MATCHA_DEVICE_EPOCHS", "auto")
         if device_epochs not in ("auto", "on", "off"):
@@ -894,8 +981,15 @@ class Trainer:
         best = -float("inf")
         history: List[Dict] = []
         start_epoch = 0
+        ckpt_mgr = resume_mgr = None
+        if checkpoint_format == "orbax":
+            from matcha_tpu_torch.train.checkpoint import OrbaxCheckpointer
+            if checkpoint_path:
+                ckpt_mgr = OrbaxCheckpointer(checkpoint_path)
+            if resume_path:
+                resume_mgr = OrbaxCheckpointer(resume_path)
         if resume and resume_path:
-            snap = self._load_resume(resume_path)
+            snap = self._load_resume(resume_path, resume_mgr)
             if snap is not None:
                 if snap.get("best") is not None:
                     best = float(snap["best"])
@@ -938,9 +1032,17 @@ class Trainer:
                 save(resume_path, epoch, best)
 
         def save_live(path, epoch, best_):
-            save_checkpoint(path, self.params, self.optimizer, epoch,
-                            generator=None if best_ is None
-                            else self.generator, best=best_)
+            if checkpoint_format == "orbax":
+                mgr = ckpt_mgr if best_ is None else resume_mgr
+                mgr.save(epoch, self.params,
+                         _adamw_state(self.params, self.optimizer), epoch,
+                         key=None if best_ is None
+                         else self.generator.get_state().numpy(),
+                         best=best_)
+            elif rank0:
+                save_checkpoint(path, self.params, self.optimizer, epoch,
+                                generator=None if best_ is None
+                                else self.generator, best=best_)
 
         def finalize(epoch, aux, elapsed, ev_handle, snap):
             """Epoch ``epoch``'s host work, on the worker thread."""
@@ -958,7 +1060,11 @@ class Trainer:
                 np.save(embeddings_path, host["emb"])
 
         overlap = (use_indexed and self.settings.task_mode != "regress"
+                   and checkpoint_format == "pickle" and not multi
                    and os.environ.get("MATCHA_FIT_OVERLAP", "1") == "1")
+        if multi and use_indexed:
+            log("fit under a mesh of several ranks: serial epoch loop (the "
+                "overlapped pipeline is single-process)")
         pinned_eval = (self._pin_eval_pool(test_buckets, batch_size)
                        if overlap else None)
         worker = (concurrent.futures.ThreadPoolExecutor(
@@ -1002,7 +1108,16 @@ class Trainer:
         finally:
             if worker is not None:
                 worker.shutdown(wait=True)
-        if checkpoint_path and os.path.exists(checkpoint_path):
+            for mgr in (resume_mgr, ckpt_mgr):
+                if mgr is not None:
+                    mgr.close()
+        if self.mesh is not None and self.mesh.world is not None:
+            torch.distributed.barrier()   # rank 0's writes are done
+        if ckpt_mgr is not None:
+            if ckpt_mgr.latest_step() is not None:
+                self._restore_params(ckpt_mgr.restore(
+                    like_params=self.params)[0])
+        elif checkpoint_path and os.path.exists(checkpoint_path):
             self._restore_params(load_checkpoint(
                 checkpoint_path, device=_leaves(self.params)[0].device))
         return history
@@ -1014,13 +1129,26 @@ class Trainer:
             for t, v in zip(_leaves(self.params), _leaves(params)):
                 t.copy_(v)
 
-    def _load_resume(self, resume_path: str) -> Optional[Dict]:
-        """Restore a resume snapshot (params, AdamW state, generator) ->
-        the snapshot's dict, or None when there is none yet."""
-        if not os.path.exists(resume_path):
+    def _load_resume(self, resume_path: str,
+                     manager=None) -> Optional[Dict]:
+        """Restore a resume snapshot (params, AdamW state, generator) from
+        the pickle at ``resume_path`` or from ``manager``'s latest step (an
+        ``OrbaxCheckpointer``) -> the snapshot's dict, or None when there is
+        none yet."""
+        if manager is not None:
+            if manager.latest_step() is None:
+                return None
+            params, opt, epoch = manager.restore(
+                like_params=self.params,
+                like_opt_state=_adamw_state(self.params, self.optimizer))
+            snap = {"params": params, "opt_state": opt, "epoch": epoch,
+                    "key": manager.last_meta.get("key"),
+                    "best": manager.last_meta.get("best")}
+        elif os.path.exists(resume_path):
+            snap = load_checkpoint(resume_path, full=True,
+                                   device=_leaves(self.params)[0].device)
+        else:
             return None
-        snap = load_checkpoint(resume_path, full=True,
-                               device=_leaves(self.params)[0].device)
         if snap.get("epoch") is None:
             return None
         self._restore_params(snap["params"])
@@ -1029,8 +1157,8 @@ class Trainer:
             sd = self.optimizer.state_dict()
             sd["state"] = {
                 i: {"step": torch.tensor(float(n)),
-                    "exp_avg": torch.from_numpy(np.asarray(a)),
-                    "exp_avg_sq": torch.from_numpy(np.asarray(b))}
+                    "exp_avg": torch.as_tensor(np.asarray(a)),
+                    "exp_avg_sq": torch.as_tensor(np.asarray(b))}
                 for i, (a, b, n) in enumerate(zip(
                     st["exp_avg"], st["exp_avg_sq"], st["step"]))}
             self.optimizer.load_state_dict(sd)
@@ -1041,12 +1169,14 @@ class Trainer:
 
     def export_embeddings(self, path: str, params=None) -> np.ndarray:
         """The node embeddings (N, dim) of ``params`` (default: the live
-        ones), saved with ``np.save`` as f32."""
+        ones), saved with ``np.save`` as f32 (by rank 0 under a mesh, where
+        every rank calls it)."""
         p = self.params if params is None else params
-        with torch.no_grad():
+        with torch.no_grad(), using_active_mesh(self.mesh):
             emb = node_embeddings(p, self.frozen, self.dims)
         emb = emb.float().cpu().numpy()
-        np.save(path, emb)
+        if self.mesh is None or self.mesh.rank == 0:
+            np.save(path, emb)
         return emb
 
 

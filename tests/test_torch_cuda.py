@@ -20,8 +20,12 @@ none of K1, K2, K5 and K6 and matches the same computation on the CPU.  The
 last three hold the closed-form pair scorer, a per-occurrence training step
 and the recon decode with bf16 operands on the card against the CPU.  The
 walk pretraining's: K3 and K4 at the SGNS shapes, one SGNS step card
-against CPU, and the co-occurrence scatter's determinism.
+against CPU, and the co-occurrence scatter's determinism.  The last runs
+only on a machine with several cards: meshes of one rank per card on NCCL
+against one rank.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -798,3 +802,110 @@ def test_pair_cooccurrence_is_deterministic_on_the_card(cuda):
     assert torch.equal(a, b)
     ref = pair_cooccurrence(PaddedIncidence(inc.members.cpu()), w.cpu(), 3067)
     assert float((a.cpu() - ref).abs().max()) <= 1e-6 * float(ref.max())
+
+
+def _cards_rank(rank, device, n_data, n_model):
+    """One rank of ``test_mesh_on_several_cards`` (spawned, NCCL on the
+    cards; gloo on the CPU for a rehearsal, where no kernel launches): a
+    dim-64, 8-head model on three chromosomes, k = 2, 3, 4."""
+    from matcha_tpu_torch.data.batcher import BucketedBatcher
+    from matcha_tpu_torch.genome import GenomeBins
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.parallel import mesh as pm
+    from matcha_tpu_torch.parallel.stream import shard_concat
+    from matcha_tpu_torch.sampler.bloom import build_bloom_dict
+    from matcha_tpu_torch.sampler.negative import ChromTable
+    from matcha_tpu_torch.train import runtime as tr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pm.make_mesh(n_data, n_model)
+    rng = np.random.default_rng(0)
+    genome = GenomeBins(["chr1", "chr2", "chr3"],
+                        [30_000_000, 22_000_000, 15_000_000], 1_000_000)
+    n = genome.num_nodes
+    intra = rng.random((n, n)).astype(np.float32)
+    inter = rng.random((n, n)).astype(np.float32)
+    buckets = {}
+    for k in (2, 3, 4):
+        e = np.sort(rng.choice(np.arange(1, n + 1), (600, k)), axis=1)
+        e = e[(np.diff(e, axis=1) > 0).all(axis=1)][:256].astype(np.int32)
+        buckets[k] = (e, rng.random(len(e)).astype(np.float32) + 0.5)
+    dims = th.ModelDims(dim=64, n_head=8, num_chroms=3, num_nodes=n)
+    params = th.init_model(torch.Generator().manual_seed(0), dims,
+                           [int(e - s) for s, e in genome.chrom_range],
+                           device=device)
+    frozen = th.build_frozen_tables(genome, intra + intra.T, inter,
+                                    device=device)
+    table = ChromTable.from_genome(genome, device=device)
+    blooms = build_bloom_dict({k: v[0] for k, v in buckets.items()},
+                              device=device)
+    settings = tr.TrainSettings(alpha=1.0, beta=0.001, token_stream="merged")
+
+    def step(mesh_, n_shards):
+        """The f32 step with dropout off on fixed negatives (copies of the
+        positives, shifted), the gradients summed over the ranks."""
+        t = tr.Trainer(params, frozen, dims, table,
+                       settings._replace(n_shards=n_shards), blooms,
+                       mesh=mesh_)
+        batch = {k: (torch.from_numpy(e[:64]).to(device),
+                     torch.from_numpy(w[:64]).to(device))
+                 for k, (e, w) in buckets.items()}
+        xs = {k: shard_concat([p, torch.roll(p, 1, 0).repeat(3, 1)],
+                              n_shards) for k, (p, _) in batch.items()}
+        world = 1 if mesh_ is None else mesh_.size
+        with pm.using_active_mesh(mesh_):
+            logits, recon = th.forward_buckets(
+                t.params, t.frozen, dims, xs, return_recon=True,
+                attention_mode="per-k", recon_chrom=1, n_shards=n_shards)
+            bce, _ = tr._bucket_bce_and_preds(
+                logits, batch, {k: w for k, (_, w) in batch.items()},
+                n_shards)
+            ((bce + 0.001 * recon) / world).backward()
+        t._sum_grads()
+        return [p.grad.float().cpu() for p in tr._leaves(t.params)]
+
+    before = (ta.hyperedge_attention.launches, ts.scatter_add.launches,
+              ts.bincount.launches)
+    got = step(mesh, n_data)
+    if device.type == "cuda":        # K1 for k = 3, 4; K3 and K4 once
+        assert (ta.hyperedge_attention.launches, ts.scatter_add.launches,
+                ts.bincount.launches) == (before[0] + 2, before[1] + 1,
+                                          before[2] + 1)
+    ref = step(None, n_data)
+    top = max(float(b.abs().max()) for b in ref)
+    for a, b in zip(got, ref):
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * max(float(b.abs().max()), 1e-3 * top), err
+    # a bf16 fit with "orbax" checkpoints; the ranks end on the same params
+    fit = tr.Trainer(params, frozen, dims._replace(compute_dtype="bfloat16"),
+                     table, settings, blooms, mesh=mesh)
+    ck = os.path.join(os.environ["MATCHA_CARDS_TMP"],
+                      f"ck{n_data}x{n_model}")
+    hist = fit.fit(buckets, buckets, epochs=2, batch_size=64,
+                   num_batch_per_iter=2, checkpoint_path=ck,
+                   checkpoint_format="orbax", log=lambda *a: None)
+    assert len(hist) == 2 and np.isfinite(hist[-1]["train"]["bce"])
+    flat = torch.cat([p.detach().reshape(-1).float()
+                      for p in tr._leaves(fit.params)])
+    every = pm.all_gather_rows(flat, mesh.world).reshape(mesh.size, -1)
+    assert all(torch.equal(every[0], r) for r in every[1:])
+
+
+@pytest.mark.cuda
+def test_mesh_on_several_cards(cuda, tmp_path, monkeypatch):
+    """On a machine with several cards: meshes of one rank per card on NCCL
+    (all cards x 1, and with four cards 2 x 2): each rank launches K1-K4
+    on its rows, the f32 step's gradients summed over the ranks equal one
+    rank's with n_shards = D (1e-5 of each gradient's max, floored at 1e-3
+    of the largest), and a bf16 fit with "orbax" checkpoints leaves every
+    rank with the same params.  Skips with one card."""
+    from matcha_tpu_torch.kernels.build import build
+    from matcha_tpu_torch.parallel.distributed import spawn
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    build()                 # once here, not in every rank
+    world = min(count, 4)
+    monkeypatch.setenv("MATCHA_CARDS_TMP", str(tmp_path))
+    for n_data, n_model in {(world, 1), (world // 2, 2)}:
+        spawn(_cards_rank, world, n_data, n_model, backend=None,
+              device="cuda")

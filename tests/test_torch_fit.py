@@ -254,9 +254,15 @@ def test_fit_drops_empty_buckets_and_reloads_the_best(small, tmp_path):
     for a, b in zip(_leaves_np(saved["params"]), _leaves_np(t.params)):
         np.testing.assert_array_equal(a, b)
     assert np.load(emb).shape == (small["genome"].num_nodes, 16)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="checkpoint_format"):
         t.fit(buckets, small["test"], epochs=1, checkpoint_path=ck,
-              checkpoint_format="orbax", **FIT)
+              checkpoint_format="zarr", **FIT)
+    # "orbax" (the torch.distributed.checkpoint stand-in) takes a directory
+    from matcha_tpu_torch.train.checkpoint import OrbaxCheckpointer
+    d = str(tmp_path / "orbax")
+    t.fit(buckets, small["test"], epochs=1, checkpoint_path=d,
+          checkpoint_format="orbax", **FIT)
+    assert OrbaxCheckpointer(d).latest_step() == 0
 
 
 def test_resume_mid_stage_is_exact(small, tmp_path):

@@ -40,6 +40,8 @@ def test_port_imports_no_jax_and_nothing_of_matcha_tpu():
                 "apps.outlier", "apps.analysis_bands",
                 "apps.plot_embedding", "utils", "ops.incidence",
                 "walks.alias", "walks.clique", "walks.hyper",
-                "walks.skipgram", "walks.pretrain", "data.generic"):
+                "walks.skipgram", "walks.pretrain", "data.generic",
+                "parallel.mesh", "parallel.stream", "parallel.distributed",
+                "train.checkpoint"):
         assert f"matcha_tpu_torch.{mod}" in report["modules"]
     assert report["leaked"] == []
