@@ -185,7 +185,22 @@ Phases, all in this process; any failure exits non-zero before the last line:
      peak memory; (c) on the 2 x 1 mesh a stage-2 fit of 2 epochs with the
      fused tail and the "pallas" proposals (K5, K6 on every rank, counts
      pinned with the eval batches') and "orbax" checkpoints, then a resume
-     in fresh Trainers for one more epoch.
+     in fresh Trainers for one more epoch; (d) tensor parallelism: K1 and
+     K2 against their plain versions at a tensor-parallel rank's shapes (4
+     heads of 64, the data row's 8,192 / D edges, L = 3, 4, 5, bf16 and
+     f32); in the ranks of the 1 x 2 and 2 x 2 meshes a tensor-parallel
+     Trainer beside the data-parallel one: its f32 step against the
+     data-parallel step on the same mesh (1e-5 of each gradient's max), a
+     timed bf16 epoch with the counts pinned per rank (K1 x3, K2 x3, K3 x1,
+     K4 x1 per step), finite losses, the whole params equal on every rank
+     and each rank's blocks across its data group; per rank the
+     synchronised step, the attention's collectives per step alone (gloo
+     through the host: not NCCL numbers) and the peak memory, beside the
+     data-parallel mesh's; (e) on the 1 x 2 mesh per-occurrence feature
+     dropout: a timed bf16 epoch (K1 x3, K2 x3 per step, no K3 or K4),
+     finite, the ranks' params equal, the peak memory per rank, and the f32
+     step at rate 0 (the other dropouts the identity) against one rank with
+     n_shards = D within 1e-5 of each gradient's max.
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -234,7 +249,10 @@ from matcha_tpu_torch.ops.hyperedge_attention import (
 from matcha_tpu_torch.ops.incidence import PaddedIncidence, pair_cooccurrence
 from matcha_tpu_torch.parallel.distributed import (free_port,
                                                    init_distributed, spawn)
-from matcha_tpu_torch.parallel.mesh import (frozen_nbytes, make_mesh,
+from matcha_tpu_torch.parallel.mesh import (all_gather_blocks,
+                                            frozen_nbytes, make_mesh,
+                                            model_group_rows, rank_rows,
+                                            reduce_scatter_blocks, tp_gather,
                                             using_active_mesh)
 from matcha_tpu_torch.parallel.stream import shard_concat
 from matcha_tpu_torch.sampler import bloom as tb
@@ -2788,6 +2806,10 @@ def modes_phase(problem, genome, card) -> dict:
 # gradient's max error relative to its largest entry, floored as phase 6
 # floors it: the ranks' sums and K3's scatter run in another order)
 MESH_SHAPES, MESH_FIT_EPOCHS, TOL_MESH_GRAD = ((2, 1), (1, 2), (2, 2)), 2, 1e-5
+# (d) tensor parallelism runs on the meshes with a model axis; (e)
+# per-occurrence feature dropout on this one; a mesh's ranks that have not
+# finished after MESH_RANKS_LIMIT_S are killed and the phase fails
+OCC_MESH, MESH_RANKS_LIMIT_S = (1, 2), 300
 
 
 def check_rank_shapes(device) -> dict:
@@ -2842,6 +2864,53 @@ def check_rank_shapes(device) -> dict:
     return worst
 
 
+def check_tp_shapes(device) -> dict:
+    """Phase 16 (d): K1 and K2 against their plain versions at the shapes
+    one rank of a tensor-parallel mesh gives them: the 8 heads' weights cut
+    into M = 2 blocks of 4 heads (block 0 with fc1's bias, block 1 with a
+    zero bias, as the model ranks run them), the data row's rows (8,192 / D
+    edges per k, D = 1, 2), L = 3, 4, 5, bf16 and f32 -> the worst errors
+    per dtype."""
+    worst = {dt: {"K1": 0.0, "K2": 0.0} for dt in ("bfloat16", "float32")}
+    names = ["gx", "gln", "gwq", "gwk", "gwv", "gfw", "gfb"]
+    heads = N_HEAD // 2
+    hd = heads * DIM
+    for n_data in (1, 2):
+        E = 4 * TRAIN_BATCH // n_data
+        for L in (3, 4, 5):
+            for dt in ("bfloat16", "float32"):
+                x, (ln, wq, wk, wv, fw, fb) = attention_inputs(
+                    device, E, L, dt, seed=SEED + 80 + n_data + L)
+                m = L % 2                         # one block per shape
+                cut = [w[:, m * hd:(m + 1) * hd].contiguous()
+                       for w in (wq, wk, wv)]
+                args = [ln, *cut, fw[m * hd:(m + 1) * hd].contiguous(),
+                        fb if m == 0 else torch.zeros_like(fb)]
+                y = hyperedge_attention_cuda(x, *args, heads, True)
+                y_ref = hyperedge_attention_plain(x, *args, heads, True)
+                g = torch.randn(x.shape, generator=torch.Generator()
+                                .manual_seed(E + L)).to(device, x.dtype)
+                got = hyperedge_attention_bwd_cuda(x, *args, g, heads, True)
+                ref = hyperedge_attention_bwd_plain(x, *args, g, heads, True)
+                torch.cuda.synchronize()
+                e1 = float((y.float() - y_ref.float()).abs().max())
+                e2 = max(rel_err(a, b) for a, b in zip(got, ref))
+                ok = (torch.allclose(y.float(), y_ref.float(),
+                                     rtol=TOL_KERNEL[dt], atol=TOL_KERNEL[dt])
+                      and e2 <= TOL_K2[dt])
+                print(f"tensor-parallel shapes (D={n_data}, {heads} heads, "
+                      f"block {m}): K1 E={E} L={L} {dt} max_abs_err="
+                      f"{e1:.3e} (tol {TOL_KERNEL[dt]}), K2 worst "
+                      f"rel-to-max {e2:.3e} (tol {TOL_K2[dt]}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"K1/K2 at {heads} heads disagree with their plain "
+                         f"versions at E={E}, L={L}, {dt}")
+                worst[dt]["K1"] = max(worst[dt]["K1"], e1)
+                worst[dt]["K2"] = max(worst[dt]["K2"], e2)
+    return worst
+
+
 def mesh_step_inputs(problem, device) -> dict:
     """The deterministic step's fixed inputs: CHECK_BATCH positives per k,
     their negatives sampled once on the card, the recon chromosome."""
@@ -2857,11 +2926,14 @@ def mesh_step_inputs(problem, device) -> dict:
     return out
 
 
-def mesh_step(trainer, inp, device, n_data: int):
+def mesh_step(trainer, inp, device, n_data: int, train: bool = False):
     """One step of ``trainer``'s params under its mesh with dropout off on
     the fixed inputs (the per-k forward, weighted BCE + 0.001 recon), the
     rows laid out for n_data shards and the gradients summed over the
-    ranks -> (loss, gradients on the host)."""
+    ranks -> (loss, whole gradients on the host; a tensor-parallel
+    Trainer's blocks gathered over the model group).  ``train``: train
+    mode with a generator (the per-occurrence embedding; the caller turns
+    the dropouts off)."""
     xs = {k: shard_concat([torch.from_numpy(inp[f"pos{k}"]).to(device),
                            torch.from_numpy(inp[f"neg{k}"]).to(device)],
                           n_data) for k in TRAIN_KS}
@@ -2874,15 +2946,19 @@ def mesh_step(trainer, inp, device, n_data: int):
         logits, recon = forward_buckets(
             trainer.params, trainer.frozen, trainer.dims, xs,
             return_recon=True, attention_mode="per-k",
-            recon_chrom=int(inp["r"]), n_shards=n_data)
+            recon_chrom=int(inp["r"]), n_shards=n_data, train=train,
+            generator=torch.Generator().manual_seed(SEED + 65)
+            if train else None)
         bce, _ = _bucket_bce_and_preds(logits, batch,
                                        {k: b[1] for k, b in batch.items()},
                                        n_data)
         loss = bce + 0.001 * recon
         (loss / world).backward()
     trainer._sum_grads()
-    return float(loss.detach()), [t.grad.float().cpu()
-                                  for t in _leaves(trainer.params)]
+    axes = trainer._tp_axes or [None] * len(_leaves(trainer.params))
+    return float(loss.detach()), [tp_gather(t.grad, a, trainer.mesh)
+                                  .float().cpu() for t, a in
+                                  zip(_leaves(trainer.params), axes)]
 
 
 def shipped_settings(**kw) -> TrainSettings:
@@ -2906,8 +2982,8 @@ def mesh_rank(rank, device, n_data, n_model, tmp, fit, sizes):
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     mesh = make_mesh(n_data, n_model)
     genome = hg38_genome()
-    dims, params, frozen, buckets, blooms, table = train_problem(genome,
-                                                                 device)
+    problem = train_problem(genome, device)
+    dims, params, frozen, buckets, blooms, table = problem
     inp = dict(np.load(os.path.join(tmp, "step_inputs.npz")))
     out = {"rank": rank}
     t32 = Trainer(params, frozen, dims._replace(compute_dtype="float32"),
@@ -2951,10 +3027,115 @@ def mesh_rank(rank, device, n_data, n_model, tmp, fit, sizes):
         reduces.append((time.perf_counter() - t0) * 1e3)
     out["step_ms"], out["all_reduce_ms"] = steps, reduces
     out["grad_bytes"] = sum(t.numel() * 4 for t in _leaves(trainer.params))
+    del trainer
+    if n_model > 1:
+        out["tp"] = tp_rank(mesh, device, n_data, problem, inp, batch)
+    if (n_data, n_model) == OCC_MESH:
+        out["occ"] = occ_rank(mesh, device, n_data, problem, inp)
     if fit:
         out["fit"] = mesh_fit(rank, mesh, genome, dims, params, frozen,
                               buckets, blooms, table, tmp)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def timed_epoch(trainer, buckets, on_card: bool) -> dict:
+    """A warm-up and a timed epoch of TRAIN_STEPS indexed steps, the counts
+    zeroed just before the timed one and read just after, and the peak
+    memory over it."""
+    batcher = BucketedBatcher(buckets, TRAIN_BATCH, TRAIN_STEPS, seed=SEED)
+    if not trainer.pin_base_buckets(batcher):
+        fail("the buckets do not fit the pin budget")
+    warm = trainer.train_epoch_indexed(batcher)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    timed = trainer.train_epoch_indexed(batcher)
+    return {"warm": warm, "timed": timed, "counts": launch_counts(),
+            "peak_bytes": torch.cuda.max_memory_allocated() if on_card
+            else 0}
+
+
+def attention_collectives_ms(mesh, device, n=10) -> list:
+    """Phase 16 (d): the attention's collectives of one tensor-parallel
+    step alone, synchronised: for each k the rank's rows (bf16) gathered
+    over its data row and reduce-scattered back, forward and backward (the
+    backward's all-gather and reduce-scatter) -> ms per step, n times."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    xs = []
+    for k in TRAIN_KS:
+        rows = 4 * TRAIN_BATCH
+        lo, hi = rank_rows(rows, mesh)
+        xs.append((torch.randn((hi - lo, k, DIM), device=device).to(
+            torch.bfloat16).requires_grad_(True),
+            model_group_rows([rows], mesh)))
+    out = []
+    for _ in range(n + 2):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for x, sizes in xs:
+            y = reduce_scatter_blocks(all_gather_blocks(
+                x, sizes, mesh.model_group), sizes, mesh.model_group)
+            y.float().sum().backward()
+        sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out[2:]
+
+
+def tp_rank(mesh, device, n_data, problem, inp, batch) -> dict:
+    """Phase 16 (d), one rank of a mesh with a model axis, tensor-parallel
+    (the attention weights' heads on the model axis): the f32 step on the
+    fixed inputs (its whole gradients), a warm-up and a timed bf16 epoch
+    (counts, peak memory, this rank's blocks and the whole params), the
+    synchronised steps and the attention's collectives per step."""
+    dims, params, frozen, buckets, blooms, table = problem
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t32 = Trainer(params, frozen, dims._replace(compute_dtype="float32"),
+                  table, shipped_settings(), blooms=blooms, seed=SEED + 1,
+                  mesh=mesh, tensor_parallel=True)
+    out = {}
+    out["loss_f32"], out["grads_f32"] = mesh_step(t32, inp, device, n_data)
+    del t32
+    trainer = Trainer(params, frozen, dims, table, shipped_settings(),
+                      blooms=blooms, seed=SEED + 1, mesh=mesh,
+                      tensor_parallel=True)
+    out.update(timed_epoch(trainer, buckets, on_card))
+    out["params"] = [t.detach().cpu() for t in _leaves(trainer.params)]
+    out["whole"] = [t.detach().cpu()
+                    for t in _leaves(trainer.whole_params())]
+    out["held_shapes"] = [tuple(t.shape) for t in _leaves(trainer.params)]
+    steps = []
+    for _ in range(6):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        sync()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = steps
+    out["collectives_ms"] = attention_collectives_ms(mesh, device)
+    return out
+
+
+def occ_rank(mesh, device, n_data, problem, inp) -> dict:
+    """Phase 16 (e), one rank of OCC_MESH with per-occurrence feature
+    dropout: a warm-up and a timed bf16 epoch (counts, peak memory, the
+    params), and the f32 step in train mode with the feature dropout at
+    rate 0 and the other dropouts the identity (its whole gradients)."""
+    dims, params, frozen, buckets, blooms, table = problem
+    occ = dims._replace(feature_dropout_mode="per_occurrence")
+    trainer = Trainer(params, frozen, occ, table, shipped_settings(),
+                      blooms=blooms, seed=SEED + 52, mesh=mesh)
+    out = timed_epoch(trainer, buckets, device.type == "cuda")
+    out["params"] = [t.detach().cpu() for t in _leaves(trainer.params)]
+    del trainer
+    f32 = occ._replace(compute_dtype="float32", feature_dropout=0.0)
+    t32 = Trainer(params, frozen, f32, table, shipped_settings(),
+                  blooms=blooms, seed=SEED + 1, mesh=mesh)
+    with unittest.mock.patch.object(modules, "dropout", identity_dropout):
+        out["loss_f32"], out["grads_f32"] = mesh_step(t32, inp, device,
+                                                      n_data, train=True)
+    return out
 
 
 def mesh_fit(rank, mesh, genome, dims, params, frozen, buckets, blooms,
@@ -3074,8 +3255,10 @@ def mesh_phase(problem, genome, card, sizes=None,
     a bf16 epoch's params equal across the ranks, the step and all-reduce
     times, the frozen tables' bytes and the peak memory per rank; (c) the
     2 x 1 mesh's stage-2 fit on the opt-in path, "orbax" checkpoints and a
-    resume.  ``sizes`` and ``device``: a rehearsal's smaller constants
-    (passed to the ranks) and its device."""
+    resume; (d) on the meshes with a model axis, tensor parallelism
+    (``tp_check``); (e) on OCC_MESH, per-occurrence feature dropout
+    (``occ_check``).  ``sizes`` and ``device``: a rehearsal's smaller
+    constants (passed to the ranks) and its device."""
     sizes = sizes or {}
     out = {"world_of_one": world_of_one_phase(problem, card)}
     dims, params, frozen, buckets, blooms, table = problem
@@ -3089,6 +3272,16 @@ def mesh_phase(problem, genome, card, sizes=None,
         refs[n_data] = mesh_step(t, inp, device, n_data)
         whole = frozen_nbytes(t.frozen)      # one rank's, as a Trainer holds
         del t
+    # (e)'s reference: one rank with n_shards = D, per-occurrence at rate 0
+    occ32 = dims._replace(compute_dtype="float32",
+                          feature_dropout_mode="per_occurrence",
+                          feature_dropout=0.0)
+    t = Trainer(params, frozen, occ32, table,
+                shipped_settings(n_shards=OCC_MESH[0]), blooms=blooms,
+                seed=SEED + 1)
+    with unittest.mock.patch.object(modules, "dropout", identity_dropout):
+        refs["occ"] = mesh_step(t, inp, device, OCC_MESH[0], train=True)
+    del t
     want_step = {k: v * TRAIN_STEPS for k, v in
                  step_counts(False, False).items()}
     for n_data, n_model in MESH_SHAPES:
@@ -3098,8 +3291,15 @@ def mesh_phase(problem, genome, card, sizes=None,
             np.savez(os.path.join(tmp, "step_inputs.npz"), **inp)
             t0 = time.perf_counter()
             try:
-                spawn(mesh_rank, world, n_data, n_model, tmp, fit, sizes,
-                      backend="gloo", device=device.type)
+                ctx = spawn(mesh_rank, world, n_data, n_model, tmp, fit,
+                            sizes, backend="gloo", device=device.type,
+                            join=False)
+                while not ctx.join(timeout=5):
+                    if time.perf_counter() - t0 > MESH_RANKS_LIMIT_S:
+                        for proc in ctx.processes:
+                            proc.kill()
+                        fail(f"the {n_data}x{n_model} mesh's ranks did not "
+                             f"finish within {MESH_RANKS_LIMIT_S} s")
             except Exception as e:          # noqa: BLE001 - a rank failed
                 fail(f"a rank of the {n_data}x{n_model} mesh failed: {e}")
             wall = time.perf_counter() - t0
@@ -3151,9 +3351,108 @@ def mesh_phase(problem, genome, card, sizes=None,
             fail("the model axis did not shard the frozen tables")
         if fit:
             cell["fit"] = mesh_fit_check(ranks)
+        if n_model > 1:
+            cell["tp"] = tp_check(ranks, cell, n_data, n_model, names,
+                                  want_step)
+        if (n_data, n_model) == OCC_MESH:
+            cell["per_occurrence"] = occ_check(ranks, refs["occ"], names,
+                                               want_step)
         out[f"{n_data}x{n_model}"] = cell
     print(json.dumps({"metric": "mesh_training", **out, "card": card}),
           flush=True)
+    return out
+
+
+def tp_check(ranks, dp, n_data, n_model, names, want_step) -> dict:
+    """Phase 16 (d)'s checks on the ranks' results: each rank's f32
+    tensor-parallel step against the data-parallel step on the same mesh
+    (TOL_MESH_GRAD of each gradient's max), the launches of the timed
+    epoch (as the data-parallel step's), finite losses, the whole params
+    equal on every rank and each rank's blocks equal across its data group
+    (the ranks of one model index); beside the data-parallel mesh's, the
+    synchronised step, the attention's collectives per step and the peak
+    memory per rank."""
+    tps = [r["tp"] for r in ranks]
+    errs = [grad_errors(t["grads_f32"], r["grads_f32"], names)
+            for t, r in zip(tps, ranks)]
+    worst = max(max(e.values()) for e in errs)
+    loss_err = max(abs(t["loss_f32"] - r["loss_f32"]) / abs(r["loss_f32"])
+                   for t, r in zip(tps, ranks))
+    blocks = all(torch.equal(a, b) for i, t in enumerate(tps)
+                 for a, b in zip(t["params"], tps[i % n_model]["params"]))
+    whole = all(torch.equal(a, b) for t in tps[1:]
+                for a, b in zip(t["whole"], tps[0]["whole"]))
+    sharded = sum(a != b for a, b in zip(tps[0]["held_shapes"],
+                                         [tuple(w.shape) for w in
+                                          tps[0]["whole"]]))
+    finite = all(np.isfinite(t[e][k]) for t in tps
+                 for e in ("warm", "timed") for k in ("bce", "recon"))
+    out = {"grad_rel_to_max_err_f32_vs_dp": worst,
+           "loss_f32_rel_err_vs_dp": loss_err,
+           "launches_per_rank_epoch": [t["counts"] for t in tps],
+           "sharded_leaves": sharded,
+           "step_ms_per_rank": [statistics.median(t["step_ms"]) for t in tps],
+           "dp_step_ms_per_rank": dp["step_ms_per_rank"],
+           "attention_collectives_ms_per_rank_step": [
+               statistics.median(t["collectives_ms"]) for t in tps],
+           "collectives_note": ("gloo through the host, one card; not an "
+                                "NCCL number"),
+           "peak_memory_gb_per_rank": [t["peak_bytes"] / 1e9 for t in tps],
+           "dp_peak_memory_gb_per_rank": dp["peak_memory_gb_per_rank"],
+           "timed_epoch": {k: tps[0]["timed"][k] for k in
+                           ("bce", "recon", "elapsed",
+                            "hyperedges_per_sec")},
+           "blocks_equal_across_data_groups": blocks,
+           "whole_params_equal_across_ranks": whole}
+    print(f"mesh {n_data}x{n_model} tensor-parallel: {json.dumps(out)} "
+          f"(expected launches per rank {want_step}; grad tol "
+          f"{TOL_MESH_GRAD})", flush=True)
+    if any(t["counts"] != want_step for t in tps):
+        fail(f"a rank of the tensor-parallel {n_data}x{n_model} mesh "
+             "launched other counts")
+    if not worst <= TOL_MESH_GRAD or not loss_err <= TOL_MESH_GRAD:
+        fail(f"the tensor-parallel {n_data}x{n_model} step differs from the "
+             "data-parallel one")
+    if not (blocks and whole and finite and sharded == 4):
+        fail(f"the tensor-parallel {n_data}x{n_model} epoch is not finite, "
+             "its ranks' params differ, or the heads were not sharded")
+    return out
+
+
+def occ_check(ranks, ref, names, want_step) -> dict:
+    """Phase 16 (e)'s checks on the ranks' results: the launches of the
+    per-occurrence epoch (no K3 or K4), finite losses, the params equal on
+    every rank, and the f32 step at rate 0 against one rank with n_shards
+    = D (TOL_MESH_GRAD of each gradient's max); the peak memory per
+    rank."""
+    occ = [r["occ"] for r in ranks]
+    want = {**want_step, "K3": 0, "K4": 0}
+    ref_loss, ref_grads = ref
+    worst = max(max(grad_errors(o["grads_f32"], ref_grads, names).values())
+                for o in occ)
+    loss_err = max(abs(o["loss_f32"] - ref_loss) / abs(ref_loss) for o in occ)
+    same = all(torch.equal(a, b) for o in occ[1:]
+               for a, b in zip(o["params"], occ[0]["params"]))
+    finite = all(np.isfinite(o[e][k]) for o in occ
+                 for e in ("warm", "timed") for k in ("bce", "recon"))
+    out = {"launches_per_rank_epoch": [o["counts"] for o in occ],
+           "grad_rel_to_max_err_f32": worst, "loss_f32_rel_err": loss_err,
+           "peak_memory_gb_per_rank": [o["peak_bytes"] / 1e9 for o in occ],
+           "timed_epoch": {k: occ[0]["timed"][k] for k in
+                           ("bce", "recon", "elapsed",
+                            "hyperedges_per_sec")},
+           "params_equal_across_ranks": same}
+    print(f"mesh {OCC_MESH[0]}x{OCC_MESH[1]} per-occurrence: "
+          f"{json.dumps(out)} (expected launches per rank {want}; grad tol "
+          f"{TOL_MESH_GRAD})", flush=True)
+    if any(o["counts"] != want for o in occ):
+        fail("a rank of the per-occurrence mesh launched other counts")
+    if not worst <= TOL_MESH_GRAD or not loss_err <= TOL_MESH_GRAD:
+        fail("the per-occurrence mesh step differs from one rank with "
+             "n_shards = D")
+    if not (same and finite):
+        fail("the per-occurrence mesh epoch is not finite or its ranks' "
+             "params differ")
     return out
 
 
@@ -3337,17 +3636,32 @@ def main():
 
     # 16. multi-rank training on the one card
     check_rank_shapes(device)
+    tp_worst = check_tp_shapes(device)
     set_fuse_tail(False)
     mesh = mesh_phase(train["problem"], genome, card)
-    mesh_counts = {f"{d}x{m}": {k: v // TRAIN_STEPS for k, v in
-                                mesh[f"{d}x{m}"]["launches_per_rank_epoch"][0]
-                                .items()} for d, m in MESH_SHAPES}
+
+    def per_step(counts):
+        return {k: v // TRAIN_STEPS for k, v in counts.items()}
+    mesh_counts = {f"{d}x{m}": per_step(
+        mesh[f"{d}x{m}"]["launches_per_rank_epoch"][0])
+        for d, m in MESH_SHAPES}
+    tp_counts = {f"{d}x{m}": per_step(
+        mesh[f"{d}x{m}"]["tp"]["launches_per_rank_epoch"][0])
+        for d, m in MESH_SHAPES if m > 1}
+    occ_counts = per_step(mesh["{}x{}".format(*OCC_MESH)]["per_occurrence"]
+                          ["launches_per_rank_epoch"][0])
     mesh_fit_counts = mesh["2x1"]["fit"]["launches_per_rank"][0]
 
     def mesh_launches(name):
-        return {"launches_mesh_per_rank_step": {
+        out = {"launches_mesh_per_rank_step": {
             shape: c[name] for shape, c in mesh_counts.items()},
             "launches_mesh_fit_per_rank": mesh_fit_counts[name]}
+        if name in ("K1", "K2", "K3", "K4"):
+            out["launches_mesh_tp_per_rank_step"] = {
+                shape: c[name] for shape, c in tp_counts.items()}
+            out["launches_mesh_per_occurrence_per_rank_step"] = \
+                occ_counts[name]
+        return out
 
     k2 = tk["K2_L5"]
     k5 = nk["K5_k5"]
@@ -3371,7 +3685,9 @@ def main():
          "tflops_achieved_step_L345": [tk[f"K1_L{L}"]["tflops_achieved"]
                                        for L in (3, 4, 5)],
          "max_abs_err": worst["bfloat16"],
-         "max_abs_err_f32": worst["float32"], "ms": ms,
+         "max_abs_err_f32": worst["float32"],
+         "max_abs_err_tp_4_heads": tp_worst["bfloat16"]["K1"],
+         "max_abs_err_tp_4_heads_f32": tp_worst["float32"]["K1"], "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None},
         {"name": "hyperedge_attention_bwd", "route": "cuda",
@@ -3385,6 +3701,8 @@ def main():
          "max_abs_err": worst_bwd["bfloat16"]["gx_abs"],
          "max_err_rel_to_max": worst_bwd["bfloat16"]["rel_to_max"],
          "max_err_rel_to_max_f32": worst_bwd["float32"]["rel_to_max"],
+         "max_err_rel_to_max_tp_4_heads": tp_worst["bfloat16"]["K2"],
+         "max_err_rel_to_max_tp_4_heads_f32": tp_worst["float32"]["K2"],
          "ms": k2["ms"], "device_ms": k2["device_ms"],
          "tflops_achieved": k2["tflops_achieved"],
          "plain_ms": k2["plain_ms"],

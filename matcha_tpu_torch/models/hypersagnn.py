@@ -32,7 +32,12 @@ rank through one all-gather.  The encode runs on the rank's row block of
 each feature table (the model axis) and an all-gather builds the whole node
 table; the recon loss runs over the rank's rows of ``inter_z`` with the
 global token counts (``bincount_sharded``, K4) and is summed over the
-model axis.  Per-occurrence feature dropout does not train under a mesh.
+model axis.  Per-occurrence feature dropout draws one mask row per token of
+the whole stream; under a model axis the ranks of a data row embed the
+tokens whose feature rows they hold and a reduce-scatter hands each rank
+its own (``_per_occurrence_rows``).  With tensor-parallel weights (a block
+of the heads per model rank) the attention runs the rank's heads on its
+data row's rows (``models/modules.py:mha_dynamic``).
 """
 
 from __future__ import annotations
@@ -57,8 +62,10 @@ from matcha_tpu_torch.ops.table_scatter import (bincount, bincount_sharded,
                                                 table_gather_sharded)
 from matcha_tpu_torch.parallel.mesh import (active_data_mesh,
                                             all_gather_blocks,
-                                            all_gather_rows, rank_rows,
-                                            rank_sizes)
+                                            all_gather_rows,
+                                            model_group_rows,
+                                            rank_rows, rank_sizes, rank_span,
+                                            reduce_scatter_blocks)
 from matcha_tpu_torch.parallel.stream import (divisible, shard_concat,
                                               shard_split, stream_positions)
 
@@ -355,8 +362,9 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
 
 def _per_occurrence_embed(params: Dict, frozen: FrozenTables,
                           dims: ModelDims, flat: torch.Tensor,
-                          generator: Optional[torch.Generator]
-                          ) -> torch.Tensor:
+                          generator: Optional[torch.Generator],
+                          pos: Optional[torch.Tensor] = None,
+                          n_draw: Optional[int] = None) -> torch.Tensor:
     """Per-token node embeddings with the feature dropout drawn per
     occurrence (the reference's placement, ref Code/Modules.py:174,176-189):
     each token's frozen feature row, dropped out with its own mask, through
@@ -367,41 +375,96 @@ def _per_occurrence_embed(params: Dict, frozen: FrozenTables,
     bf16 at 114,688 tokens and W = 249).  Here the tokens are grouped by
     chromosome, each group's (T_c, W_c) feature rows meet their own W1 in
     one product, and the rows go back in token order: the same function in
-    O(T W) memory.  The group sizes cost one host synchronisation; the mask
-    of each group is a (T_c, W_c) draw from ``generator`` (none without a
-    generator or at rate 0)."""
+    O(T W) memory.  The group sizes cost one host synchronisation.
+
+    The mask is one (n_draw, W_max) draw from ``generator`` (none without a
+    generator or at rate 0) in stream order, as JAX's (T, W_max) Bernoulli
+    is: the token at stream position p takes row p's first W_c columns.
+    ``pos`` gives each token's position in that stream (default: its
+    index, n_draw = T).  Under a model axis (``parallel.mesh``) each
+    feature table holds this rank's block of its rows: only the tokens
+    whose rows the rank holds are embedded, the others stay zero."""
     cdt = dims.cdt
     feats = frozen.features
     n_chroms = len(feats)
     flat = flat.reshape(-1).long()
     dev = flat.device
-    chrom = frozen.chrom_of_node[flat].long()
-    # pads sort after every chromosome and keep their zero rows
-    group = torch.where(flat != 0, chrom, torch.full_like(chrom, n_chroms))
+    mesh = active_data_mesh()
+    widths = [int(f.shape[1]) for f in feats]
+    rows = [int(f.shape[0]) for f in feats]    # this rank's (padded) rows
+    first_id = np.concatenate([[1], 1 + np.cumsum(widths)[:-1]])
+    chrom = frozen.chrom_of_node[flat].long().clamp(0, n_chroms - 1)
+    local = flat - to_device(first_id, dev)[chrom]  # row in the whole table
+    n_rows = to_device(np.asarray(rows), dev)[chrom]
+    if _model_sharded(mesh):
+        local = local - mesh.model_index * n_rows
+    held = (flat != 0) & (local >= 0) & (local < n_rows)
+    # pads and rows held elsewhere sort after every chromosome, stay zero
+    group = torch.where(held, chrom, torch.full_like(chrom, n_chroms))
     order = torch.argsort(group, stable=True)
     counts = torch.bincount(group, minlength=n_chroms + 1).tolist()
     rate = dims.feature_dropout
-    drop = generator is not None and rate > 0.0
+    keep = None
+    if generator is not None and rate > 0.0:
+        if pos is None:
+            pos, n_draw = torch.arange(flat.shape[0], device=dev), flat.shape[0]
+        keep = rand(generator, (int(n_draw), max(widths)), dev) < 1.0 - rate
     zero = torch.zeros((), dtype=cdt, device=dev)
-    rows, parts = [], []
-    first, node0 = 0, 1                 # node ids run 1.. chromosome by
-    for c, f in enumerate(feats):       # chromosome, f's width bins each
+    out_rows, parts = [], []
+    first = 0
+    for c, f in enumerate(feats):
         n_c = counts[c]
         if n_c:
             tok = order[first:first + n_c]
-            x = f[flat[tok] - node0].to(cdt)                     # (T_c, W_c)
-            if drop:
-                keep = rand(generator, x.shape, dev) < 1.0 - rate
-                x = torch.where(keep, x / (1.0 - rate), zero)
+            x = f[local[tok]].to(cdt)                            # (T_c, W_c)
+            if keep is not None:
+                x = torch.where(keep[pos[tok], :widths[c]],
+                                x / (1.0 - rate), zero)
             ae = params["embed"]["ae"][c]
             parts.append(torch.tanh(x @ ae["w1"].to(cdt)) @ ae["w2"].to(cdt))
-            rows.append(tok)
+            out_rows.append(tok)
         first += n_c
-        node0 += int(f.shape[1])
     out = torch.zeros((flat.shape[0], dims.dim), dtype=cdt, device=dev)
     if parts:
-        out = out.index_copy(0, torch.cat(rows), torch.cat(parts))
+        out = out.index_copy(0, torch.cat(out_rows), torch.cat(parts))
     return out
+
+
+class _Occurrences(NamedTuple):
+    """The per-occurrence embedding of one forward: ``tokens`` the ids
+    the per-token recon runs over (this process's tokens, or under a model
+    axis its data row's), ``emb`` this rank's tokens' embeddings, and
+    ``sizes`` the data row's ranks' token counts (None without a model
+    axis)."""
+    tokens: torch.Tensor
+    emb: torch.Tensor
+    sizes: Optional[List[int]] = None
+
+
+def _per_occurrence_rows(params: Dict, frozen: FrozenTables, dims: ModelDims,
+                         rank_tokens, n_draw: int,
+                         generator: Optional[torch.Generator], mesh
+                         ) -> _Occurrences:
+    """``_per_occurrence_embed`` of this rank's tokens under a mesh.
+    rank_tokens(r) -> (ids, stream positions) of rank r's tokens; the
+    masks are the whole stream's (n_draw rows).  Without a model axis the
+    rank embeds its own tokens.  With one, each model rank embeds the
+    tokens of its data row whose feature rows it holds, and a
+    reduce-scatter over the model group sums them onto each rank's own
+    tokens; its backward hands every holder its tokens' cotangents, so the
+    autoencoders' gradients are summed once by the world all-reduce."""
+    if not _model_sharded(mesh):
+        ids, pos = rank_tokens(mesh.rank)
+        return _Occurrences(ids, _per_occurrence_embed(
+            params, frozen, dims, ids, generator, pos, n_draw))
+    m = mesh.shape["model"]
+    got = [rank_tokens(mesh.data_index * m + j) for j in range(m)]
+    ids = torch.cat([g[0] for g in got])
+    sizes = [int(g[0].numel()) for g in got]
+    part = _per_occurrence_embed(params, frozen, dims, ids, generator,
+                                 torch.cat([g[1] for g in got]), n_draw)
+    return _Occurrences(ids, reduce_scatter_blocks(part, sizes,
+                                                   mesh.model_group), sizes)
 
 
 # -------------------------------------------------------------- recon loss
@@ -515,19 +578,36 @@ def recon_loss_with_chrom(params: Dict, frozen: FrozenTables,
                           dims: ModelDims, x_flat: torch.Tensor,
                           emb_flat: torch.Tensor, r: int) -> torch.Tensor:
     """The per-token recon loss (the oracle ``recon_loss_node`` is held
-    against): token rows of x_flat not on chromosome r and not pads."""
+    against, and the per-occurrence mode's): token rows of x_flat not on
+    chromosome r and not pads, the mean over them.
+
+    Under a mesh x_flat and emb_flat are this rank's tokens (with a model
+    axis its data row's): with a model axis inter_z holds this rank's
+    block of rows and the rank sums the tokens whose target row it holds.
+    The numerator and the count are summed over the world (an autograd
+    all-gather) before the division: the mean over the whole batch."""
+    mesh = active_data_mesh()
     x_flat = x_flat.long()
     chrom = frozen.chrom_of_node[x_flat]
-    mask = ((chrom != r) & (x_flat != 0)).float()
+    mask = (chrom != r) & (x_flat != 0)
+    rows = x_flat
+    if _model_sharded(mesh):
+        n_z = int(frozen.inter_z.shape[0])
+        rows = x_flat - mesh.model_index * n_z
+        mask = mask & (rows >= 0) & (rows < n_z)
+        rows = rows.clamp(0, n_z - 1)
+    mask = mask.float()
     w_r, b_r, cols, col_ok, width_r = _padded_recon_parts(params, frozen, r)
-    target = frozen.inter_z[:, cols][x_flat].float()            # (M, F)
+    target = frozen.inter_z[:, cols][rows].float()              # (M, F)
     recon = torch.tanh(emb_flat.float()) @ w_r + b_r            # (M, F)
     sq = torch.where(col_ok[None, :], (target - recon) ** 2,
                      torch.zeros((), device=recon.device))
     per_row = sq.sum(dim=-1) / width_r
-    denom = mask.sum()
-    loss = torch.where(denom > 0,
-                       (per_row * mask).sum() / denom.clamp_min(1.0),
+    num, denom = (per_row * mask).sum(), mask.sum()
+    if mesh is not None:
+        num, denom = all_gather_rows(torch.stack([num, denom])[None],
+                                     mesh.world).sum(dim=0)
+    loss = torch.where(denom > 0, num / denom.clamp_min(1.0),
                        torch.zeros((), device=denom.device))
     return loss * 100.0
 
@@ -549,21 +629,20 @@ def _per_occurrence(params, dims: ModelDims, train: bool,
             and "table" not in params["embed"])
 
 
-def _recon(params, frozen, dims, x_flat, node_table, emb_tok, g_rec, r):
+def _recon(params, frozen, dims, x_flat, node_table, occ, g_rec, r):
     """A forward's recon loss: per node from the table, or, with the
-    per-occurrence embedding, per token from it (the reference's
-    placement, ref Code/Modules.py:192-199)."""
-    if emb_tok is None:
+    per-occurrence embedding (``_Occurrences``), per token from it (the
+    reference's placement, ref Code/Modules.py:192-199); under a model axis
+    the data row's tokens' embeddings are gathered over the model group."""
+    if occ is None:
         return recon_loss_fn(params, frozen, dims, x_flat, node_table,
                              g_rec, r)
-    return recon_loss_with_chrom(params, frozen, dims, x_flat, emb_tok,
+    emb = occ.emb
+    if occ.sizes is not None:
+        emb = all_gather_blocks(emb, occ.sizes,
+                                active_data_mesh().model_group)
+    return recon_loss_with_chrom(params, frozen, dims, occ.tokens, emb,
                                  _recon_chrom(dims, g_rec, r))
-
-
-def _no_per_occurrence_under(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "per_occurrence feature dropout does not train under a mesh")
 
 
 def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
@@ -582,21 +661,31 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
         node_table = encode_node_table(params, frozen, dims,
                                        generator=g_tab, train=train)
     mesh = active_data_mesh()
-    b_all = int(x.shape[0])
-    drop_rows = None
+    b_all, L = int(x.shape[0]), int(x.shape[1])
+    x_all = x
+    drop_rows = group_rows = None
     if mesh is not None:
         lo, hi = rank_rows(b_all, mesh)
         x = x[lo:hi]
         drop_rows = (b_all, slice(lo, hi))
+        group_rows = model_group_rows([b_all], mesh)
     x = x.long()
     npm = (x != 0).to(torch.float32)[..., None]          # (B, L, 1)
 
     attr_proj = linear(params["attr_nn"], frozen.attr_table.to(dims.cdt))
-    emb_tok = None
+    occ = None
     if _per_occurrence(params, dims, train, g_tab):
-        _no_per_occurrence_under(mesh)
-        emb_tok = _per_occurrence_embed(params, frozen, dims, x, g_tab)
-        emb = emb_tok.reshape(*x.shape, dims.dim) + attr_proj[x]
+        if mesh is None:
+            occ = _Occurrences(x.reshape(-1), _per_occurrence_embed(
+                params, frozen, dims, x, g_tab))
+        else:
+            def rank_tokens(r):
+                a, b = rank_span(b_all, mesh.size, r)
+                return (x_all[a:b].reshape(-1).long(),
+                        torch.arange(a * L, b * L, device=x.device))
+            occ = _per_occurrence_rows(params, frozen, dims, rank_tokens,
+                                       b_all * L, g_tab, mesh)
+        emb = occ.emb.reshape(*x.shape, dims.dim) + attr_proj[x]
     else:
         # node + projected-attribute tables combined per node before the
         # token gather: node_table[x] + linear(attr_table[x]) == combined[x]
@@ -606,7 +695,7 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
     dynamic, static = encoder_layer(
         params["encoder"], h, npm.to(h.dtype), dims.n_head, dims.dim,
         dims.dim, diag_mask=dims.diag_mask, generator=g_enc, train=train,
-        drop_rows=drop_rows)
+        drop_rows=drop_rows, group_rows=group_rows)
 
     dynamic = layer_norm(params["ln_dynamic"], dynamic)
     static = layer_norm(params["ln_static"], static)
@@ -622,7 +711,7 @@ def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,
     rest = ()
     if return_recon:
         rest += (_recon(params, frozen, dims, x.reshape(-1), node_table,
-                        emb_tok, g_rec, recon_chrom),)
+                        occ, g_rec, recon_chrom),)
     if return_positions:
         rest += (per_pos[..., 0],)
     return (out,) + rest if rest else out
@@ -695,11 +784,22 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     # pad-max pad rows)
     attr_proj = linear(params["attr_nn"], frozen.attr_table.to(dims.cdt))
     combined = node_table + attr_proj
-    emb_tok = None
+    occ = None
     if _per_occurrence(params, dims, train, g_tab):
-        _no_per_occurrence_under(mesh)
-        emb_tok = _per_occurrence_embed(params, frozen, dims, flat, g_tab)
-        emb = emb_tok + attr_proj[flat.long()]
+        if mesh is None:
+            occ = _Occurrences(flat, _per_occurrence_embed(
+                params, frozen, dims, flat, g_tab))
+        else:
+            def rank_tokens(r):
+                sp = [rank_span(n, mesh.size, r) for n in n_all]
+                return (torch.cat([xs[k][lo:hi].reshape(-1).long()
+                                   for k, (lo, hi) in zip(ks, sp)]),
+                        stream_positions(tok_all, ns,
+                                         [(lo * k, hi * k) for k, (lo, hi)
+                                          in zip(ks, sp)], device=flat.device))
+            occ = _per_occurrence_rows(params, frozen, dims, rank_tokens,
+                                       sum(tok_all), g_tab, mesh)
+        emb = occ.emb + attr_proj[flat.long()]
     elif mesh is not None:
         emb = table_gather_sharded(combined, flat, mesh)
     else:
@@ -716,14 +816,18 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     if attention_mode == "pad-max" and len(shapes) > 1:
         dyn = _attention_pad_max(params, dims, h, shapes, gens, train,
                                  combined, attn_drop, ns,
-                                 None if mesh is None else (n_all, spans))
+                                 None if mesh is None else (n_all, spans,
+                                                            mesh))
     else:
         dyn = shard_concat([
             mha_dynamic(mha, hk.reshape(n_k, k, -1), dims.n_head, dims.dim,
                         dims.dim, diag_mask=dims.diag_mask, generator=gen,
                         drop_rate=attn_drop, train=train,
                         drop_rows=None if mesh is None
-                        else (n, slice(lo, hi))).reshape(n_k * k, -1)
+                        else (n, slice(lo, hi)),
+                        group_rows=None if mesh is None
+                        else model_group_rows([n], mesh)
+                        ).reshape(n_k * k, -1)
             for (n_k, k), hk, gen, n, (lo, hi) in zip(
                 shapes, shard_split(h, lay, tok_sizes), gens, n_all, spans)],
             lay)
@@ -762,7 +866,7 @@ def forward_buckets(params: Dict, frozen: FrozenTables, dims: ModelDims,
     logits = dict(zip(ks, means))
     if return_recon:
         return logits, _recon(params, frozen, dims, flat, node_table,
-                              emb_tok, g_rec, recon_chrom)
+                              occ, g_rec, recon_chrom)
     return logits
 
 
@@ -788,9 +892,9 @@ def _attention_pad_max(params, dims, h, shapes, gens, train, combined,
     zero embedding + attribute row 0, through next_w) and run as one
     attention; the real positions go back into the stream, laid out
     shard-major for n_shards.  rank: under a mesh, (the buckets' row
-    counts, this rank's spans of them): h holds the rank's rows laid out
-    plainly, and the masks are its rows of the whole batch's draw in the
-    n_shards layout."""
+    counts, this rank's spans of them, the mesh): h holds the rank's rows
+    laid out plainly, and the masks are its rows of the whole batch's draw
+    in the n_shards layout."""
     lay = n_shards if rank is None else 1
     mha = params["encoder"]["mha"]
     L = max(k for _, k in shapes)
@@ -801,30 +905,32 @@ def _attention_pad_max(params, dims, h, shapes, gens, train, combined,
     for i, ((n_k, k), hk) in enumerate(zip(shapes, parts)):
         hk = hk.reshape(n_k, k, -1)
         if k == 2:
-            rows = None
+            rows = group = None
             if rank is not None:
                 rows = (rank[0][i], slice(*rank[1][i]))
+                group = model_group_rows([rank[0][i]], rank[2])
             dyn_parts[i] = mha_dynamic(
                 mha, hk, dims.n_head, dims.dim, dims.dim,
                 diag_mask=dims.diag_mask, generator=gens[i],
                 drop_rate=drop_rate, train=train,
-                drop_rows=rows).reshape(n_k * k, -1)
+                drop_rows=rows, group_rows=group).reshape(n_k * k, -1)
         else:
             pad = h_pad[None].expand(n_k, L - k, h.shape[-1]).to(hk.dtype)
             padded.append((i, n_k, k, torch.cat([hk, pad], dim=1)))
     if padded:
-        rows = None
+        rows = group = None
         if rank is not None:
             idx = [p[0] for p in padded]
             n_pad = [rank[0][i] for i in idx]
             rows = (sum(n_pad), stream_positions(
                 n_pad, n_shards, [rank[1][i] for i in idx],
                 device=h.device))
+            group = model_group_rows(n_pad, rank[2])
         dynp = mha_dynamic(mha, shard_concat([p[3] for p in padded], lay),
                            dims.n_head, dims.dim, dims.dim,
                            diag_mask=dims.diag_mask,
                            generator=gens[padded[0][0]], drop_rate=drop_rate,
-                           train=train, drop_rows=rows)
+                           train=train, drop_rows=rows, group_rows=group)
         for (i, n_k, k, _), dk in zip(padded, shard_split(
                 dynp, lay, [p[1] for p in padded])):
             dyn_parts[i] = dk[:, :k, :].reshape(n_k * k, -1)

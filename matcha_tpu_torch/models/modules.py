@@ -27,7 +27,9 @@ import torch
 
 from matcha_tpu_torch.ops.hyperedge_attention import (hyperedge_attention,
                                                       kernel_takes, pack_ln)
-from matcha_tpu_torch.parallel.mesh import active_data_mesh
+from matcha_tpu_torch.parallel.mesh import (active_data_mesh,
+                                            all_gather_blocks,
+                                            reduce_scatter_blocks)
 
 Params = Dict
 
@@ -213,16 +215,46 @@ def mha_fused(p: Params, x, n_head: int, diag_mask: bool, mesh=None):
     the edges (``rank_rows``), which go through the kernels; the weights
     are replicated, and their gradients are summed over the ranks by the
     Trainer's one gradient all-reduce, as the JAX package's shard_map
-    transpose sums them over its kernel axes."""
+    transpose sums them over its kernel axes.  Under tensor parallelism x
+    holds the rank's data row's rows and the weights its block of the
+    heads (``mha_dynamic``); n_head is then the block's head count."""
     del mesh     # the rows are the rank's already; see the docstring
     return hyperedge_attention(x, pack_ln(p), p["wq"], p["wk"], p["wv"],
                                p["fc1"]["w"], p["fc1"]["b"], n_head,
                                diag_mask)
 
 
+def _head_block(p: Params, n_head: int, d_k: int, mesh) -> int:
+    """The number of heads this rank's attention weights hold: n_head, or
+    n_head / M where they hold one model rank's block of the heads (the
+    tensor-parallel placement, ``parallel.mesh.replicate_params``)."""
+    held = p["wq"].shape[1] // d_k
+    m = 1 if mesh is None else mesh.shape["model"]
+    if held != n_head and held * m != n_head:
+        raise ValueError(f"the attention weights hold {held} of {n_head} "
+                         f"heads under a model axis of {m}")
+    return held
+
+
+def _attention(p: Params, x, n_head: int, d_k: int, d_v: int,
+               diag_mask: bool):
+    """The attention on the heads the weights hold: the k = 2 closed form,
+    the fused kernels where they take the shape, else the JAX package's
+    formulation."""
+    if diag_mask and x.shape[1] == 2:
+        # each row of the softmax has one unmasked key: weight 1 on the other
+        # member, so the output is fc1(v_other)
+        v = layer_norm(p["ln_v"], x) @ p["wv"].to(x.dtype)
+        return linear(p["fc1"], v.flip(1))
+    if kernel_takes(x, p["wq"], p["wk"], p["wv"], p["fc1"]["w"], n_head):
+        return mha_fused(p, x, n_head, diag_mask, active_data_mesh())
+    return _attention_flat(p, x, n_head, d_k, d_v, diag_mask)
+
+
 def mha_dynamic(p: Params, x, n_head: int, d_k: int, d_v: int, *,
                 diag_mask: bool = True, generator=None,
-                drop_rate: float = 0.0, train: bool = False, drop_rows=None):
+                drop_rate: float = 0.0, train: bool = False, drop_rows=None,
+                group_rows=None):
     """Self-excluding (diag-masked) self-attention over one hyperedge.
 
     Pads take part as keys and values: the reference never applies its
@@ -233,16 +265,31 @@ def mha_dynamic(p: Params, x, n_head: int, d_k: int, d_v: int, *,
     Hopper kernel for any batch size; the rest goes to the JAX package's
     own formulation (``_attention_flat``) on either device, as the JAX
     package routes it.  The output takes dropout ``drop_rate`` in train
-    mode (drop_rows: ``dropout``'s rows)."""
-    if diag_mask and x.shape[1] == 2:
-        # each row of the softmax has one unmasked key: weight 1 on the other
-        # member, so the output is fc1(v_other)
-        v = layer_norm(p["ln_v"], x) @ p["wv"].to(x.dtype)
-        out = linear(p["fc1"], v.flip(1))
-    elif kernel_takes(x, p["wq"], p["wk"], p["wv"], p["fc1"]["w"], n_head):
-        out = mha_fused(p, x, n_head, diag_mask, active_data_mesh())
+    mode (drop_rows: ``dropout``'s rows).
+
+    Tensor parallelism: when the weights hold one model rank's block of
+    the heads (``_head_block``), x holds this rank's rows and
+    ``group_rows`` the row counts of its data row's M ranks
+    (``parallel.mesh.model_group_rows``).  The data row's rows are
+    gathered over the model group, the rank's heads run on all of them by
+    the same routes (K1/K2 at the block's head count), fc1's bias is added
+    at model rank 0 only, and a reduce-scatter sums the heads' partials
+    back onto the rank's own rows."""
+    mesh = active_data_mesh()
+    held = _head_block(p, n_head, d_k, mesh)
+    if held == n_head:
+        out = _attention(p, x, n_head, d_k, d_v, diag_mask)
     else:
-        out = _attention_flat(p, x, n_head, d_k, d_v, diag_mask)
+        if group_rows is None:
+            raise ValueError("mha_dynamic: head-sharded weights need the "
+                             "data row's row counts (group_rows)")
+        xd = all_gather_blocks(x, group_rows, mesh.model_group)
+        if mesh.model_index:
+            p = {**p, "fc1": {"w": p["fc1"]["w"],
+                              "b": torch.zeros_like(p["fc1"]["b"])}}
+        out = reduce_scatter_blocks(_attention(p, xd, held, d_k, d_v,
+                                               diag_mask),
+                                    group_rows, mesh.model_group)
     return dropout(out, drop_rate, train, generator, drop_rows)
 
 
@@ -257,14 +304,15 @@ def encoder_layer_init(gen: torch.Generator, n_head: int, d_model: int,
 
 def encoder_layer(p: Params, x, non_pad_mask, n_head: int, d_k: int,
                   d_v: int, *, diag_mask: bool = True, generator=None,
-                  train: bool = False, drop_rows=None):
+                  train: bool = False, drop_rows=None, group_rows=None):
     """Returns (dynamic, static); static is the unmodified input, as in the
     reference (Code/Modules.py:611-617).  Dropouts: 0.3 after attention fc1,
-    0.4 inside pff_n1 (drop_rows: ``dropout``'s rows of x's batch)."""
+    0.4 inside pff_n1 (drop_rows: ``dropout``'s rows of x's batch;
+    group_rows: ``mha_dynamic``'s)."""
     ga, gp = split_generator(generator, 2)
     dyn = mha_dynamic(p["mha"], x, n_head, d_k, d_v, diag_mask=diag_mask,
                       generator=ga, drop_rate=0.3, train=train,
-                      drop_rows=drop_rows)
+                      drop_rows=drop_rows, group_rows=group_rows)
     dyn = pff(p["pff_n1"], dyn * non_pad_mask, residual=True, generator=gp,
               drop_rate=0.4, train=train,
               drop_rows=drop_rows) * non_pad_mask

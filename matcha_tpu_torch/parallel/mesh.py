@@ -10,8 +10,11 @@ index ``r % M``.  Each data row (the M ranks of one data index) shares a
 model-axis process group; each model column a data-axis group.
 
 Placement, as in the JAX package:
-  * params replicated on every rank (``replicate_params``); the Megatron
-    sharding of the attention weights (``tensor_parallel``) is not ported;
+  * params replicated on every rank (``replicate_params``); with
+    ``tensor_parallel`` the Megatron sharding of the attention weights on
+    the model axis (JAX's ``param_sharding`` rule, ``tp_axis``): wq, wk and
+    wv keep block ``model_index`` of their columns (heads), fc1's weight
+    the same block of its rows;
   * the big frozen node-axis tables, the per-chromosome ``features`` and
     ``inter_z``, zero-padded to a multiple of M rows
     (``pad_frozen_for_mesh``) and row-sharded on the model axis: each rank
@@ -19,7 +22,11 @@ Placement, as in the JAX package:
   * every rank holds the whole batch (the data pipeline is deterministic
     and seeded alike) and computes its block of rows of every bucket
     (``rank_rows``): the batch axis is cut over the data and model axes
-    jointly, as the JAX package's kernel wrappers cut it.
+    jointly, as the JAX package's kernel wrappers cut it.  Under tensor
+    parallelism only the attention differs: the ranks of a data row gather
+    their rows (``all_gather_blocks``), each runs its heads on all of them,
+    and a reduce-scatter (``reduce_scatter_blocks``) sums the heads' fc1
+    partials back onto each rank's own rows (``models/modules.py``).
 
 How the gradient is summed.  Every rank computes the whole step's loss from
 the whole-batch logits and recon loss, which reach it through autograd
@@ -28,7 +35,14 @@ cotangent over its group, so each rank's own rows receive the gradient of
 every rank's copy of the loss.  The Trainer scales its loss by 1 / W and
 sums the flat gradient over the world once (``all_reduce_sum``) before
 AdamW: each parameter's gradient is then the whole loss's, summed exactly
-once (``train/runtime.py``, ``Trainer.train_step``).
+once (``train/runtime.py``, ``Trainer.train_step``).  Under tensor
+parallelism the same holds per shard: a rank's own rows carry the whole
+loss's cotangent, the reduce-scatter's backward (an all-gather over the
+model group) hands each head block the cotangent of its data row's rows,
+so a head-sharded leaf's gradient on a rank is that data row's share,
+exactly once; it is summed over the data group only (the ranks that hold
+the same block), and the replicated leaves over the world as before.
+AdamW is elementwise, so stepping the blocks equals stepping whole leaves.
 
 The active mesh.  Model code consults ``active_data_mesh()``; the Trainer
 scopes its mesh to each of its calls with ``using_active_mesh``, so a
@@ -155,6 +169,30 @@ def _gather_fn():
     return fn if fn is not None else fc.all_gather_tensor_autograd
 
 
+class _StagedGather(torch.autograd.Function):
+    """``all_gather_rows`` of a card's tensor on a gloo group, through host
+    memory; the backward sums the cotangent over the group (an all-reduce
+    in f32, staged) and keeps this rank's block.  Its input and output lie
+    on the card, so its backward runs on the card's autograd thread, as
+    every other staged collective's does: backward collectives on the
+    host's thread could reach a group in another order on each rank."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group, ctx.rows = group, t.shape[0]
+        out = _gather_fn()(t.contiguous().cpu(), 0, group)
+        if hasattr(out, "wait"):
+            out = out.wait()
+        return out.to(t.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        total = all_reduce_sum(g.to(torch.float32, copy=True), ctx.group)
+        return (total[i * ctx.rows:(i + 1) * ctx.rows].to(g.dtype),
+                None)
+
+
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """Every group rank's ``t`` (one shape on all), concatenated along dim 0
     in group-rank order; autograd-aware: its backward sums the cotangent
@@ -163,14 +201,12 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     if _group_size(group) == 1:
         return t
     src = t.contiguous()
-    staged = _staged(src, group, "all_gather")
-    if staged:
-        src = src.cpu()
+    if _staged(src, group, "all_gather"):
+        return _StagedGather.apply(src, group)
     out = _gather_fn()(src, 0, group)
     if hasattr(out, "wait"):
         out = out.wait()
-    out = _DenseGrad.apply(out)
-    return out.to(t.device) if staged else out
+    return _DenseGrad.apply(out)
 
 
 def all_gather_blocks(t: torch.Tensor, sizes: Sequence[int],
@@ -186,6 +222,53 @@ def all_gather_blocks(t: torch.Tensor, sizes: Sequence[int],
         t, (0,) * (2 * (t.dim() - 1)) + (0, top - t.shape[0]))
     out = all_gather_rows(pad, group)
     return torch.cat([out[i * top:i * top + s] for i, s in enumerate(sizes)])
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over ``group`` of equal-sized blocks, each rank keeping block
+    ``index``; the backward is the all-gather of the blocks' cotangents.
+    NCCL runs a reduce-scatter of a card's tensor; other backends an
+    all-reduce in f32 and a slice (gloo's reduce-scatter is not in every
+    torch release).  Its backward runs on its tensor's autograd thread, as
+    ``_StagedGather``'s does."""
+
+    @staticmethod
+    def forward(ctx, t, group, index: int):
+        ctx.group = group
+        n = _group_size(group)
+        top = t.shape[0] // n
+        src = t.contiguous()
+        if src.is_cuda and "nccl" in str(dist.get_backend(group)):
+            out = torch.empty((top,) + tuple(src.shape[1:]), dtype=src.dtype,
+                              device=src.device)
+            dist.reduce_scatter_tensor(out, src, group=group)
+            return out
+        total = all_reduce_sum(src.to(torch.float32, copy=True), group)
+        return total[index * top:(index + 1) * top].to(src.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_rows(g.contiguous(), ctx.group), None, None
+
+
+def reduce_scatter_blocks(t: torch.Tensor, sizes: Sequence[int],
+                          group) -> torch.Tensor:
+    """The inverse layout of ``all_gather_blocks``, summed: ``t`` holds the
+    group's blocks of ``sizes[i]`` rows one after another (every rank the
+    same layout); the blocks are summed over the group and this rank keeps
+    its own, ``sizes[group rank]`` rows.  Autograd-aware: the backward
+    all-gathers the blocks' cotangents, so each rank's ``t`` gets the
+    cotangent of every block.  The identity for a group of one."""
+    sizes = [int(s) for s in sizes]
+    if len(sizes) == 1:
+        return t
+    top = max(sizes)
+    widths = (0,) * (2 * (t.dim() - 1))
+    pad = torch.cat([torch.nn.functional.pad(b, widths + (0, top - b.shape[0]))
+                     for b in t.split(sizes)])
+    index = dist.get_rank(group)
+    out = _ReduceScatter.apply(pad, group, index)
+    return out[:sizes[index]]
 
 
 # ---------------------------------------------------------------- placement
@@ -208,17 +291,71 @@ def rank_sizes(n: int, mesh: Mesh) -> List[int]:
                                    for r in range(mesh.size))]
 
 
-def replicate_params(params: Dict, mesh: Mesh, tensor_parallel: bool = False
-                     ) -> Dict:
-    """Parameter placement: replicated.  The leaves are broadcast from rank
-    0 (as one flat buffer) so every rank starts from the same values.
-    ``tensor_parallel`` (the JAX package's Megatron sharding of wq, wk, wv
-    and fc1) is not ported."""
-    if tensor_parallel:
-        raise NotImplementedError(
-            "tensor_parallel=True (Megatron sharding of the attention "
-            "weights on the model axis) is not ported yet: the next slice "
-            "(ROADMAP.md, Queue 1 item 7)")
+def tp_axis(path: Sequence) -> Optional[int]:
+    """The tensor-parallel rule of JAX's ``param_sharding`` for the leaf at
+    ``path`` (its keys from the root): 1 (columns, the heads) for wq, wk
+    and wv, 0 (rows) for fc1's weight, None (replicated) for every other
+    leaf."""
+    if path and path[-1] in ("wq", "wk", "wv"):
+        return 1
+    if "fc1" in path and path[-1] == "w":
+        return 0
+    return None
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def tp_axes(params: Dict) -> List[Optional[int]]:
+    """``tp_axis`` of every leaf, in ``train.runtime._leaves`` order."""
+    from matcha_tpu_torch.train.runtime import _leaves
+    return _leaves(_map_with_path(lambda p, _: tp_axis(p), params))
+
+
+def tp_block(t: torch.Tensor, axis: Optional[int], mesh: Mesh
+             ) -> torch.Tensor:
+    """This rank's block of a whole leaf along ``axis`` (block
+    ``model_index`` of M), as a contiguous copy; ``t`` itself for a
+    replicated leaf (axis None)."""
+    if axis is None:
+        return t
+    n = t.shape[axis] // mesh.shape["model"]
+    return t.narrow(axis, mesh.model_index * n, n).contiguous()
+
+
+def tp_gather(t: torch.Tensor, axis: Optional[int], mesh: Mesh
+              ) -> torch.Tensor:
+    """The whole leaf from every model rank's block along ``axis`` (no
+    autograd; a collective over the model group); ``t`` itself for a
+    replicated leaf."""
+    if axis is None:
+        return t
+    with torch.no_grad():
+        rows = t.detach().movedim(axis, 0).contiguous()
+        whole = all_gather_rows(rows, mesh.model_group)
+        return whole.movedim(0, axis).contiguous()
+
+
+def replicate_params(params: Dict, mesh: Mesh, tensor_parallel: bool = False,
+                     n_head: int = 0) -> Dict:
+    """Parameter placement -> the placed tree.  The leaves are broadcast
+    from rank 0 (as one flat buffer) so every rank starts from the same
+    values.  With ``tensor_parallel`` on a model axis M > 1 the sharded
+    leaves (``tp_axis``) are replaced by this rank's blocks (``tp_block``;
+    each requires grad as its leaf did); ``n_head`` must split into M
+    whole blocks of heads (ValueError otherwise).  Without a model axis
+    tensor parallelism is the replicated placement, as in the JAX
+    package."""
+    tp = tensor_parallel and mesh.shape["model"] > 1
+    if tp and n_head % mesh.shape["model"]:
+        raise ValueError(f"tensor_parallel: {n_head} heads do not split "
+                         f"over a model axis of {mesh.shape['model']}")
     if mesh.world is None or mesh.size == 1:
         return params
     from matcha_tpu_torch.train.runtime import _leaves
@@ -233,7 +370,25 @@ def replicate_params(params: Dict, mesh: Mesh, tensor_parallel: bool = False
             dist.broadcast(flat, 0, group=mesh.world)
         for t, v in zip(leaves, flat.split([t.numel() for t in leaves])):
             t.copy_(v.view(t.shape))
-    return params
+    if not tp:
+        return params
+    return _map_with_path(
+        lambda p, t: t if tp_axis(p) is None else tp_block(
+            t.detach(), tp_axis(p), mesh).requires_grad_(t.requires_grad),
+        params)
+
+
+def model_group_rows(ns: Sequence[int], mesh: Mesh) -> List[int]:
+    """The row counts of the M ranks of this rank's data row (model order)
+    in a layout of pieces of ``ns`` rows each cut by ``rank_rows``: rank j
+    of the row holds ``sum(rank_span(n, W, d * M + j))`` rows."""
+    m = mesh.shape["model"]
+    out = []
+    for j in range(m):
+        r = mesh.data_index * m + j
+        out.append(sum(hi - lo for lo, hi in (rank_span(n, mesh.size, r)
+                                              for n in ns)))
+    return out
 
 
 def _pad_rows(a: torch.Tensor, m: int) -> torch.Tensor:

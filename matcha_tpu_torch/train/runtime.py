@@ -35,7 +35,11 @@ model axis, every rank computing its block of each step's rows with the
 masks of the whole batch's draw (``TrainSettings.n_shards`` = the data
 axis), the whole loss on every rank scaled by 1 / W and one all-reduce of
 the flat gradient before AdamW.  A mesh run equals a single rank with
-``n_shards`` = D up to summation order.  ``fit(checkpoint_format="orbax")``
+``n_shards`` = D up to summation order.  ``tensor_parallel=True`` shards
+the attention weights on the model axis (JAX's rule): each rank keeps its
+block of the heads, whose gradients are summed over the data axis only;
+checkpoints, snapshots and ``whole_params`` hold whole arrays, and every
+read is cut back into the blocks.  ``fit(checkpoint_format="orbax")``
 checkpoints through ``train/checkpoint.py`` (``torch.distributed.checkpoint``;
 not orbax's format).
 
@@ -68,6 +72,7 @@ from matcha_tpu_torch.models.hypersagnn import (FrozenTables, ModelDims,
 from matcha_tpu_torch.models.modules import split_generator
 from matcha_tpu_torch.parallel.mesh import (all_reduce_sum,
                                             replicate_params, shard_frozen,
+                                            tp_axes, tp_block, tp_gather,
                                             using_active_mesh)
 from matcha_tpu_torch.parallel.stream import (divisible, shard_concat,
                                               shard_split)
@@ -531,8 +536,15 @@ class Trainer:
     ``settings.n_shards`` becomes the data axis, and every call runs under
     the mesh.  Every rank draws from the same generator stream, samples the
     whole batch's negatives and computes its rows; each gets the whole
-    step's loss, logits and metrics.  tensor_parallel raises (the next
-    slice)."""
+    step's loss, logits and metrics.
+
+    tensor_parallel: on a mesh with a model axis M > 1, wq, wk, wv and
+    fc1's weight keep this rank's block of the heads
+    (``parallel.mesh.replicate_params``): ``self.params`` then holds those
+    blocks, and ``whole_params()`` (a collective: every rank calls it)
+    gives the whole tree, e.g. for ``save_model_bundle`` or a next
+    Trainer.  Without a mesh, or with M = 1, it is the replicated
+    placement, as in the JAX package."""
 
     def __init__(self, params: Dict, frozen: FrozenTables, dims: ModelDims,
                  chrom_table: ChromTable, settings: TrainSettings,
@@ -552,8 +564,12 @@ class Trainer:
                 (int(s), int(e)) for s, e in
                 zip(chrom_table.chrom_start.tolist(),
                     chrom_table.chrom_end.tolist())))
-        if mesh is not None or tensor_parallel:
-            replicate_params(self.params, mesh, tensor_parallel)
+        self._tp_axes = None
+        if mesh is not None:
+            self.params = replicate_params(self.params, mesh,
+                                           tensor_parallel, dims.n_head)
+            if tensor_parallel and mesh.shape["model"] > 1:
+                self._tp_axes = tp_axes(self.params)
             frozen = shard_frozen(frozen, mesh)
             settings = settings._replace(n_shards=int(mesh.shape["data"]))
         self.mesh = mesh
@@ -597,16 +613,48 @@ class Trainer:
 
     def _sum_grads(self) -> None:
         """Under a mesh with a process group: one all-reduce (SUM) of every
-        leaf's gradient as a flat f32 buffer.  Each rank's gradient is that
-        of its copy of the loss / W through its own rows, so the sum is the
-        whole loss's gradient, every parameter summed exactly once."""
+        replicated leaf's gradient as a flat f32 buffer over the world.
+        Each rank's gradient is that of its copy of the loss / W through its
+        own rows, so the sum is the whole loss's gradient, every parameter
+        summed exactly once.  Under tensor parallelism the head-sharded
+        leaves' gradients (each rank's data row's share) take a second flat
+        all-reduce over the data axis only (``parallel/mesh.py``)."""
         if self.mesh is None or self.mesh.world is None:
             return
-        grads = [t.grad for t in _leaves(self.params)]
-        flat = torch.cat([g.reshape(-1).float() for g in grads])
-        all_reduce_sum(flat, self.mesh.world)
-        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(v.view(g.shape))
+        leaves = _leaves(self.params)
+        axes = self._tp_axes or [None] * len(leaves)
+        _flat_sum([t.grad for t, a in zip(leaves, axes) if a is None],
+                  self.mesh.world)
+        if self.mesh.shape["data"] > 1:
+            _flat_sum([t.grad for t, a in zip(leaves, axes) if a is not None],
+                      self.mesh.data_group)
+
+    def whole_params(self) -> Dict:
+        """The param tree with whole leaves: ``self.params`` itself, or
+        under tensor parallelism a copy whose head-sharded leaves are
+        gathered over the model group (a collective: every rank calls
+        it)."""
+        if self._tp_axes is None:
+            return self.params
+        return _tree_unflatten(self.params, [
+            tp_gather(t, a, self.mesh) for t, a in
+            zip(_leaves(self.params), self._tp_axes)])
+
+    def _whole_adamw_state(self) -> Dict:
+        """``_adamw_state`` with whole moments (gathered as
+        ``whole_params`` gathers; every rank calls it under tensor
+        parallelism)."""
+        axes = self._tp_axes
+        return _adamw_state(self.params, self.optimizer, None if axes is None
+                            else lambda i, t: tp_gather(t, axes[i],
+                                                        self.mesh))
+
+    def _block(self, i: int, v) -> torch.Tensor:
+        """This rank's block of leaf i's whole value ``v``."""
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
+        return v if self._tp_axes is None else tp_block(
+            v, self._tp_axes[i], self.mesh)
 
     def _run_epoch(self, stacked, t0: float):
         """Steps over stacked {k: (edges (S, B, k), weights (S, B))} on the
@@ -1032,17 +1080,19 @@ class Trainer:
                 save(resume_path, epoch, best)
 
         def save_live(path, epoch, best_):
+            key = (None if best_ is None
+                   else self.generator.get_state().numpy())
             if checkpoint_format == "orbax":
                 mgr = ckpt_mgr if best_ is None else resume_mgr
-                mgr.save(epoch, self.params,
-                         _adamw_state(self.params, self.optimizer), epoch,
-                         key=None if best_ is None
-                         else self.generator.get_state().numpy(),
+                mgr.save(epoch, self.whole_params(),
+                         self._whole_adamw_state(), epoch, key=key,
                          best=best_)
-            elif rank0:
-                save_checkpoint(path, self.params, self.optimizer, epoch,
-                                generator=None if best_ is None
-                                else self.generator, best=best_)
+            elif rank0 or self._tp_axes is not None:
+                # under tensor parallelism every rank gathers the blocks
+                params, opt = self.whole_params(), self._whole_adamw_state()
+                if rank0:
+                    _write_checkpoint(path, params_to_numpy(params), opt,
+                                      epoch, key, best_)
 
         def finalize(epoch, aux, elapsed, ev_handle, snap):
             """Epoch ``epoch``'s host work, on the worker thread."""
@@ -1116,18 +1166,20 @@ class Trainer:
         if ckpt_mgr is not None:
             if ckpt_mgr.latest_step() is not None:
                 self._restore_params(ckpt_mgr.restore(
-                    like_params=self.params)[0])
+                    like_params=self.whole_params())[0])
         elif checkpoint_path and os.path.exists(checkpoint_path):
             self._restore_params(load_checkpoint(
                 checkpoint_path, device=_leaves(self.params)[0].device))
         return history
 
     def _restore_params(self, params) -> None:
-        """Copy a param tree's values into the live leaves (the optimizer
-        keeps its state for them)."""
+        """Copy a whole param tree's values into the live leaves (their
+        blocks under tensor parallelism; the optimizer keeps its state for
+        them)."""
         with torch.no_grad():
-            for t, v in zip(_leaves(self.params), _leaves(params)):
-                t.copy_(v)
+            for i, (t, v) in enumerate(zip(_leaves(self.params),
+                                           _leaves(params))):
+                t.copy_(self._block(i, v))
 
     def _load_resume(self, resume_path: str,
                      manager=None) -> Optional[Dict]:
@@ -1139,8 +1191,8 @@ class Trainer:
             if manager.latest_step() is None:
                 return None
             params, opt, epoch = manager.restore(
-                like_params=self.params,
-                like_opt_state=_adamw_state(self.params, self.optimizer))
+                like_params=self.whole_params(),
+                like_opt_state=self._whole_adamw_state())
             snap = {"params": params, "opt_state": opt, "epoch": epoch,
                     "key": manager.last_meta.get("key"),
                     "best": manager.last_meta.get("best")}
@@ -1157,8 +1209,8 @@ class Trainer:
             sd = self.optimizer.state_dict()
             sd["state"] = {
                 i: {"step": torch.tensor(float(n)),
-                    "exp_avg": torch.as_tensor(np.asarray(a)),
-                    "exp_avg_sq": torch.as_tensor(np.asarray(b))}
+                    "exp_avg": self._block(i, a),
+                    "exp_avg_sq": self._block(i, b)}
                 for i, (a, b, n) in enumerate(zip(
                     st["exp_avg"], st["exp_avg_sq"], st["step"]))}
             self.optimizer.load_state_dict(sd)
@@ -1181,19 +1233,31 @@ class Trainer:
 
 
 # ------------------------------------------------------------ checkpoints
-def _adamw_state(params, optimizer) -> Dict:
+def _adamw_state(params, optimizer, whole=None) -> Dict:
     """AdamW's moments and step count per leaf, in ``_leaves`` order, as
-    numpy arrays and floats (zeros for a leaf not stepped yet)."""
+    numpy arrays and floats (zeros for a leaf not stepped yet).  whole(i,
+    moment) -> leaf i's whole moment, where the leaves are blocks."""
     out = {"exp_avg": [], "exp_avg_sq": [], "step": []}
-    for t in _leaves(params):
+    for i, t in enumerate(_leaves(params)):
         st = optimizer.state.get(t, {})
-        zero = np.zeros(tuple(t.shape), np.float32)
-        out["exp_avg"].append(st["exp_avg"].detach().cpu().numpy()
-                              if "exp_avg" in st else zero)
-        out["exp_avg_sq"].append(st["exp_avg_sq"].detach().cpu().numpy()
-                                 if "exp_avg_sq" in st else zero)
+        for name in ("exp_avg", "exp_avg_sq"):
+            m = st[name].detach() if name in st else torch.zeros_like(
+                t, dtype=torch.float32)
+            if whole is not None:
+                m = whole(i, m)
+            out[name].append(m.cpu().numpy())
         out["step"].append(float(st["step"]) if "step" in st else 0.0)
     return out
+
+
+def _flat_sum(grads: List[torch.Tensor], group) -> None:
+    """Sum the gradients over ``group`` as one flat f32 buffer, in place."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    all_reduce_sum(flat, group)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view(g.shape))
 
 
 def save_checkpoint(path: str, params, optimizer=None, epoch=None,

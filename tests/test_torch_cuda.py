@@ -63,12 +63,14 @@ def _inputs(device, E, L, dtype, n_head=8, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_head", [2, 8])
+@pytest.mark.parametrize("n_head", [2, 4, 8])
 @pytest.mark.parametrize("diag", [True, False])
 @pytest.mark.parametrize("L", [2, 3, 4, 5, 6, 7, 8])
 def test_kernel_matches_plain(cuda, dtype, n_head, diag, L):
     """Each L the kernel takes, E not a multiple of any tile (64 // L edges
-    on the tensor-core route, bf16; 16 or 8 on the CUDA-core route, f32)."""
+    on the tensor-core route, bf16; 16 or 8 on the CUDA-core route, f32);
+    4 heads is a tensor-parallel rank's block of 8 on a model axis of 2
+    (a cluster of 4 blocks on the tensor-core route)."""
     E = 997 + 3 * L
     x, args = _inputs(cuda, E, L, dtype, n_head=n_head, seed=L)
     before = ta.hyperedge_attention.launches
@@ -804,10 +806,12 @@ def test_pair_cooccurrence_is_deterministic_on_the_card(cuda):
     assert float((a.cpu() - ref).abs().max()) <= 1e-6 * float(ref.max())
 
 
-def _cards_rank(rank, device, n_data, n_model):
+def _cards_rank(rank, device, n_data, n_model, tensor_parallel=False):
     """One rank of ``test_mesh_on_several_cards`` (spawned, NCCL on the
     cards; gloo on the CPU for a rehearsal, where no kernel launches): a
-    dim-64, 8-head model on three chromosomes, k = 2, 3, 4."""
+    dim-64, 8-head model on three chromosomes, k = 2, 3, 4; with
+    ``tensor_parallel`` the mesh's Trainers shard the attention weights'
+    heads on the model axis (K1/K2 at 4 heads on a model axis of 2)."""
     from matcha_tpu_torch.data.batcher import BucketedBatcher
     from matcha_tpu_torch.genome import GenomeBins
     from matcha_tpu_torch.models import hypersagnn as th
@@ -842,10 +846,11 @@ def _cards_rank(rank, device, n_data, n_model):
 
     def step(mesh_, n_shards):
         """The f32 step with dropout off on fixed negatives (copies of the
-        positives, shifted), the gradients summed over the ranks."""
+        positives, shifted), the gradients summed over the ranks (the whole
+        gradients: tensor-parallel blocks gathered)."""
         t = tr.Trainer(params, frozen, dims, table,
                        settings._replace(n_shards=n_shards), blooms,
-                       mesh=mesh_)
+                       mesh=mesh_, tensor_parallel=tensor_parallel)
         batch = {k: (torch.from_numpy(e[:64]).to(device),
                      torch.from_numpy(w[:64]).to(device))
                  for k, (e, w) in buckets.items()}
@@ -861,7 +866,9 @@ def _cards_rank(rank, device, n_data, n_model):
                 n_shards)
             ((bce + 0.001 * recon) / world).backward()
         t._sum_grads()
-        return [p.grad.float().cpu() for p in tr._leaves(t.params)]
+        axes = t._tp_axes or [None] * len(tr._leaves(t.params))
+        return [pm.tp_gather(p.grad, a, mesh_).float().cpu()
+                for p, a in zip(tr._leaves(t.params), axes)]
 
     before = (ta.hyperedge_attention.launches, ts.scatter_add.launches,
               ts.bincount.launches)
@@ -877,17 +884,20 @@ def _cards_rank(rank, device, n_data, n_model):
         assert err <= 1e-5 * max(float(b.abs().max()), 1e-3 * top), err
     # a bf16 fit with "orbax" checkpoints; the ranks end on the same params
     fit = tr.Trainer(params, frozen, dims._replace(compute_dtype="bfloat16"),
-                     table, settings, blooms, mesh=mesh)
+                     table, settings, blooms, mesh=mesh,
+                     tensor_parallel=tensor_parallel)
     ck = os.path.join(os.environ["MATCHA_CARDS_TMP"],
-                      f"ck{n_data}x{n_model}")
+                      f"ck{n_data}x{n_model}{'tp' if tensor_parallel else ''}")
     hist = fit.fit(buckets, buckets, epochs=2, batch_size=64,
                    num_batch_per_iter=2, checkpoint_path=ck,
                    checkpoint_format="orbax", log=lambda *a: None)
     assert len(hist) == 2 and np.isfinite(hist[-1]["train"]["bce"])
-    flat = torch.cat([p.detach().reshape(-1).float()
-                      for p in tr._leaves(fit.params)])
-    every = pm.all_gather_rows(flat, mesh.world).reshape(mesh.size, -1)
-    assert all(torch.equal(every[0], r) for r in every[1:])
+    for tree, group, size in ((fit.whole_params(), mesh.world, mesh.size),
+                              (fit.params, mesh.data_group, n_data)):
+        flat = torch.cat([p.detach().reshape(-1).float()
+                          for p in tr._leaves(tree)])
+        every = pm.all_gather_rows(flat, group).reshape(size, -1)
+        assert all(torch.equal(every[0], r) for r in every[1:])
 
 
 @pytest.mark.cuda
@@ -897,7 +907,9 @@ def test_mesh_on_several_cards(cuda, tmp_path, monkeypatch):
     on its rows, the f32 step's gradients summed over the ranks equal one
     rank's with n_shards = D (1e-5 of each gradient's max, floored at 1e-3
     of the largest), and a bf16 fit with "orbax" checkpoints leaves every
-    rank with the same params.  Skips with one card."""
+    rank with the same params; then the mesh with a model axis again with
+    tensor parallelism (its whole params equal on every rank, its blocks
+    across each data group).  Skips with one card."""
     from matcha_tpu_torch.kernels.build import build
     from matcha_tpu_torch.parallel.distributed import spawn
     count = torch.cuda.device_count()
@@ -909,3 +921,5 @@ def test_mesh_on_several_cards(cuda, tmp_path, monkeypatch):
     for n_data, n_model in {(world, 1), (world // 2, 2)}:
         spawn(_cards_rank, world, n_data, n_model, backend=None,
               device="cuda")
+    spawn(_cards_rank, world, world // 2, 2, True, backend=None,
+          device="cuda")

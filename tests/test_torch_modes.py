@@ -346,7 +346,9 @@ def test_per_occurrence_eval_is_the_per_node_path(prob):
 
 def test_per_occurrence_draws_per_occurrence(prob, monkeypatch):
     """At rate 0.5 two occurrences of one node get different masks; the
-    keep share of the drawn masks is within 3 sigma of 0.5; pad rows are
+    mask is one (T, W_max) draw in stream order, as JAX's, and the keep
+    share of the entries the tokens use (each real token's row, its
+    chromosome's W_c columns) is within 3 sigma of 0.5; pad rows are
     zero."""
     tp, tf, td, _ = prob["t"]
     draws = []
@@ -364,7 +366,10 @@ def test_per_occurrence_draws_per_occurrence(prob, monkeypatch):
     real = emb[flat != 0]
     assert np.unique(real.numpy().round(6), axis=0).shape[0] > 1
     assert (emb[flat == 0] == 0).all()
-    keep = torch.cat([(u < 0.5).reshape(-1) for u in draws]).float()
+    assert len(draws) == 1 and tuple(draws[0].shape) == (
+        64, max(f.shape[1] for f in tf.features))
+    keep = (draws[0][flat != 0, :tf.features[1].shape[1]] < 0.5).reshape(
+        -1).float()
     assert keep.numel() == 56 * tf.features[1].shape[1]
     sigma = (0.25 / keep.numel()) ** 0.5
     assert abs(float(keep.mean()) - 0.5) <= 3 * sigma

@@ -15,8 +15,13 @@ dim 16, 4 heads, 256 edges per k).  The chain of equivalences:
   * an epoch of W ranks equals one rank with ``n_shards = D`` at
     tests/test_multichip.py's tolerances (bce 1e-4, recon 2e-3, params
     rtol 5e-3 / atol 5e-4).
-JAX is imported inside the tests, so the ranks (which import this module)
-never load it.
+The same worlds hold tensor parallelism (``Trainer(tensor_parallel=True)``:
+the step against JAX's mesh with ``param_sharding(..., tensor_parallel=
+True)``, the epoch against one rank, checkpoints whole and resumed) and
+per-occurrence feature dropout on the meshes (the step at rate 0 with the
+other dropouts the identity against JAX's mesh step, the epoch against one
+rank).  JAX is imported inside the tests, so the ranks (which import this
+module) never load it.
 """
 
 import json
@@ -32,6 +37,7 @@ from matcha_tpu_torch.data.batcher import BucketedBatcher
 from matcha_tpu_torch.genome import GenomeBins
 from matcha_tpu_torch.interop import params_from_numpy, params_to_numpy
 from matcha_tpu_torch.models import hypersagnn as th
+from matcha_tpu_torch.models import modules as tm
 from matcha_tpu_torch.ops import fused_tail as ft
 from matcha_tpu_torch.parallel import distributed as pd
 from matcha_tpu_torch.parallel import mesh as pm
@@ -46,6 +52,7 @@ MESHES = [(2, 1), (1, 2), (2, 2)]
 CASES = {"hybrid": dict(token_stream="hybrid"),
          "merged": dict(token_stream="merged"),
          "regress": dict(task_mode="regress")}
+TP_CASES = ("hybrid", "regress")    # the pad-max stream, the padded forward
 STEP_B = 16                      # positives per k of the deterministic step
 
 
@@ -78,17 +85,26 @@ def _buckets(n, seed, n_edges=256):
     return out
 
 
-def _trainer(genome, intra, inter, kw, params, settings, blooms, mesh=None):
+OCC = dict(feature_dropout_mode="per_occurrence", feature_dropout=0.2)
+
+
+def _trainer(genome, intra, inter, kw, params, settings, blooms, mesh=None,
+             tensor_parallel=False):
     return tr.Trainer(params_from_numpy(params, "cpu"),
                       th.build_frozen_tables(genome, intra, inter,
                                              device="cpu"),
                       th.ModelDims(**kw), ChromTable.from_genome(
                           genome, device="cpu"),
-                      settings, blooms, seed=7, mesh=mesh)
+                      settings, blooms, seed=7, mesh=mesh,
+                      tensor_parallel=tensor_parallel)
 
 
 def _flat(params):
     return [t.detach().numpy().copy() for t in tr._leaves(params)]
+
+
+def _identity_dropout(x, *args, **kwargs):
+    return x
 
 
 def _epoch_inputs(genome):
@@ -97,18 +113,49 @@ def _epoch_inputs(genome):
                                      device="cpu")
 
 
-def _run_case(settings, genome, intra, inter, kw, params, mesh=None):
+def _run_case(settings, genome, intra, inter, kw, params, mesh=None,
+              tensor_parallel=False):
     """Eval (fresh params), a host epoch, then -> results; the same calls
-    on one rank and on a mesh."""
+    on one rank and on a mesh ("whole": the params with whole leaves,
+    "params" this rank's, blocks under tensor parallelism)."""
     train_b, blooms = _epoch_inputs(genome)
-    t = _trainer(genome, intra, inter, kw, params, settings, blooms, mesh)
+    t = _trainer(genome, intra, inter, kw, params, settings, blooms, mesh,
+                 tensor_parallel)
     ev = t.eval_epoch(_buckets(genome.num_nodes, 9), batch_size=16,
                       max_samples=128, return_pred=True)
     r = t.train_epoch(BucketedBatcher(train_b, batch_size=16,
                                       num_batch_per_iter=4, seed=3))
     return {"eval_bce": ev["bce"], "eval_recon": ev["recon"],
             "eval_pred": ev.get("pred"), "bce": r["bce"], "recon": r["recon"],
-            "params": _flat(t.params)}
+            "params": _flat(t.params), "whole": _flat(t.whole_params())}
+
+
+def _det_step(t, inp, mode, n_data, train=False):
+    """The deterministic step of ``t`` on the fixed inputs under its mesh
+    (the recon chromosome injected; ``train`` with a generator, for the
+    per-occurrence embedding, with the other dropouts patched away by the
+    caller), the gradients summed over the ranks -> loss, bce, recon, the
+    predictions and the whole gradients."""
+    n_world = 1 if t.mesh is None else t.mesh.size
+    xs = {k: torch.from_numpy(inp[f"x{k}"]) for k in (2, 3)}
+    batch = {k: (torch.from_numpy(inp[f"pos{k}"]),
+                 torch.from_numpy(inp[f"w{k}"])) for k in (2, 3)}
+    with pm.using_active_mesh(t.mesh):
+        logits, recon = th.forward_buckets(
+            t.params, t.frozen, t.dims, xs, return_recon=True,
+            attention_mode=mode, recon_chrom=int(inp["r"]), n_shards=n_data,
+            train=train,
+            generator=torch.Generator().manual_seed(0) if train else None)
+        bce, pred = tr._bucket_bce_and_preds(
+            logits, batch, {k: b[1] for k, b in batch.items()}, n_data)
+        loss = bce + 0.5 * recon
+        (loss / n_world).backward()
+    t._sum_grads()
+    axes = t._tp_axes or [None] * len(tr._leaves(t.params))
+    return {"loss": float(loss), "bce": float(bce), "recon": float(recon),
+            "pred": pred.detach().numpy(),
+            "grads": [pm.tp_gather(p.grad, a, t.mesh).numpy().copy()
+                      for p, a in zip(tr._leaves(t.params), axes)]}
 
 
 # ------------------------------------------------------------ rank worker
@@ -142,33 +189,51 @@ def _mesh_worker(rank, dev, n_data, n_model, tmp):
                 p1, pm.shard_frozen(f1, mesh), d1, train=True,
                 generator=torch.Generator().manual_seed(5))
         out["encode"].append((one.numpy(), got.detach().numpy()))
-    # the deterministic step on JAX's negatives
+    # the deterministic step on JAX's negatives, replicated and with the
+    # attention weights' heads on the model axis
     inp = np.load(os.path.join(tmp, "step_inputs.npz"))
+    s0 = tr.TrainSettings(alpha=1.0, beta=0.001)
     for mode in ("per-k", "pad-max"):
-        t = _trainer(genome, intra, inter, kw, params,
-                     tr.TrainSettings(alpha=1.0, beta=0.001), None, mesh)
+        t = _trainer(genome, intra, inter, kw, params, s0, None, mesh)
         out["frozen_bytes"] = pm.frozen_nbytes(t.frozen)
-        xs = {k: torch.from_numpy(inp[f"x{k}"]) for k in (2, 3)}
-        batch = {k: (torch.from_numpy(inp[f"pos{k}"]),
-                     torch.from_numpy(inp[f"w{k}"])) for k in (2, 3)}
-        with pm.using_active_mesh(t.mesh):
-            logits, recon = th.forward_buckets(
-                t.params, t.frozen, t.dims, xs, return_recon=True,
-                attention_mode=mode, recon_chrom=int(inp["r"]),
-                n_shards=n_data)
-            bce, pred = tr._bucket_bce_and_preds(
-                logits, batch, {k: b[1] for k, b in batch.items()}, n_data)
-            loss = bce + 0.5 * recon
-            (loss / world).backward()
-        t._sum_grads()
-        out[f"step_{mode}"] = {
-            "loss": float(loss), "bce": float(bce), "recon": float(recon),
-            "pred": pred.detach().numpy(),
-            "grads": [p.grad.numpy().copy() for p in tr._leaves(t.params)]}
+        out[f"step_{mode}"] = _det_step(t, inp, mode, n_data)
+        t = _trainer(genome, intra, inter, kw, params, s0, None, mesh,
+                     tensor_parallel=True)
+        out[f"tp_step_{mode}"] = _det_step(t, inp, mode, n_data)
+        out["tp_shapes"] = [tuple(p.shape) for p in tr._leaves(t.params)]
+    # per-occurrence at rate 0, the other dropouts the identity
+    occ0 = dict(kw, feature_dropout_mode="per_occurrence", feature_dropout=0.0)
+    keep = tm.dropout
+    tm.dropout = _identity_dropout
+    try:
+        t = _trainer(genome, intra, inter, occ0, params, s0, None, mesh)
+        out["occ_step"] = _det_step(t, inp, "per-k", n_data, train=True)
+    finally:
+        tm.dropout = keep
+    # the autograd reduce-scatter of unequal blocks over the model group
+    sizes = [3 + j for j in range(n_model)]
+    x = torch.arange(sum(sizes) * 2, dtype=torch.float32).reshape(-1, 2)
+    x = (x * (1 + mesh.rank)).requires_grad_(True)
+    y = pm.reduce_scatter_blocks(x, sizes, mesh.model_group)
+    (y * (1 + mesh.model_index)).sum().backward()
+    want = sum(torch.arange(sum(sizes) * 2, dtype=torch.float32).reshape(
+        -1, 2) * (1 + mesh.data_index * n_model + j) for j in range(n_model))
+    lo = sum(sizes[:mesh.model_index])
+    out["reduce_scatter"] = bool(
+        torch.equal(y.detach(), want[lo:lo + sizes[mesh.model_index]])
+        and torch.equal(x.grad, torch.cat([torch.full((n, 2), 1.0 + j)
+                                           for j, n in enumerate(sizes)])))
     for case, knobs in CASES.items():
         out[case] = _run_case(tr.TrainSettings(alpha=1.0, beta=0.001,
                                                **knobs),
                               genome, intra, inter, kw, params, mesh)
+    for case in TP_CASES:
+        out[f"tp_{case}"] = _run_case(
+            tr.TrainSettings(alpha=1.0, beta=0.001, **CASES[case]),
+            genome, intra, inter, kw, params, mesh, tensor_parallel=True)
+        out[f"occ_{case}"] = _run_case(
+            tr.TrainSettings(alpha=1.0, beta=0.001, **CASES[case]),
+            genome, intra, inter, dict(kw, **OCC), params, mesh)
     # indexed against host epochs on the mesh (test_multichip.py:237)
     train_b, blooms = _epoch_inputs(genome)
     s = tr.TrainSettings(alpha=1.0, beta=0.001)
@@ -195,6 +260,25 @@ def _mesh_worker(rank, dev, n_data, n_model, tmp):
                          **fit_kw)
             runs.append(([h["train"]["bce"] for h in hist], _flat(t.params)))
         out["orbax"] = runs
+        # tensor parallelism: an "orbax" and a pickle fit, stopped after
+        # epoch 1 and resumed; the pickle checkpoint holds whole arrays
+        for fmt in ("orbax", "pickle"):
+            runs = []
+            for name, epochs, resume in (("A", 3, False), ("B", 2, False),
+                                         ("B", 3, True)):
+                t = _trainer(genome, intra, inter, kw, params, s, blooms,
+                             mesh, tensor_parallel=True)
+                ext = "" if fmt == "orbax" else ".pkl"
+                hist = t.fit(train_b, train_b, epochs=epochs, resume=resume,
+                             checkpoint_path=os.path.join(
+                                 tmp, f"tp_{fmt}_ck{name}{ext}"),
+                             resume_path=os.path.join(
+                                 tmp, f"tp_{fmt}_res{name}{ext}"),
+                             **dict(fit_kw, checkpoint_format=fmt))
+                runs.append(([h["train"]["bce"] for h in hist],
+                             _flat(t.params), _flat(t.whole_params())))
+            out[f"tp_{fmt}"] = runs
+        out["tp_pickle_checkpoint"] = os.path.join(tmp, "tp_pickle_ckA.pkl")
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
@@ -226,14 +310,20 @@ def _jax_step_inputs(genome, kw, params, n_data):
     return out
 
 
-def _jax_step(genome, intra, inter, kw, params, inp, n_data, n_model, mode):
+def _jax_step(genome, intra, inter, kw, params, inp, n_data, n_model, mode,
+              tensor_parallel=False, occurrence=False):
     """JAX's value_and_grad of the same step under make_mesh(D, M), with
-    shard_train_inputs and using_active_mesh."""
+    shard_train_inputs (the params then placed by ``param_sharding(...,
+    tensor_parallel)``) and using_active_mesh.  occurrence: train mode
+    with per-occurrence feature dropout at rate 0, the other dropouts the
+    identity."""
     import jax
     import jax.numpy as jnp
     from matcha_tpu.genome import GenomeBins as JGenome
     from matcha_tpu.models import hypersagnn as jh
-    from matcha_tpu.parallel.mesh import (make_mesh, shard_train_inputs,
+    from matcha_tpu.models import modules as jm
+    from matcha_tpu.parallel.mesh import (make_mesh, param_sharding,
+                                          shard_train_inputs,
                                           using_active_mesh)
     from matcha_tpu.train import runtime as jr
     jg = JGenome(genome.chrom_names, genome.chrom_sizes, genome.resolution)
@@ -242,7 +332,13 @@ def _jax_step(genome, intra, inter, kw, params, inp, n_data, n_model, mode):
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     jp, jf, _ = shard_train_inputs(mesh, jp, jh.build_frozen_tables(
         jg, intra, inter), {})
+    if tensor_parallel:
+        jp = jax.device_put(jp, param_sharding(jp, mesh,
+                                               tensor_parallel=True))
     jd = jh.ModelDims(**kw)
+    if occurrence:
+        jd = jd._replace(feature_dropout_mode="per_occurrence",
+                         feature_dropout=0.0)
     xs = {k: jnp.asarray(inp[f"x{k}"]) for k in (2, 3)}
     batch = {k: (jnp.asarray(inp[f"pos{k}"]), jnp.asarray(inp[f"w{k}"]))
              for k in (2, 3)}
@@ -251,13 +347,20 @@ def _jax_step(genome, intra, inter, kw, params, inp, n_data, n_model, mode):
     def loss(p):
         logits, recon = jh.forward_buckets(
             p, jf, jd, xs, key=kf, return_recon=True, attention_mode=mode,
-            n_shards=n_data)
+            n_shards=n_data, train=occurrence)
         bce, pred = jr._bucket_bce_and_preds(
             logits, batch, {k: b[1] for k, b in batch.items()}, n_data)
         return bce + 0.5 * recon, {"bce": bce, "recon": recon, "pred": pred}
 
-    with using_active_mesh(mesh):
-        (l, aux), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(jp)
+    keep = jm.dropout
+    if occurrence:
+        jm.dropout = lambda key, x, rate, train: x
+    try:
+        with using_active_mesh(mesh):
+            (l, aux), g = jax.jit(jax.value_and_grad(loss,
+                                                     has_aux=True))(jp)
+    finally:
+        jm.dropout = keep
     return {"loss": float(l), "bce": float(aux["bce"]),
             "recon": float(aux["recon"]), "pred": np.asarray(aux["pred"]),
             "grads": [np.asarray(a) for a in jax.tree_util.tree_leaves(g)]}
@@ -281,11 +384,22 @@ def worlds(tmp_path_factory):
         for mode in ("per-k", "pad-max"):
             refs[(d, m, mode)] = _jax_step(genome, intra, inter, kw, params,
                                            inp, d, m, mode)
+            if m > 1:
+                refs[(d, m, mode, "tp")] = _jax_step(
+                    genome, intra, inter, kw, params, inp, d, m, mode,
+                    tensor_parallel=True)
+        refs[(d, m, "occ")] = _jax_step(genome, intra, inter, kw, params,
+                                        inp, d, m, "per-k", occurrence=True)
     for d in sorted({d for d, _ in MESHES}):
         for case, knobs in CASES.items():
             refs[(d, case)] = _run_case(
                 tr.TrainSettings(alpha=1.0, beta=0.001, n_shards=d, **knobs),
                 genome, intra, inter, kw, params)
+        for case in TP_CASES:
+            refs[(d, "occ", case)] = _run_case(
+                tr.TrainSettings(alpha=1.0, beta=0.001, n_shards=d,
+                                 **CASES[case]),
+                genome, intra, inter, dict(kw, **OCC), params)
     got = {}
     for key, ctx in ctxs.items():
         while not ctx.join():
@@ -471,11 +585,180 @@ def test_orbax_fit_resumes_exactly_on_a_mesh(worlds):
             np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-7)
 
 
+def _assert_step(out, ref, what):
+    for name in ("loss", "bce", "recon"):
+        np.testing.assert_allclose(out[name], ref[name], **TOL,
+                                   err_msg=f"{what} {name}")
+    np.testing.assert_allclose(out["pred"], ref["pred"], **TOL)
+    assert len(out["grads"]) == len(ref["grads"])
+    for a, b in zip(out["grads"], ref["grads"]):
+        np.testing.assert_allclose(a, b, **TOL, err_msg=what)
+
+
+def _leaf_names(tree, path=""):
+    """"/"-joined key paths of the leaves, in ``_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k],
+                                                             f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{path}/{i}")]
+    return [path[1:]]
+
+
+# the key LayerNorm's bias adds one vector to every key of an edge, which
+# adds a constant to each score row that the softmax removes: its gradient
+# is zero but for rounding, and AdamW turns that noise into steps of up to
+# about lr each, in directions the summation order picks
+NULL_GRAD = "encoder/mha/ln_k/b"
+
+
+def _assert_epoch(out, ref, what, steps=4, lr=1e-3):
+    """An epoch against one rank's (tests/test_multichip.py:80-92): bce
+    1e-4, recon 2e-3, the whole params rtol 5e-3 / atol 5e-4; the leaf
+    whose gradient is zero but for rounding (NULL_GRAD) within the two
+    runs' noise steps, 2 * steps * lr."""
+    assert abs(out["bce"] - ref["bce"]) < 1e-4, what
+    assert abs(out["recon"] - ref["recon"]) < 2e-3, what
+    names = _leaf_names(_problem()[4])
+    for name, a, b in zip(names, out["whole"], ref["params"]):
+        if name == NULL_GRAD:
+            assert np.abs(a - b).max() <= 2 * steps * lr, (what, name)
+        else:
+            np.testing.assert_allclose(a, b, rtol=5e-3, atol=5e-4,
+                                       err_msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_tensor_parallel_step_matches_jax_mesh(worlds, mesh):
+    """The deterministic f32 step with the attention weights' heads on the
+    model axis, per-k and pad-max, the sharded gradients gathered over the
+    model group, against JAX's value_and_grad under make_mesh(D, M) with
+    param_sharding(..., tensor_parallel=True) (rtol 1e-4, atol 1e-5); on
+    2 x 1 (no model axis) it is the replicated step, bit for bit.  The
+    rank holds 1/M of wq, wk, wv (columns) and fc1's weight (rows)."""
+    refs, got = worlds
+    for rank_out in got[mesh]:
+        for mode in ("per-k", "pad-max"):
+            out = rank_out[f"tp_step_{mode}"]
+            if mesh[1] == 1:
+                dp = rank_out[f"step_{mode}"]
+                assert out["loss"] == dp["loss"]
+                for a, b in zip(out["grads"], dp["grads"]):
+                    np.testing.assert_array_equal(a, b)
+            else:
+                _assert_step(out, refs[mesh + (mode, "tp")], f"tp {mode}")
+        whole = [tuple(g.shape) for g in rank_out["step_per-k"]["grads"]]
+        for held, full in zip(rank_out["tp_shapes"], whole):
+            cut = [i for i, (a, b) in enumerate(zip(held, full)) if a != b]
+            assert all(held[i] * mesh[1] == full[i] for i in cut)
+        assert sum(a != b for a, b in zip(rank_out["tp_shapes"], whole)) \
+            == (0 if mesh[1] == 1 else 4)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_tensor_parallel_epoch_matches_one_rank_with_n_shards(worlds, mesh):
+    """A tensor-parallel epoch (dropout on; the pad-max stream and the
+    regress mode's padded forward) against one rank with n_shards = D:
+    bce 1e-4, recon 2e-3, the whole params rtol 5e-3 / atol 5e-4, the eval
+    predictions 1e-5; replicated leaves bit-equal on every rank, sharded
+    leaves bit-equal across each data group (the ranks of one model
+    index); the reduce-scatter of unequal blocks and its backward exact."""
+    refs, got = worlds
+    ranks = got[mesh]
+    for case in TP_CASES:
+        ref = refs[(mesh[0], case)]
+        for rank_out in ranks:
+            out = rank_out[f"tp_{case}"]
+            _assert_epoch(out, ref, case)
+            if ref["eval_pred"] is not None:
+                np.testing.assert_allclose(out["eval_pred"],
+                                           ref["eval_pred"], rtol=1e-5,
+                                           atol=1e-6)
+            assert rank_out["reduce_scatter"]
+        for r, rank_out in enumerate(ranks):
+            peer = ranks[r % mesh[1]][f"tp_{case}"]
+            for a, b in zip(rank_out[f"tp_{case}"]["params"],
+                            peer["params"]):
+                np.testing.assert_array_equal(a, b)
+            for a, b in zip(rank_out[f"tp_{case}"]["whole"],
+                            ranks[0][f"tp_{case}"]["whole"]):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_tensor_parallel_checkpoints_resume_and_hold_whole_arrays(worlds):
+    """On 2 x 2 with tensor parallelism: an "orbax" fit and a pickle fit,
+    stopped after epoch 1 and resumed in fresh Trainers, end as the
+    uninterrupted runs do (bce 1e-6; params rtol 1e-6 / atol 1e-7) on
+    every rank; the pickle checkpoint holds whole arrays, equal to the
+    fit's gathered params (the best epoch reloaded), and loads in a no-mesh
+    port Trainer and in JAX."""
+    import jax
+    from matcha_tpu.train import runtime as jr
+    _, got = worlds
+    for fmt in ("orbax", "pickle"):
+        for rank_out in got[(2, 2)]:
+            (bce_a, pa, wa), (bce_b1, _, _), (bce_b2, pb, wb) = \
+                rank_out[f"tp_{fmt}"]
+            assert len(bce_a) == 3 and len(bce_b1) == 2 and len(bce_b2) == 1
+            assert abs(bce_a[2] - bce_b2[0]) < 1e-6, fmt
+            for x, y in zip(pa + wa, pb + wb):
+                np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-7)
+    ck = got[(2, 2)][0]["tp_pickle_checkpoint"]
+    whole = got[(2, 2)][0]["tp_pickle"][0][2]
+    loaded = tr.load_checkpoint(ck, full=True, device="cpu")
+    assert loaded["epoch"] is not None
+    for a, b in zip(_flat(loaded["params"]), whole):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(loaded["opt_state"]["exp_avg"], whole):
+        assert a.shape == b.shape
+    for a, b in zip(jax.tree_util.tree_leaves(jr.load_checkpoint(ck)),
+                    whole):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    genome, intra, inter, kw, _ = _problem()
+    t = _trainer(genome, intra, inter, kw, params_to_numpy(loaded["params"]),
+                 tr.TrainSettings(alpha=1.0, beta=0.001), None)
+    for a, b in zip(_flat(t.params), whole):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_per_occurrence_step_on_mesh_matches_jax_mesh(worlds, mesh):
+    """Per-occurrence feature dropout on the meshes: the train-mode step at
+    rate 0 (the attention and feed-forward dropouts the identity on both
+    sides; the per-token embedding, gathered under a model axis by its
+    holders and reduce-scattered, and the per-token recon summed over the
+    world) against JAX's value_and_grad under make_mesh(D, M) (rtol 1e-4,
+    atol 1e-5)."""
+    refs, got = worlds
+    for rank_out in got[mesh]:
+        _assert_step(rank_out["occ_step"], refs[mesh + ("occ",)], "occ")
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_per_occurrence_epoch_on_mesh_matches_one_rank(worlds, mesh):
+    """A per-occurrence epoch (feature dropout 0.2, the masks one draw per
+    token of the whole stream) on the mesh against one rank with n_shards
+    = D: bce 1e-4, recon 2e-3, params rtol 5e-3 / atol 5e-4; every rank
+    holds the same params bit for bit."""
+    refs, got = worlds
+    for case in TP_CASES:
+        ref = refs[(mesh[0], "occ", case)]
+        for rank_out in got[mesh]:
+            _assert_epoch(rank_out[f"occ_{case}"], ref, f"occ {case}")
+        for rank_out in got[mesh][1:]:
+            for a, b in zip(rank_out[f"occ_{case}"]["params"],
+                            got[mesh][0][f"occ_{case}"]["params"]):
+                np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------- single process
 def test_mesh_rules_in_one_process():
     """A world of one: the 1x1 mesh is no mesh; kernel axes and batch
-    factor follow JAX's rules; tensor_parallel raises naming the next
-    slice; the frozen tables pad and shard by rows."""
+    factor follow JAX's rules; tensor_parallel without a mesh is the
+    no-mesh Trainer (JAX places params by a mesh only), and its placement
+    rule is JAX's param_sharding's; the frozen tables pad and shard by
+    rows."""
     from matcha_tpu.parallel import mesh as jm
     one = pm.make_mesh(1, 1)
     assert one.shape == {"data": 1, "model": 1} and one.world is None
@@ -493,13 +776,33 @@ def test_mesh_rules_in_one_process():
     with pm.using_active_mesh(Fake(2, 1)):
         assert pm.active_data_mesh() is not None
     genome, intra, inter, kw, params = _problem()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tr.Trainer(params_from_numpy(params, "cpu"),
-                   th.build_frozen_tables(genome, intra, inter, device="cpu"),
-                   th.ModelDims(**kw),
-                   ChromTable.from_genome(genome, device="cpu"),
-                   tr.TrainSettings(alpha=1.0, beta=0.001),
-                   tensor_parallel=True)
+    runs = []
+    for tp in (False, True):
+        t = _trainer(genome, intra, inter, kw, params,
+                     tr.TrainSettings(alpha=1.0, beta=0.001), None,
+                     tensor_parallel=tp)
+        r = t.train_epoch(BucketedBatcher(_buckets(genome.num_nodes, 1),
+                                          batch_size=16,
+                                          num_batch_per_iter=2, seed=3))
+        runs.append((r["bce"], r["recon"], _flat(t.params),
+                     _flat(t.whole_params())))
+    assert runs[0][:2] == runs[1][:2]
+    for a, b in zip(runs[0][2] + runs[0][3], runs[1][2] + runs[1][3]):
+        np.testing.assert_array_equal(a, b)
+    # the placement rule, leaf by leaf, against JAX's param_sharding
+    import jax
+    from jax.sharding import PartitionSpec as P
+    spec = {P(None, "model"): 1, P("model", None): 0, P(): None}
+    jmesh = jm.make_mesh(1, 2, devices=jax.devices()[:2])
+    want = [spec[x.spec] for x in jax.tree_util.tree_leaves(
+        jm.param_sharding(params, jmesh, tensor_parallel=True))]
+    assert pm.tp_axes(params_from_numpy(params, "cpu")) == want
+    assert sorted(set(want), key=str) == [0, 1, None]
+    odd = Fake(1, 3)
+    odd.world = None
+    with pytest.raises(ValueError, match="heads do not split"):
+        pm.replicate_params(params_from_numpy(params, "cpu"), odd,
+                            tensor_parallel=True, n_head=kw["n_head"])
     frozen = th.build_frozen_tables(genome, intra, inter, device="cpu")
     fake = Fake(1, 4)
     fake.model_index = 3
