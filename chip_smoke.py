@@ -201,13 +201,42 @@ Phases, all in this process; any failure exits non-zero before the last line:
      finite, the ranks' params equal, the peak memory per rank, and the f32
      step at rate 0 (the other dropouts the identity) against one rank with
      n_shards = D within 1e-5 of each gradient's max.
+ 17. (run after phase 14 and before phase 16, whose ranks share the card)
+     the 100 kb all-genome configuration of the JAX package's
+     scripts/bench_100kb.py at full width: hg38 chr1-22 + chrX at 100,000
+     bp (30,344 nodes), dim 64, 8 heads, bf16 compute with f32 master
+     params, frozen tables in bf16 drawn per chromosome from the seed as
+     its build_frozen_synthetic draws them, 4 x 2,048 random sorted rows
+     per k = 2..5 (duplicate nodes dropped), weights in [0.5, 1.5), Bloom
+     filters from the buckets, alpha 1, beta 0.001, the knobs that
+     resolve_perf gives on the card (merged, unfused tail, "xla").  The
+     memory around the Trainer's pad of inter_z (2,491 zero columns); (a)
+     prepare_device_epochs, a warm-up epoch and three timed
+     train_epoch_device epochs of 10 steps, the counts zeroed just before
+     and read just after each (K1 x3, K2 x3, K3 x1, K4 x1 per step),
+     finite losses, every param moved; from saved params, AdamW state and
+     generator state the device epoch against _launch_epoch on the
+     permutations redrawn by hand, bit for bit; a deterministic f32 step
+     (dropout off, the same negatives and recon chromosome, 512 positives
+     per k, f32 tables on both sides) on the card against the CPU (1e-5
+     loss, 1e-4 gradients, bf16 loss 2e-2); the synchronised step and a
+     profiled one (device busy, idle share); K3 and K4 at T = 114,688, n
+     = 30,345 and K1, K2 at the step's shapes (events, device time,
+     bounds, index_add_ / torch.bincount); (b) Trainer.fit with
+     device_epochs="on": 2 epochs of 10 steps with eval over 2,048 test
+     rows per k (4 batches of 2,048), a checkpoint and the embedding
+     export, the counts zeroed just before and read just after (each step
+     as in (a), each eval batch K1 x1, K4 x1), the embeddings (30,344,
+     64) and finite.  Prints the phase's wall.
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import os
 import pickle
 import shutil
@@ -216,6 +245,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import unittest.mock
 import warnings
 
@@ -227,6 +257,7 @@ from torch.profiler import ProfilerActivity, profile
 from matcha_tpu_torch.apps.predict import predict_proba
 from matcha_tpu_torch.apps.predict_multiway import (parse_interaction_file,
                                                     run_predict_multiway)
+from matcha_tpu_torch.config import Config
 from matcha_tpu_torch.data.batcher import BucketedBatcher
 from matcha_tpu_torch.genome import GenomeBins
 from matcha_tpu_torch.kernels.build import build
@@ -255,6 +286,7 @@ from matcha_tpu_torch.parallel.mesh import (all_gather_blocks,
                                             reduce_scatter_blocks, tp_gather,
                                             using_active_mesh)
 from matcha_tpu_torch.parallel.stream import shard_concat
+from matcha_tpu_torch.pipeline import resolve_perf
 from matcha_tpu_torch.sampler import bloom as tb
 from matcha_tpu_torch.sampler.bloom import build_bloom_dict
 from matcha_tpu_torch.sampler.negative import ChromTable, sample_negatives
@@ -574,11 +606,14 @@ def check_scatter_skewed(device) -> float:
 
 def check_scatter_bincount(device) -> dict:
     """K3 against index_add_ (f32 sums, 1e-5) and K4 against bincount
-    (exact), at the training step's shape and a ragged one; -> worst K3
-    error."""
+    (exact), at the training step's shape, at 1 Mb (n = 3,068) and at 100
+    kb (n = 30,345: K3's global-histogram route, K4's banded one), and a
+    ragged one; -> worst K3 error."""
     worst = 0.0
     for T, n, dt in [(114_688, 3_068, torch.float32),
                      (114_688, 3_068, torch.bfloat16),
+                     (114_688, 30_345, torch.float32),
+                     (114_688, 30_345, torch.bfloat16),
                      (1_001, 300, torch.bfloat16)]:
         gen = torch.Generator().manual_seed(T + n)
         g = torch.randn((T, DIM), generator=gen).to(device, dt)
@@ -1016,10 +1051,9 @@ def stage_split(bundle, inp, out) -> dict:
     return split
 
 
-def device_profile(fn) -> dict:
-    """torch.profiler over one call of fn (after a warm call): device time
-    by kernel, the device's idle share of the call's wall time, and the
-    kernel launches."""
+def device_kernels(fn):
+    """torch.profiler over one call of fn (after a warm call) -> [(kernel
+    name, device us, launches)] and the call's wall us."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1030,10 +1064,17 @@ def device_profile(fn) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     # user annotations (the optimizer's record_function ranges) span the
     # kernels launched inside them: counting them would count those twice
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)], wall_us
+
+
+def device_profile(fn) -> dict:
+    """torch.profiler over one call of fn (after a warm call): device time
+    by kernel, the device's idle share of the call's wall time, and the
+    kernel launches."""
+    kernels, wall_us = device_kernels(fn)
     busy_us = sum(k[1] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     return {"wall_ms_profiled": wall_us / 1e3,
@@ -1048,10 +1089,16 @@ def device_profile(fn) -> dict:
 def device_ms_per_call(fn, iters=20):
     """Device time per call of fn from torch.profiler over ``iters`` calls:
     its kernels alone, without the host work of its wrapper (which CUDA
-    events around a launch-bound call measure instead)."""
-    busy = device_profile(lambda: [fn() for _ in range(iters)])[
-        "device_busy_ms"]
-    return busy / iters if isinstance(busy, float) else busy
+    events around a launch-bound call measure instead).  Each kernel's
+    mean time times its launches per call (its launches over ``iters``,
+    rounded up): late in a long process the profiler drops the first
+    records of a trace, and a sum over the trace would read low.  "not
+    measured" when the trace holds no kernel."""
+    kernels, _ = device_kernels(lambda: [fn() for _ in range(iters)])
+    if not any(c for _, _, c in kernels):
+        return "not measured"
+    return sum(t / c * math.ceil(c / iters)
+               for _, t, c in kernels if c) / 1e3
 
 
 def profile_scoring(params, frozen, dims, samples) -> dict:
@@ -1404,6 +1451,19 @@ def time_training_kernels(device, card) -> dict:
     K4, the one PyTorch call that computes the same function (by events and
     on the device); K1's and K2's achieved TFLOP/s from their device time;
     K3 and K4 also on skewed ids (Zipf, a hub row holding half of T)."""
+    out = time_attention_kernels(device)
+    out.update(time_table_kernels(device, 4 * TRAIN_BATCH * sum(TRAIN_KS),
+                                  3_068, ("uniform", "zipf", "hub")))
+    print(json.dumps({"metric": "training_kernels", **out, "card": card}),
+          flush=True)
+    return out
+
+
+def time_attention_kernels(device) -> dict:
+    """K1 and K2 at the training step's shapes (8,192 edges per k, L = 3,
+    4, 5, bf16): CUDA events around the wrapper and the device time from
+    torch.profiler, beside their bounds, their plain versions and their
+    achieved TFLOP/s.  -> {"K1_L<L>", "K2_L<L>"}."""
     out = {}
     E, dt = 4 * TRAIN_BATCH, "bfloat16"
     for L in (3, 4, 5):
@@ -1437,12 +1497,23 @@ def time_training_kernels(device, card) -> dict:
             "bound_ms": b1, "bound_by": by1, "gflop": f1 / 1e9,
             "tflops_achieved": f1 / (dev1 * 1e-3) / 1e12
             if isinstance(dev1, float) else "not measured"}
-    T, n = 4 * TRAIN_BATCH * sum(TRAIN_KS), 3_068
+    return out
+
+
+def time_table_kernels(device, T: int, n: int, kinds) -> dict:
+    """K3 on a bf16 (T, 64) cotangent and K4 on the same ids into n rows:
+    CUDA events around the wrapper and the kernels' device time from
+    torch.profiler, beside their byte bounds (each input read once, each
+    output written once), their plain versions and the one PyTorch call
+    that computes the same function (index_add_, torch.bincount; events and
+    device time).  -> {"K3", "K4", "K3_<kind>", "K4_<kind>"} for the
+    uniform and the skewed ``kinds`` of ids."""
+    out = {}
     gen = torch.Generator().manual_seed(SEED + 6)
     g = torch.randn((T, DIM), generator=gen).to(device, torch.bfloat16)
     g32 = g.float()
     acc = torch.zeros((n, DIM), device=device)
-    for kind in ("uniform", "zipf", "hub"):
+    for kind in kinds:
         idx = torch.from_numpy(skewed_ids(
             kind, np.random.default_rng(SEED + 6), T, n)).to(device)
         idx64 = idx.long()
@@ -1473,8 +1544,6 @@ def time_training_kernels(device, card) -> dict:
             "library": "torch.bincount",
             "bound_ms": (T * 4 + n * 4) / PEAK_BYTES * 1e3,
             "bound_by": "bytes"}
-    print(json.dumps({"metric": "training_kernels", **out, "card": card}),
-          flush=True)
     return out
 
 
@@ -3484,6 +3553,296 @@ def mesh_fit_check(ranks) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 17
+# 100 kb all-genome: hg38 chr1-22 + chrX at 100,000 bp (30,344 nodes), the
+# configuration of the JAX package's scripts/bench_100kb.py; epochs of 10
+# steps (a user's ~1,000), three timed device-resident epochs, a fit of two
+# epochs with eval over 2,048 test rows per k
+RES_100KB, STEPS_100KB, TIMED_EPOCHS_100KB = 100_000, 10, 3
+FIT_EPOCHS_100KB, TEST_PER_K_100KB, NODES_100KB = 2, 2_048, 30_344
+
+
+def frozen_100kb_host(genome, seed=SEED):
+    """scripts/bench_100kb.py:build_frozen_synthetic's tables as host f32
+    arrays, drawn from one generator in its order: per chromosome a normal
+    (w, w) block made symmetric and scaled by 1/sqrt(w), then a normal
+    (N + 1, N) inter table; the one-hot chromosome + coordinate
+    attributes.  Streamed per chromosome: no (N x N) f64 array."""
+    rng = np.random.default_rng(seed)
+    n = genome.num_nodes
+    feats = []
+    for c in range(genome.num_chroms):
+        s, e = genome.chrom_range[c]
+        w = e - s
+        block = rng.standard_normal((w, w), dtype=np.float32)
+        feats.append(((block + block.T) / np.sqrt(w)).astype(np.float32))
+    inter = rng.standard_normal((n + 1, n), dtype=np.float32)
+    attr = np.zeros((n + 1, genome.num_chroms + 1), np.float32)
+    for c in range(genome.num_chroms):
+        s, e = genome.chrom_range[c]
+        attr[s:e, c] = 1.0
+        attr[s:e, -1] = np.arange(e - s) / genome.bins_per_chrom[0]
+    return feats, attr, inter
+
+
+def frozen_on(host, genome, device, dtype):
+    """The host tables of ``frozen_100kb_host`` on ``device``: features and
+    inter_z in ``dtype``, as bench_100kb.py places them."""
+    feats, attr, inter = host
+    return hs.FrozenTables(
+        features=tuple(torch.from_numpy(f).to(device, dtype) for f in feats),
+        attr_table=torch.from_numpy(attr).to(device),
+        inter_z=torch.from_numpy(inter).to(device, dtype),
+        chrom_of_node=torch.from_numpy(
+            genome.node2chrom.astype(np.int32)).to(device),
+        chrom_bounds=torch.from_numpy(
+            genome.chrom_range.astype(np.int32)).to(device))
+
+
+def same_epoch_check(trainer) -> dict:
+    """The device epoch is the indexed epoch's program on the rows drawn on
+    the card: from saved params, AdamW state and generator state, one
+    ``train_epoch_device``; then the same state restored, the permutations
+    redrawn by hand (per k in sorted order a seed from the generator, a
+    generator on the card, randperm cut to (steps, batch)) and
+    ``_launch_epoch`` on those rows.  Both must be bit-equal."""
+    params = [t.detach().clone() for t in _leaves(trainer.params)]
+    opt = copy.deepcopy(trainer.optimizer.state_dict())
+    state = trainer.generator.get_state()
+    got = trainer.train_epoch_device()
+    got_params = [t.detach().clone() for t in _leaves(trainer.params)]
+    with torch.no_grad():
+        for t, v in zip(_leaves(trainer.params), params):
+            t.copy_(v)
+    trainer.optimizer.load_state_dict(opt)
+    trainer.generator.set_state(state)
+    steps, batch = trainer._dev_shape
+    stacked = {}
+    for k in sorted(trainer._dev_buckets):
+        e, w = trainer._dev_buckets[k]
+        seed = int(torch.randint(0, 2 ** 62, (1,),
+                                 generator=trainer.generator))
+        gen = torch.Generator(device=e.device).manual_seed(seed)
+        idx = torch.randperm(len(e), generator=gen, device=e.device)[
+            :steps * batch].view(steps, batch)
+        stacked[k] = (e[idx], w[idx])
+    want = trainer._finish_indexed(trainer._launch_epoch(stacked))
+    keys = ("bce", "recon", "metrics", "fallback_bloom_rate",
+            "fallback_orig_rate")
+    out = {"results_equal": all(got[k] == want[k] for k in keys),
+           "params_equal": all(torch.equal(a, b) for a, b in
+                               zip(got_params, _leaves(trainer.params)))}
+    print(f"100 kb device epoch vs _launch_epoch on its rows: "
+          f"{json.dumps(out)}", flush=True)
+    if not all(out.values()):
+        fail("the device-resident epoch differs from the indexed epoch on "
+             "the same rows")
+    return out
+
+
+def hundred_kb_phase(card, device=torch.device("cuda")) -> dict:
+    """Phase 17: the 100 kb all-genome configuration at full width on the
+    shipped path (``resolve_perf`` on the card): (a) device-resident epochs
+    (prepare_device_epochs, a warm-up epoch, three timed epochs with their
+    launches pinned, the same-rows check), the card's f32 step against the
+    CPU's, a profiled step, the memory around the Trainer's inter_z pad,
+    and K1-K4 at this configuration's shapes; (b) Trainer.fit with
+    device_epochs="on": 2 epochs of 10 steps with eval, a checkpoint and the
+    embedding export.  -> launches and times for the kernels line."""
+    t_phase = time.perf_counter()
+    genome = GenomeBins(HG38_NAMES, HG38, RES_100KB)
+    n = genome.num_nodes
+    if n != NODES_100KB:
+        fail(f"hg38 at 100 kb has {n} bins, expected {NODES_100KB}")
+    hs._FUSE_TAIL = None          # resolve_perf sets the gate anew
+    perf = resolve_perf(Config(), "cuda")
+    shipped = {"compute_dtype": "bfloat16", "token_stream": "merged",
+               "propose_impl": "xla", "fuse_tail": "off"}
+    if any(perf[k] != v for k, v in shipped.items()):
+        fail(f"resolve_perf on the card gave {perf}, expected {shipped}")
+    dims = ModelDims(dim=DIM, n_head=N_HEAD, num_chroms=genome.num_chroms,
+                     num_nodes=n, compute_dtype=perf["compute_dtype"],
+                     use_pallas_attention=True)
+    params = init_model(torch.Generator().manual_seed(SEED), dims,
+                        [int(e - s) for s, e in genome.chrom_range],
+                        device=device)
+    t0 = time.perf_counter()
+    host = frozen_100kb_host(genome)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frozen = frozen_on(host, genome, device, torch.bfloat16)
+    torch.cuda.synchronize()
+    transfer_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    buckets = {}
+    for k in TRAIN_KS:
+        e = np.sort(rng.choice(np.arange(1, n + 1), (4 * TRAIN_BATCH, k)),
+                    axis=1)
+        e = e[(np.diff(e, axis=1) > 0).all(axis=1)]
+        buckets[k] = (e.astype(np.int32),
+                      rng.random(len(e)).astype(np.float32) + 0.5)
+    t0 = time.perf_counter()
+    blooms = build_bloom_dict({k: v[0] for k, v in buckets.items()},
+                              device=device)
+    torch.cuda.synchronize()
+    bloom_s = time.perf_counter() - t0
+    settings = TrainSettings(alpha=1.0, beta=0.001,
+                             token_stream=perf["token_stream"],
+                             propose_impl=perf["propose_impl"])
+    table = ChromTable.from_genome(genome, device=device)
+    gb = 1e9
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(params, frozen, dims, table, settings, blooms=blooms,
+                      seed=SEED)
+    torch.cuda.synchronize()
+    memory = {"held_before_trainer_gb": held / gb,
+              "peak_during_trainer_gb": torch.cuda.max_memory_allocated()
+              / gb,
+              "held_after_trainer_gb": torch.cuda.memory_allocated() / gb}
+    del frozen                 # the caller's unpadded tables
+    memory["held_after_dropping_unpadded_gb"] = (torch.cuda.memory_allocated()
+                                                 / gb)
+    memory["inter_z_gb"] = host[2].size * 2 / gb
+    memory["inter_z_padded_gb"] = trainer.frozen.inter_z.numel() * 2 / gb
+    memory["pad_columns"] = (int(trainer.frozen.inter_z.shape[1])
+                             - host[2].shape[1])
+    print(f"100 kb set-up: {n} nodes, buckets "
+          f"{ {k: len(v[0]) for k, v in buckets.items()} }, frozen build "
+          f"{build_s:.3f} s (host f32), transfer {transfer_s:.3f} s (bf16), "
+          f"Bloom filters {bloom_s:.3f} s; memory {json.dumps(memory)}",
+          flush=True)
+
+    # (a) device-resident epochs
+    t0 = time.perf_counter()
+    trainer.prepare_device_epochs(buckets, TRAIN_BATCH, STEPS_100KB)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = trainer.train_epoch_device()
+    warm_s = time.perf_counter() - t0
+    before = [t.detach().clone() for t in _leaves(trainer.params)]
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for i in range(TIMED_EPOCHS_100KB):
+        zero_launch_counts()
+        timed.append(trainer.train_epoch_device())
+        counts = launch_counts()
+        check_counts(counts, STEPS_100KB, f"100 kb device epoch {i + 1}")
+    memory["peak_timed_epochs_gb"] = torch.cuda.max_memory_allocated() / gb
+    for res in [warm] + timed:
+        if not (np.isfinite(res["bce"]) and np.isfinite(res["recon"])):
+            fail(f"100 kb epoch losses are not finite: {res}")
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(before, _leaves(trainer.params)))
+    if moved != len(before):
+        fail(f"100 kb: only {moved} of {len(before)} parameters changed")
+    step_ms = [r["elapsed"] / STEPS_100KB * 1e3 for r in timed]
+    rates = [r["hyperedges_per_sec"] for r in timed]
+    same_rows = same_epoch_check(trainer)
+
+    # the card's f32 step against the CPU's, on f32 tables on both sides
+    f32 = frozen_on(host, genome, device, torch.float32)
+    f32 = f32._replace(inter_z=torch.nn.functional.pad(
+        f32.inter_z, (0, memory["pad_columns"])))
+    view = types.SimpleNamespace(params=trainer.params, frozen=f32,
+                                 dims=trainer.dims,
+                                 chrom_table=trainer.chrom_table,
+                                 blooms=trainer.blooms)
+    t0 = time.perf_counter()
+    step_check = check_deterministic_step(view, buckets, device,
+                                          what="100 kb deterministic step")
+    check_s = time.perf_counter() - t0
+    del f32, view
+    host = None
+
+    batch = {k: (e[:TRAIN_BATCH], w[:TRAIN_BATCH])
+             for k, (e, w) in trainer._dev_buckets.items()}
+    synced = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e3)
+    trace = device_profile(lambda: trainer.train_step(batch))
+    kernels = time_table_kernels(device, 4 * TRAIN_BATCH * sum(TRAIN_KS),
+                                 n + 1, ("uniform",))
+    kernels.update(time_attention_kernels(device))
+
+    # (b) Trainer.fit with device_epochs="on"
+    test = {k: (e[:TEST_PER_K_100KB], w[:TEST_PER_K_100KB])
+            for k, (e, w) in buckets.items()}
+    marks = []
+    launch = trainer.train_epoch_indexed_launch
+
+    def marked_launch(batcher):
+        marks.append(time.perf_counter())
+        return launch(batcher)
+    trainer.train_epoch_indexed_launch = marked_launch
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model.chkpt")
+        emb_path = os.path.join(tmp, "embeddings.npy")
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        hist = trainer.fit(
+            buckets, test, epochs=FIT_EPOCHS_100KB, batch_size=TRAIN_BATCH,
+            num_batch_per_iter=STEPS_100KB, checkpoint_path=ckpt,
+            embeddings_path=emb_path, seed=3, device_epochs="on",
+            log=lambda m: print(f"100 kb fit: {m}", flush=True))
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        fit_counts = launch_counts()
+        emb = np.load(emb_path)
+        saved = load_checkpoint(ckpt, device="cpu")
+    del trainer.train_epoch_indexed_launch
+    eval_batches = (len(TRAIN_KS) * TEST_PER_K_100KB) // TRAIN_BATCH
+    want = added(scaled(step_counts(False, False),
+                        FIT_EPOCHS_100KB * STEPS_100KB),
+                 scaled(eval_counts(False), FIT_EPOCHS_100KB * eval_batches))
+    print(f"100 kb fit launches {fit_counts} (expected {want})", flush=True)
+    if fit_counts != want:
+        fail(f"the 100 kb fit launched {fit_counts}, expected {want}")
+    if emb.shape != (n, DIM) or not np.isfinite(emb).all():
+        fail(f"100 kb embeddings: shape {emb.shape}, finite "
+             f"{bool(np.isfinite(emb).all())}")
+    if len(_leaves(saved)) != len(_leaves(trainer.params)):
+        fail("the 100 kb checkpoint does not hold the param tree")
+    for h in hist:
+        if not np.isfinite(h["train"]["bce"]):
+            fail(f"100 kb fit losses are not finite: {h['train']}")
+    walls = [b - a for a, b in zip(marks, marks[1:] + [t_end])]
+    fit = {"epoch_wall_s": walls,
+           "train_s": [h["train"]["elapsed"] for h in hist],
+           "train_hyperedges_per_s": [h["train"]["hyperedges_per_sec"]
+                                      for h in hist],
+           "valid_auprc": [h["valid"]["metrics"].get(max(TRAIN_KS), {})
+                           .get("auprc") for h in hist],
+           "fit_s": t_end - t0, "launches": fit_counts,
+           "embeddings_shape": list(emb.shape)}
+    wall = time.perf_counter() - t_phase
+    metrics = {
+        "metric": "train_step_hyperedges_per_s_100kb",
+        "value": statistics.median(rates), "nodes": n,
+        "hyperedges_per_s_epochs": rates,
+        "median_step_ms": statistics.median(step_ms),
+        "step_ms_epochs": step_ms,
+        "median_step_ms_synced": statistics.median(synced),
+        "prepare_s": prepare_s, "warmup_epoch_s": warm_s,
+        "frozen_build_s": build_s, "frozen_transfer_s": transfer_s,
+        "bloom_build_s": bloom_s, "memory": memory,
+        "launches_per_epoch": counts, "same_rows": same_rows,
+        "card_vs_cpu_check_s": check_s,
+        "fallback_bloom_rate": timed[-1]["fallback_bloom_rate"],
+        "fit": fit, "phase_wall_s": wall, "card": card}
+    print(json.dumps(metrics), flush=True)
+    print(json.dumps({"metric": "train_step_profile_100kb", **trace,
+                      "card": card}), flush=True)
+    print(json.dumps({"metric": "kernels_100kb", **kernels, "card": card}),
+          flush=True)
+    return {"counts": counts, "fit_counts": fit_counts, "kernels": kernels,
+            "step_check": step_check, "wall_s": wall}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -3634,6 +3993,13 @@ def main():
     occ = modes["per_occurrence"]["epoch_launches"]
     rbf = modes["recon_bf16"]["epoch_launches"]
 
+    # 17. the 100 kb all-genome configuration (before phase 16, whose
+    # spawned ranks share the card)
+    set_fuse_tail(False)
+    big = hundred_kb_phase(card)
+    bk = big["kernels"]
+    torch.cuda.empty_cache()
+
     # 16. multi-rank training on the one card
     check_rank_shapes(device)
     tp_worst = check_tp_shapes(device)
@@ -3661,6 +4027,8 @@ def main():
                 shape: c[name] for shape, c in tp_counts.items()}
             out["launches_mesh_per_occurrence_per_rank_step"] = \
                 occ_counts[name]
+        out["launches_device_epoch_100kb"] = big["counts"][name]
+        out["launches_fit_100kb"] = big["fit_counts"][name]
         return out
 
     k2 = tk["K2_L5"]
@@ -3687,7 +4055,9 @@ def main():
          "max_abs_err": worst["bfloat16"],
          "max_abs_err_f32": worst["float32"],
          "max_abs_err_tp_4_heads": tp_worst["bfloat16"]["K1"],
-         "max_abs_err_tp_4_heads_f32": tp_worst["float32"]["K1"], "ms": ms,
+         "max_abs_err_tp_4_heads_f32": tp_worst["float32"]["K1"],
+         "at_100kb_step_L345": [bk[f"K1_L{L}"] for L in (3, 4, 5)],
+         "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None},
         {"name": "hyperedge_attention_bwd", "route": "cuda",
@@ -3703,6 +4073,7 @@ def main():
          "max_err_rel_to_max_f32": worst_bwd["float32"]["rel_to_max"],
          "max_err_rel_to_max_tp_4_heads": tp_worst["bfloat16"]["K2"],
          "max_err_rel_to_max_tp_4_heads_f32": tp_worst["float32"]["K2"],
+         "at_100kb_step_L345": [bk[f"K2_L{L}"] for L in (3, 4, 5)],
          "ms": k2["ms"], "device_ms": k2["device_ms"],
          "tflops_achieved": k2["tflops_achieved"],
          "plain_ms": k2["plain_ms"],
@@ -3723,7 +4094,8 @@ def main():
          "bound_ms": tk["K3"]["bound_ms"], "bound_by": "bytes",
          "library_ms": tk["K3"]["library_ms"],
          "library_device_ms": tk["K3"]["library_device_ms"],
-         "sgns": {f"T{T}": sg[f"K3_T{T}"] for T in SGNS_T}},
+         "sgns": {f"T{T}": sg[f"K3_T{T}"] for T in SGNS_T},
+         "at_100kb": bk["K3"]},
         {"name": "bincount", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",
          "replaces": "matcha_tpu/ops/table_scatter.py:112",
@@ -3742,7 +4114,8 @@ def main():
          "bound_ms": tk["K4"]["bound_ms"], "bound_by": "bytes",
          "library_ms": tk["K4"]["library_ms"],
          "library_device_ms": tk["K4"]["library_device_ms"],
-         "sgns": {f"T{T}": sg[f"K4_T{T}"] for T in SGNS_T}},
+         "sgns": {f"T{T}": sg[f"K4_T{T}"] for T in SGNS_T},
+         "at_100kb": bk["K4"]},
         {"name": "propose_phase1", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/propose.cu",
          "replaces": "matcha_tpu/ops/propose.py:94",

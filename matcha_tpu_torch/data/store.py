@@ -145,6 +145,19 @@ class HyperedgeStore:
     def train_sizes(self) -> Dict[int, int]:
         return {k: len(v[0]) for k, v in self.train.items()}
 
+    def save(self, temp_dir: str) -> None:
+        """Write the buckets as the JAX package's ``save`` does, file for
+        file: ``{train,test}_<k>_{edges,weights}.npy`` and
+        ``unlabeled_<k>_edges.npy``."""
+        os.makedirs(temp_dir, exist_ok=True)
+        for k in self.k_list:
+            for name, bucket in (("train", self.train), ("test", self.test)):
+                e, w = bucket[k]
+                np.save(os.path.join(temp_dir, f"{name}_{k}_edges.npy"), e)
+                np.save(os.path.join(temp_dir, f"{name}_{k}_weights.npy"), w)
+            np.save(os.path.join(temp_dir, f"unlabeled_{k}_edges.npy"),
+                    self.unlabeled[k])
+
     @classmethod
     def from_temp_dir(cls, temp_dir: str, k_list: Sequence[int], *,
                       quantile_cutoff_for_positive: float,

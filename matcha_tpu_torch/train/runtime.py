@@ -8,10 +8,13 @@ alpha = 0, beta = 1 with no Bloom filters (negatives are copies of the
 positives); stage 2 is alpha = 1, beta = 0.001 against the filters.  The
 indexed epoch (``pin_base_buckets`` + ``train_epoch_indexed``) keeps the
 batcher's base arrays on the card and moves only the host-drawn indices per
-epoch.  PyTorch runs eagerly: an epoch is a Python loop of steps, with no
-host synchronisation inside it except the sampler's phase-2 test; the
-epoch's losses, sampler counters and per-size metrics (computed on the
-predictions' device, ``train/metrics.py``) come back in one fetch.
+epoch; the device-resident epoch (``prepare_device_epochs`` +
+``train_epoch_device``, single-device) keeps the whole buckets there and
+draws each epoch's permutations there too.  PyTorch runs eagerly: an
+epoch is a Python loop of steps, with no host synchronisation inside it
+except the sampler's phase-2 test; the epoch's losses, sampler counters
+and per-size metrics (computed on the predictions' device,
+``train/metrics.py``) come back in one fetch.
 
 ``Trainer.fit`` runs one stage: epochs (indexed when the buckets fit the pin
 budget, else the host batcher path), the reference's mixed-size eval after
@@ -63,7 +66,9 @@ import torch
 from matcha_tpu_torch.data.batcher import BucketedBatcher
 from matcha_tpu_torch.device import to_device
 from matcha_tpu_torch.genome import GenomeBins
-from matcha_tpu_torch.interop import params_from_numpy, params_to_numpy
+from matcha_tpu_torch.interop import (adamw_state_from_optax, is_optax_adamw,
+                                      load_pickle, params_from_numpy,
+                                      params_to_numpy, tree_leaves)
 from matcha_tpu_torch.models.hypersagnn import (FrozenTables, ModelDims,
                                                 build_frozen_tables,
                                                 encode_node_table, forward,
@@ -113,12 +118,7 @@ class TrainSettings(NamedTuple):
     chrom_bounds: Optional[tuple] = None
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+_leaves = tree_leaves
 
 
 def _tree_map(fn, tree):
@@ -588,6 +588,8 @@ class Trainer:
         self.optimizer = make_optimizer(self.params, settings)
         self._pinned = None
         self._pinned_shape = None
+        self._dev_buckets = None
+        self._dev_shape = None
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One step on {k: (positives (B, k) int32, weights (B,))} on the
@@ -752,6 +754,62 @@ class Trainer:
         t0 = time.perf_counter()
         return self._finish_indexed(self.train_epoch_indexed_launch(batcher),
                                     t0=t0)
+
+    def prepare_device_epochs(self, train_buckets, batch_size: int,
+                              num_batch_per_iter: int) -> None:
+        """Copy the whole training buckets to the params' device for
+        device-resident epochs (``train_epoch_device``): each epoch then
+        draws its permutations on the device, with no host draw or copy of
+        rows or indices.  A bucket smaller than an epoch's rows is doubled
+        until it covers them (the reference duplicates small buckets, ref
+        Code/Modules.py:638-641).  Single-device only, as in the JAX
+        package; raises on an empty bucket and under a mesh."""
+        if self.mesh is not None:
+            raise RuntimeError("device-resident epochs are single-device; "
+                               "use train_epoch_indexed on a mesh")
+        need = num_batch_per_iter * batch_size
+        dev = _leaves(self.params)[0].device
+        pinned = {}
+        for k, (e, w) in sorted(train_buckets.items()):
+            e = np.asarray(e, np.int32)
+            w = np.asarray(w, np.float32)
+            if len(e) == 0:
+                raise ValueError(f"empty bucket for k={k}")
+            while len(e) < need:
+                e = np.concatenate([e, e])
+                w = np.concatenate([w, w])
+            pinned[int(k)] = (torch.as_tensor(e, device=dev),
+                              torch.as_tensor(w, device=dev))
+        self._dev_buckets = pinned
+        self._dev_shape = (int(num_batch_per_iter), int(batch_size))
+
+    def train_epoch_device_launch(self) -> Dict:
+        """Dispatch one device-resident epoch -> its device aux, not
+        fetched (``_finish_indexed`` fetches it).  For each k in sorted
+        order one split of the Trainer's generator (a seed for a generator
+        on the buckets' device, as ``jax.random.split`` gives a key per k:
+        a CUDA permutation takes no CPU generator) draws a permutation of
+        the bucket there, cut to (steps, batch); one gather per bucket;
+        then the steps of ``_launch_epoch``."""
+        if self._dev_buckets is None:
+            raise RuntimeError("call prepare_device_epochs first")
+        steps, batch = self._dev_shape
+        stacked = {}
+        for k, (e, w) in sorted(self._dev_buckets.items()):
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=self.generator))
+            gen = torch.Generator(device=e.device).manual_seed(seed)
+            idx = torch.randperm(e.shape[0], generator=gen,
+                                 device=e.device)[:steps * batch].view(
+                                     steps, batch)
+            stacked[k] = (e[idx], w[idx])
+        return self._launch_epoch(stacked)
+
+    def train_epoch_device(self) -> Dict:
+        """One device-resident epoch (launch, then the one fetch); the
+        result has ``train_epoch_indexed``'s keys."""
+        t0 = time.perf_counter()
+        return self._finish_indexed(self.train_epoch_device_launch(), t0=t0)
 
     def train_epoch(self, batcher: BucketedBatcher) -> Dict:
         """One epoch with the batches gathered on the host and copied."""
@@ -1287,14 +1345,25 @@ def _write_checkpoint(path: str, params_np, opt_np, epoch, key, best) -> None:
 
 def load_checkpoint(path: str, full: bool = False, device="cuda"):
     """-> the params on ``device`` (or, with ``full``, the whole dict).
-    Reads the port's checkpoints and the JAX package's written without an
-    optimizer state (its optax state needs optax to unpickle).  Unpickles
-    the file: load only checkpoints this project wrote."""
+    Reads the port's checkpoints and the JAX package's, with or without
+    its optax AdamW state, and imports neither optax nor JAX: the file is
+    read by ``interop.load_pickle``, which takes numpy arrays, Python
+    values and optax's AdamW states and refuses every other class.  A JAX
+    file's optax state becomes the port's (``adamw_state_from_optax``) and
+    its JAX PRNG key is dropped: a Trainer resumed from a JAX snapshot
+    keeps its own generator, so it continues with the params and AdamW
+    moments, not with JAX's random stream."""
     with open(path, "rb") as f:
-        ckpt = pickle.load(f)
+        ckpt = load_pickle(f)
     if not isinstance(ckpt, dict) or "params" not in ckpt:
         ckpt = {"params": ckpt, "opt_state": None, "epoch": None}
     ckpt["params"] = params_from_numpy(ckpt["params"], device)
+    if is_optax_adamw(ckpt.get("opt_state")):
+        ckpt["opt_state"] = adamw_state_from_optax(*ckpt["opt_state"][0])
+    # a torch generator's state is uint8; a JAX key (uint32) seeds nothing
+    key = ckpt.get("key")
+    if key is not None and np.asarray(key).dtype != np.uint8:
+        ckpt["key"] = None
     return ckpt if full else ckpt["params"]
 
 

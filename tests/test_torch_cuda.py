@@ -18,8 +18,9 @@ whose shapes the fixed-width kernels do not take (dim 16, k = 7 proposals)
 through a training step, scoring and the sampler on the card: it launches
 none of K1, K2, K5 and K6 and matches the same computation on the CPU.  The
 last three hold the closed-form pair scorer, a per-occurrence training step
-and the recon decode with bf16 operands on the card against the CPU.  The
-walk pretraining's: K3 and K4 at the SGNS shapes, one SGNS step card
+and the recon decode with bf16 operands on the card against the CPU; then
+a device-resident epoch against the indexed epoch on its rows, bit for
+bit.  The walk pretraining's: K3 and K4 at the SGNS shapes, one SGNS step card
 against CPU, and the co-occurrence scatter's determinism.  The last runs
 only on a machine with several cards: meshes of one rank per card on NCCL
 against one rank.
@@ -673,6 +674,55 @@ def test_recon_bf16_on_the_card_matches_the_cpu(cuda, monkeypatch):
         got[on] = card
     assert got[True] != got[False]
     assert abs(got[True] - got[False]) <= 2e-2 * abs(got[False])
+
+
+@pytest.mark.cuda
+def test_device_epoch_equals_indexed_epoch_on_the_card(cuda, monkeypatch):
+    """Device-resident epochs at dim 64 / 8 heads in bf16 (the unfused
+    tail, "xla" proposals): the pinned buckets lie on the card, an epoch of
+    3 steps launches K1 and K2 twice, K3 and K4 once per step, and from the
+    same params, optimizer state and generator state it equals
+    ``_launch_epoch`` on the permutations redrawn by hand on the card, bit
+    for bit (every kernel of the step gives the same bits every call)."""
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.train import runtime as tr
+    monkeypatch.setattr(th, "_FUSE_TAIL", False)
+    _, dims, params, frozen, blooms, table, buckets = _small_problem(
+        cuda, ks=(2, 3, 4), dim=64, n_head=8)
+    dims = dims._replace(compute_dtype="bfloat16")
+    train = {k: (e[:50], np.ones(50, np.float32))
+             for k, e in buckets.items()}
+    steps, batch = 3, 32            # 96 rows: each bucket doubled to 100
+    trainers = [tr.Trainer(params, frozen, dims, table,
+                           tr.TrainSettings(alpha=1.0, beta=0.001,
+                                            token_stream="merged"),
+                           blooms=blooms, seed=5) for _ in range(2)]
+    for t in trainers:
+        t.prepare_device_epochs(train, batch, steps)
+        assert all(e.device.type == cuda.type and len(e) == 100
+                   for e, _ in t._dev_buckets.values())
+    a, b = trainers
+    state = a.generator.get_state()
+    before = _counts()
+    got = a.train_epoch_device()
+    counts = [x - y for x, y in zip(_counts(), before)]
+    assert counts == [2 * steps, 2 * steps, steps, steps, 0, 0, 0], counts
+    b.generator.set_state(state)
+    stacked = {}
+    for k in sorted(b._dev_buckets):
+        e, w = b._dev_buckets[k]
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=b.generator))
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        idx = torch.randperm(len(e), generator=gen, device=cuda)[
+            :steps * batch].view(steps, batch)
+        stacked[k] = (e[idx], w[idx])
+    want = b._finish_indexed(b._launch_epoch(stacked))
+    assert np.isfinite(got["bce"]) and np.isfinite(got["recon"])
+    for key in ("bce", "recon", "fallback_bloom_rate", "fallback_orig_rate",
+                "metrics"):
+        assert got[key] == want[key], key
+    for x, y in zip(tr._leaves(a.params), tr._leaves(b.params)):
+        assert torch.equal(x, y)
 
 
 # ------------------------------------------- walk pretraining: SGNS, cooc

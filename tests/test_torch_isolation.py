@@ -45,3 +45,18 @@ def test_port_imports_no_jax_and_nothing_of_matcha_tpu():
                 "train.checkpoint"):
         assert f"matcha_tpu_torch.{mod}" in report["modules"]
     assert report["leaked"] == []
+
+
+def test_chip_smoke_imports_no_jax_and_nothing_of_matcha_tpu():
+    """The GPU smoke script imports the port alone (its main() runs only
+    as a script)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import json, sys\nimport chip_smoke\n"
+             "banned = ('jax', 'jaxlib', 'matcha_tpu', 'sklearn', 'optax', "
+             "'orbax')\n"
+             "print(json.dumps(sorted(n for n in sys.modules "
+             "if n.split('.')[0] in banned)))\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []

@@ -171,6 +171,34 @@ def test_store_matches_jax(fixture, seed):
         np.testing.assert_array_equal(got.unlabeled[k], want.unlabeled[k])
 
 
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_store_save_round_trip(fixture, tmp_path, writer):
+    """Both stores built by ``from_temp_dir`` from the same k-mer files;
+    one package's ``save`` writes, and its files (the same names as the
+    other's ``save`` writes) hold the other package's buckets, array for
+    array with their dtypes."""
+    *_, jax_temp = fixture
+    kw = dict(quantile_cutoff_for_positive=0.6,
+              quantile_cutoff_for_unlabel=0.4, neg_num=3, seed=2)
+    port = HyperedgeStore.from_temp_dir(jax_temp, [2, 3], **kw)
+    jax_store = JaxStore.from_temp_dir(jax_temp, [2, 3], **kw)
+    src, other = (port, jax_store) if writer == "port" else (jax_store, port)
+    out, ref = tmp_path / "written", tmp_path / "reference"
+    src.save(str(out))
+    other.save(str(ref))
+    assert sorted(os.listdir(out)) == sorted(os.listdir(ref))
+    for k in (2, 3):
+        for split in ("train", "test"):
+            e, w = getattr(other, split)[k]
+            for name, want in (("edges", e), ("weights", w)):
+                got = np.load(out / f"{split}_{k}_{name}.npy")
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)
+        got = np.load(out / f"unlabeled_{k}_edges.npy")
+        assert got.dtype == other.unlabeled[k].dtype
+        np.testing.assert_array_equal(got, other.unlabeled[k])
+
+
 def test_store_subsample_is_seeded():
     """Above 10,000 k-mers of one size the quantiles come from a subsample
     that the store draws from its seed: two stores of one seed agree."""

@@ -5,9 +5,14 @@ same recon chromosome r: the loss, its bce and recon parts and every
 parameter gradient are held against jax.value_and_grad of the JAX package's
 own step loss (stage-1 copies as negatives) and of the same JAX pieces (a
 JAX-sampled set of negatives fed to both); one AdamW update from the same
-gradients against optax.adamw (1e-6 absolute).  The port's batcher gives
-the JAX package's index stream, and a few CPU epochs train.
+gradients against optax.adamw (1e-6 absolute), and a second one after the
+port resumes from a JAX snapshot with its optax state.  The port's batcher
+gives the JAX package's index stream, and a few CPU epochs train.
 """
+
+import collections
+import pickle
+import sys
 
 import numpy as np
 import pytest
@@ -188,6 +193,65 @@ def test_adamw_update_matches_optax(prob):
             jax.tree_util.tree_map(lambda t: t.detach().numpy(), tp)),
             jax.tree_util.tree_leaves(ref)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-6)
+
+
+def test_jax_checkpoint_with_adamw_state_resumes_in_port(prob, tmp_path,
+                                                         monkeypatch):
+    """JAX takes one optax.adamw step and saves a snapshot (params, optax
+    state, epoch, its PRNG key).  The port reads it with optax and JAX
+    unimportable, a Trainer resumes from it (params, AdamW moments and
+    step; its own generator, unchanged), and one more step from the same
+    gradients agrees with optax's second step (1e-6 absolute)."""
+    jp = prob["j"][0]
+    tp, tf, td, tt = prob["t"]
+    js = jr.TrainSettings(alpha=1.0, beta=0.001, learning_rate=3e-3)
+    rng = np.random.default_rng(2)
+    g1, g2 = (jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.standard_normal(a.shape), jnp.float32), jp)
+        for _ in range(2))
+    jopt = jr.make_optimizer(js)
+    upd, st = jopt.update(g1, jopt.init(jp), jp)
+    p1 = optax.apply_updates(jp, upd)
+    path = str(tmp_path / "resume.chkpt")
+    jr.save_checkpoint(path, p1, st, epoch=0, key=jax.random.PRNGKey(5),
+                       best=0.25)
+    upd, _ = jopt.update(g2, st, p1)
+    p2 = optax.apply_updates(p1, upd)
+
+    trainer = tr.Trainer(tp, tf, td, tt,
+                         tr.TrainSettings(alpha=1.0, beta=0.001,
+                                          learning_rate=3e-3), seed=4)
+    fresh = trainer.generator.get_state()
+    with monkeypatch.context() as m:
+        for name in [n for n in sys.modules
+                     if n.split(".")[0] in ("optax", "jax")]:
+            m.setitem(sys.modules, name, None)
+        snap = trainer._load_resume(path)
+    assert snap["epoch"] == 0 and snap["best"] == 0.25 and snap["key"] is None
+    assert snap["opt_state"]["step"] == [1.0] * len(tr._leaves(tp))
+    assert torch.equal(trainer.generator.get_state(), fresh)
+    for a, b in zip(jax.tree_util.tree_leaves(p1),
+                    tr._leaves(trainer.params)):
+        np.testing.assert_array_equal(b.detach().numpy(), np.asarray(a))
+    for t, g in zip(tr._leaves(trainer.params),
+                    jax.tree_util.tree_leaves(g2)):
+        t.grad = torch.tensor(np.asarray(g))
+    trainer.optimizer.step()
+    for a, b in zip(tr._leaves(trainer.params),
+                    jax.tree_util.tree_leaves(p2)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=0, atol=1e-6)
+
+
+def test_load_checkpoint_refuses_other_classes(tmp_path):
+    """Only numpy arrays and scalars, Python values and optax's AdamW
+    states unpickle; anything else is refused before it is built."""
+    path = str(tmp_path / "odd.chkpt")
+    with open(path, "wb") as f:
+        pickle.dump({"params": {"w": np.ones(2, np.float32)},
+                     "opt_state": collections.OrderedDict(a=1)}, f)
+    with pytest.raises(pickle.UnpicklingError, match="OrderedDict"):
+        tr.load_checkpoint(path, device="cpu")
 
 
 def test_batcher_index_stream_matches_jax(prob):
