@@ -228,12 +228,38 @@ Phases, all in this process; any failure exits non-zero before the last line:
      export, the counts zeroed just before and read just after (each step
      as in (a), each eval batch K1 x1, K4 x1), the embeddings (30,344,
      64) and finite.  Prints the phase's wall.
+ 18. (run after phase 17, its tensors released, and before phase 16) a
+     user's 100 kb all-genome run through the entry points, 30,344 nodes:
+     (a) with numpy only, dense f32 (N, N) contacts written by
+     save_contacts (intra banded per chromosome as the JAX package's
+     scripts/bench_apps_100kb.py draws it, one all-zero bin per
+     chromosome; inter sparse and symmetric, ~64 positive entries per row
+     off its chromosome, some rows all zero and some with one entry) and
+     phase 11's edge list; the free disk checked first (temp_dir and the
+     bundle hold 4 x 3.68 GB: too little fails); (b) kmers (a subprocess)
+     and train (pipeline.main) with phase 11's config and table_dtype
+     "bfloat16": "auto" must resolve to bf16 / merged / xla / off, K1-K4
+     launch and K5 / K6 not, the artifacts exist, the embeddings (30,344,
+     64) and finite; (c) the bundle loaded once (f32 tables on the card;
+     np.load and the table build timed apart, host and card memory), then
+     denoise_pixels over the 23 chromosomes (a warm-up on the smallest,
+     np.random.seed first, one timed pass and its parts, no kernel):
+     exactly 23,607,738 finite pixels in [0, 1]; per chromosome the closed
+     form vs the forward on 100,000 sampled pairs, bf16 on the card (3e-2);
+     chr1's f32 pair probabilities card vs CPU on CPU copies of the same
+     tables (1e-4); (d) run_predict_multiway on 20,000 queries per k = 2..5,
+     each on one chromosome, its stages timed inside the call: K1 exactly
+     6 times and nothing else, probabilities in (0, 1), 2,000 per k bf16
+     card vs f32 CPU (3e-2); (e) outlier ranking as phase 13 on the loaded
+     bundle and those queries: K1 once per chunk, per-position scores f32
+     card vs CPU (1e-4).  Prints the phase's wall.
 Then one JSON line of kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -244,6 +270,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import unittest.mock
@@ -378,6 +405,65 @@ TOL_SGNS_STEP, TOL_COOC_RTOL, TOL_COOC_ATOL = 1e-5, 1e-6, 1e-7
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def timed_calls(module, *names):
+    """Within the block, each named function of ``module`` (a module
+    global its callers look up at call time) is wrapped to add its
+    host-clock seconds to the yielded dict, under its name."""
+    spent = dict.fromkeys(names, 0.0)
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(unittest.mock.patch.object(
+                module, name, timed(name, getattr(module, name))))
+        yield spent
+
+
+def rss_gb() -> float:
+    """This process's resident memory now (GB)."""
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class HostMemory:
+    """This process's resident memory over a with-block: a thread reads it
+    every 10 ms and keeps the largest.  Beside it the process's peak since
+    it started (``ru_maxrss``; Linux resets that counter only through
+    /proc/self/clear_refs, which a container may refuse)."""
+
+    def __enter__(self):
+        self.start_gb = self.peak_gb = self.end_gb = rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _poll(self):
+        while not self._stop.wait(0.01):
+            self.peak_gb = max(self.peak_gb, rss_gb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.end_gb = rss_gb()
+        self.peak_gb = max(self.peak_gb, self.end_gb)
+
+    def reading(self) -> dict:
+        import resource
+        peak_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        return {"start_gb": self.start_gb, "peak_gb": self.peak_gb,
+                "end_gb": self.end_gb, "process_peak_gb": peak_kb * 1e3 / 1e9}
 
 
 def card_line() -> str:
@@ -1028,27 +1114,23 @@ def reference_proba(bundle, samples, device):
         compute_dtype="float32"), samples, BATCH)
 
 
-def stage_split(bundle, inp, out) -> dict:
-    """Host-clock seconds of each stage of one run_predict_multiway call
-    (the same four calls it makes), synchronised after each."""
-    split, t0 = {}, time.perf_counter()
-
-    def lap(name):
-        nonlocal t0
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        split[name] = t1 - t0
-        t0 = t1
-
-    params, dims, genome, frozen = load_model_bundle(bundle, "cuda")
-    lap("load_bundle_s")
-    samples = parse_interaction_file(inp, genome)
-    lap("parse_s")
-    proba = predict_proba(params, frozen, dims, samples, BATCH)
-    lap("score_s")
-    np.savetxt(out, proba)
-    lap("write_s")
-    return split
+@contextlib.contextmanager
+def predict_stages():
+    """Within the block, the stages of ``run_predict_multiway`` calls:
+    host-clock seconds of the bundle load (and of the table build inside
+    it), the parse, the scoring (it ends in a copy to the host) and the
+    write, filled into the yielded dict when the block ends."""
+    from matcha_tpu_torch.apps import predict_multiway as pm
+    stages = {}
+    with timed_calls(pm, "load_model_bundle", "parse_interaction_file",
+                     "predict_proba") as st, \
+            timed_calls(runtime, "build_frozen_tables") as bf, \
+            timed_calls(np, "savetxt") as wr:
+        yield stages
+    stages.update(load_bundle_s=st["load_model_bundle"],
+                  build_frozen_tables_s=bf["build_frozen_tables"],
+                  parse_s=st["parse_interaction_file"],
+                  score_s=st["predict_proba"], write_s=wr["savetxt"])
 
 
 def device_kernels(fn):
@@ -2110,13 +2192,8 @@ def small_model_phase(genome, device, card) -> dict:
 def write_train_inputs(temp: str, genome, rng) -> int:
     """Phase 11's ``temp_dir``, with numpy only (no h5py): the genome
     (``GenomeBins.save``), random symmetric intra- and inter-chromosomal
-    contact matrices and an edge list of clusters of 2-25 nodes: 1,500
-    multi-way templates of 5-8 nodes on one chromosome each, every template
-    drawn at least three times (twice whole, then whole or less one member),
-    so every k = 2..5 keeps thousands of k-mers at min_freq_cutoff 2 with
-    frequencies spread for the quantile weights, plus 300 clusters of 2-25
-    nodes anywhere.  -> the number of clusters."""
-    from matcha_tpu_torch.data.clusters import save_edge_list
+    contact matrices and the edge list of ``write_clusters``.  -> the
+    number of clusters."""
     from matcha_tpu_torch.data.mcool import save_contacts
     genome.save(temp)
     n = genome.num_nodes
@@ -2125,6 +2202,18 @@ def write_train_inputs(temp: str, genome, rng) -> int:
     same = genome.node2chrom[1:, None] == genome.node2chrom[None, 1:]
     save_contacts(temp, np.where(same, m, 0).astype(np.float32),
                   np.where(same, 0, m).astype(np.float32))
+    return write_clusters(temp, genome, rng)
+
+
+def write_clusters(temp: str, genome, rng) -> int:
+    """An edge list of clusters of 2-25 nodes in ``temp``: 1,500 multi-way
+    templates of 5-8 nodes on one chromosome each, every template drawn at
+    least three times (twice whole, then whole or less one member), so
+    every k = 2..5 keeps thousands of k-mers at min_freq_cutoff 2 with
+    frequencies spread for the quantile weights, plus 300 clusters of 2-25
+    nodes anywhere.  -> the number of clusters."""
+    from matcha_tpu_torch.data.clusters import save_edge_list
+    n = genome.num_nodes
     clusters = []
     for _ in range(CLI_TEMPLATES):
         s, e = genome.chrom_range[rng.integers(genome.num_chroms)]
@@ -2145,24 +2234,37 @@ def write_train_inputs(temp: str, genome, rng) -> int:
 
 def cli_train_phase(genome, card, tmp: str) -> dict:
     """Phase 11: ``run_train`` through the CLI on the card at full width.
-    Writes the inputs (``write_train_inputs``) and a config.JSON (k = 2..5,
-    embed_dim 64, 8 heads, compute "auto", batch 2,048, 10 batches per
-    epoch, 1 + 1 epochs) under ``tmp``, runs ``python -m matcha_tpu_torch
-    kmers`` in a subprocess and the ``train`` stage through the same entry
-    in this process (``pipeline.main``), with the launch counts zeroed just
-    before and read just after; then scores candidates with the bundle it
-    wrote.  -> the results, with the config's path ("config")."""
-    import contextlib
-    import importlib.util
-    import io
-    from matcha_tpu_torch.native import cluster_native, kmer_native
-    from matcha_tpu_torch.pipeline import main as cli_main
+    Writes the inputs (``write_train_inputs``) and a config.JSON
+    (``write_cli_config``) under ``tmp``, runs the ``kmers`` and ``train``
+    stages (``cli_kmers_and_train``); then scores candidates with the
+    bundle it wrote.  -> the results, with the config's path ("config")."""
     out = {"metric": "run_train_cli", "card": card}
     temp = os.path.join(tmp, "temp")
     t0 = time.perf_counter()
     out["clusters"] = write_train_inputs(temp, genome,
                                          np.random.default_rng(SEED + 70))
     out["inputs_s"] = time.perf_counter() - t0
+    cfg = write_cli_config(tmp, temp, genome)
+    cli_kmers_and_train(cfg, tmp, temp, genome, out)
+    inp = os.path.join(tmp, "candidates.txt")
+    with open(inp, "w") as f:
+        f.write("chr1:500000\tchr1:3500000\n"
+                "chr2:1000000\tchr2:9000000\tchr2:20000000\n"
+                "chr3:0\tchr3:4000000\tchr3:8000000\tchr3:9000000\n")
+    proba = run_predict_multiway(os.path.join(temp, "model2load"), inp,
+                                 os.path.join(tmp, "out.txt"),
+                                 device="cuda")
+    out["proba"] = [float(p) for p in proba]
+    if proba.shape != (3,) or not ((proba > 0) & (proba < 1)).all():
+        fail(f"the trained bundle scored {proba}")
+    print(json.dumps(out), flush=True)
+    return {**out, "config": cfg}
+
+
+def write_cli_config(tmp: str, temp: str, genome, **extra) -> str:
+    """Phase 11's config.JSON under ``tmp`` (k = 2..5, embed_dim 64, 8
+    heads, compute "auto", batch 2,048, 10 batches per epoch, 1 + 1
+    epochs), with ``extra`` keys on top.  -> its path."""
     cfg = os.path.join(tmp, "config.JSON")
     with open(cfg, "w") as f:
         json.dump({"temp_dir": temp, "resolution": genome.resolution,
@@ -2172,7 +2274,26 @@ def cli_train_phase(genome, card, tmp: str) -> dict:
                    "min_freq_cutoff": 2, "embed_dim": CLI_DIM,
                    "n_head": N_HEAD, "batch_size": CLI_BATCH,
                    "num_batch_per_iter": TRAIN_STEPS,
-                   "stage1_epochs": 1, "stage2_epochs": 1}, f)
+                   "stage1_epochs": 1, "stage2_epochs": 1, **extra}, f)
+    return cfg
+
+
+def cli_kmers_and_train(cfg: str, tmp: str, temp: str, genome, out: dict,
+                        device="cuda") -> None:
+    """``python -m matcha_tpu_torch kmers`` in a subprocess, then the
+    ``train`` stage through the same entry in this process
+    (``pipeline.main``), the launch counts zeroed just before and read just
+    after.  "auto" must resolve to bf16 / merged / xla / off, K1-K4 must
+    launch and K5 / K6 not; the bundle, the (N, dim) finite embeddings, the
+    checkpoint and the metrics log must exist.  Fills ``out`` with the
+    stages' walls, the time ``run_train`` spent in
+    ``build_frozen_tables``, the host memory over ``train`` and the
+    launches."""
+    import contextlib
+    import importlib.util
+    import io
+    from matcha_tpu_torch import pipeline
+    from matcha_tpu_torch.native import cluster_native, kmer_native
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "matcha_tpu_torch",
                           "kmers", "-c", cfg],
@@ -2188,15 +2309,19 @@ def cli_train_phase(genome, card, tmp: str) -> dict:
     out["modules"] = {m: importlib.util.find_spec(m) is not None
                       for m in ("h5py", "scipy", "matplotlib", "pandas")}
 
-    hs._FUSE_TAIL = None          # phase 10 set the gate; "auto" resets
-    os.environ.pop("MATCHA_FUSE_TAIL", None)
+    hs._FUSE_TAIL = None          # an earlier phase set the gate; "auto"
+    os.environ.pop("MATCHA_FUSE_TAIL", None)        # resets it
     log = io.StringIO()
     zero_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
-        cli_main(["train", "-c", cfg, "--device", "cuda"])
-    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(log), HostMemory() as mem, \
+            timed_calls(pipeline, "build_frozen_tables") as spent:
+        pipeline.main(["train", "-c", cfg, "--device", str(device)])
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
     out["train_s"] = time.perf_counter() - t0
+    out["train_build_frozen_tables_s"] = spent["build_frozen_tables"]
+    out["train_host_memory"] = mem.reading()
     out["launches"] = launch_counts()
     text = log.getvalue()
     print(text.strip(), flush=True)
@@ -2211,31 +2336,24 @@ def cli_train_phase(genome, card, tmp: str) -> dict:
     if not perf or not all(w in perf[0] for w in want_perf):
         fail(f"run_train resolved {perf}, expected bf16 / merged / xla "
              f"/ off")
+    emb_path = os.path.join(tmp, "embeddings.npy")
     missing = [p for p in (os.path.join(temp, "model2load", "params.pkl"),
-                           os.path.join(tmp, "embeddings.npy"),
-                           os.path.join(temp, "model.chkpt"),
+                           emb_path, os.path.join(temp, "model.chkpt"),
                            os.path.join(temp, "logs", "metrics.jsonl"))
                if not os.path.exists(p)]
     if missing:
         fail(f"run_train did not write {missing}")
+    emb = np.load(emb_path)
+    out["embeddings_shape"] = list(emb.shape)
+    if emb.shape != (genome.num_nodes, CLI_DIM) or not np.isfinite(
+            emb).all():
+        fail(f"run_train's embeddings: shape {emb.shape}, finite "
+             f"{bool(np.isfinite(emb).all())}")
     launched = out["launches"]
     if not all(launched[k] for k in ("K1", "K2", "K3", "K4")) or any(
             launched[k] for k in ("K5", "K6_fwd", "K6_bwd")):
         fail(f"run_train launched {launched}: expected K1-K4, and no K5 "
              f"or K6 on the shipped path")
-    inp = os.path.join(tmp, "candidates.txt")
-    with open(inp, "w") as f:
-        f.write("chr1:500000\tchr1:3500000\n"
-                "chr2:1000000\tchr2:9000000\tchr2:20000000\n"
-                "chr3:0\tchr3:4000000\tchr3:8000000\tchr3:9000000\n")
-    proba = run_predict_multiway(os.path.join(temp, "model2load"), inp,
-                                 os.path.join(tmp, "out.txt"),
-                                 device="cuda")
-    out["proba"] = [float(p) for p in proba]
-    if proba.shape != (3,) or not ((proba > 0) & (proba < 1)).all():
-        fail(f"the trained bundle scored {proba}")
-    print(json.dumps(out), flush=True)
-    return {**out, "config": cfg}
 
 
 # ----------------------------------------------------- walk pretraining
@@ -2504,29 +2622,22 @@ def pretrain_phase(problem, genome, card, cfg: str,
 
 
 # --------------------------------------------- apps on the bundle, modes
-def denoise_split(params, frozen, dims, genome, intra) -> dict:
-    """Host-clock seconds of the parts of one denoise pass (the calls
-    ``denoise_chromosome`` makes, summed over the chromosomes): the node
+@contextlib.contextmanager
+def denoise_parts():
+    """Within the block, the parts of ``denoise_pixels`` calls, summed over
+    the chromosomes: host-clock seconds of building the pairs, of the node
     tables and pair scores (each chromosome's ends in a copy to the host),
-    the normalisations, and the three quantile transforms."""
+    of the normalisations and of the three quantile transforms, filled into
+    the yielded dict when the block ends."""
     from matcha_tpu_torch.apps import denoise_contact as dn
-    parts = dict.fromkeys(("tables_pairwise_s", "normalise_s",
-                           "quantile_s"), 0.0)
-    for c in range(genome.num_chroms):
-        t0 = time.perf_counter()
-        pairs = dn.generate_pair_wise(genome, c, 0)
-        proba = dn.chromosome_proba(params, frozen, dims, genome, c, pairs)
-        t1 = time.perf_counter()
-        mats = dn.normalise(pairs, proba,
-                            intra[pairs[:, 0] - 1, pairs[:, 1] - 1])
-        t2 = time.perf_counter()
-        for m in mats:
-            dn._quantile(m)
-        t3 = time.perf_counter()
-        parts["tables_pairwise_s"] += t1 - t0
-        parts["normalise_s"] += t2 - t1
-        parts["quantile_s"] += t3 - t2
-    return parts
+    parts = {}
+    with timed_calls(dn, "generate_pair_wise", "chromosome_proba",
+                     "normalise", "_quantile") as spent:
+        yield parts
+    parts.update(pairs_s=spent["generate_pair_wise"],
+                 tables_pairwise_s=spent["chromosome_proba"],
+                 normalise_s=spent["normalise"],
+                 quantile_s=spent["_quantile"])
 
 
 def denoise_phase(bundle, genome, device, card) -> dict:
@@ -2548,16 +2659,16 @@ def denoise_phase(bundle, genome, device, card) -> dict:
                       log=lambda *a: None)                   # warm-up
     zero_launch_counts()
     t0 = time.perf_counter()
-    bin1, bin2, bal, _ = dn.denoise_pixels(params, frozen, dims, genome,
-                                           intra, log=lambda *a: None)
+    with denoise_parts() as parts:
+        bin1, bin2, bal, _ = dn.denoise_pixels(params, frozen, dims, genome,
+                                               intra, log=lambda *a: None)
     wall = time.perf_counter() - t0
     launched = launch_counts()
     bins = np.diff(genome.chrom_range, axis=1)[:, 0]
     want = int((bins * (bins + 1) // 2).sum())
     out = {"metric": "denoise_wall_s", "value": wall, "pixels": len(bal),
            "chromosomes": genome.num_chroms, "launches": launched,
-           "parts_s": denoise_split(params, frozen, dims, genome, intra),
-           "card": card}
+           "parts_s": parts, "card": card}
     print(f"denoise: {len(bal)} pixels over {genome.num_chroms} chromosomes "
           f"in {wall:.3f} s (expected {want} pixels); launches {launched}",
           flush=True)
@@ -2618,18 +2729,21 @@ def denoise_phase(bundle, genome, device, card) -> dict:
     return out
 
 
-def outlier_phase(bundle, samples, genome, device, card) -> dict:
-    """Phase 13: 2,000 of the smoke's candidates of each k = 3..5 through
-    generate_outliers (20 per edge) and outlier_hit_rate (top 3, batch
-    10,000) on the card, the counts zeroed just before and read just
-    after: K1 once per chunk; per-position scores on the card (f32, bf16)
-    against f32 on the CPU."""
+def outlier_phase(model, cpu_model, samples, genome, card,
+                  metric="outlier_rows_per_s") -> dict:
+    """Phase 13 (and 18 (e)): 2,000 of the candidates ``samples`` of each
+    k = 3..5 through generate_outliers (20 per edge) and outlier_hit_rate
+    (top 3, batch 10,000) on the card with ``model`` (params, dims, frozen
+    of a loaded bundle), the counts zeroed just before and read just after:
+    K1 once per chunk; per-position scores on the card (f32, bf16) against
+    f32 on the CPU with ``cpu_model`` (params, frozen: the same on the
+    CPU)."""
     from matcha_tpu_torch.apps.outlier import (generate_outliers,
                                                outlier_hit_rate,
                                                per_position_scores)
     t_phase = time.perf_counter()
-    params, dims, _, frozen = load_model_bundle(bundle, device)
-    c_params, _, _, c_frozen = load_model_bundle(bundle, "cpu")
+    params, dims, frozen = model
+    c_params, c_frozen = cpu_model
     f32 = dims._replace(compute_dtype="float32")
     rng = np.random.default_rng(SEED + 40)
     sets = {}
@@ -2654,7 +2768,7 @@ def outlier_phase(bundle, samples, genome, device, card) -> dict:
     rows = sum(len(x) for x, _ in sets.values())
     want = {key: 0 for key in launched}
     want["K1"] = sum(-(-len(x) // BATCH) for x, _ in sets.values())
-    out = {"metric": "outlier_rows_per_s", "value": rows / wall,
+    out = {"metric": metric, "value": rows / wall,
            "rows": {k: len(x) for k, (x, _) in sets.items()},
            "wall_s": wall, "generate_s": gen_s,
            "hit_rate_top3": {k: [float(v) for v in h]
@@ -3843,6 +3957,348 @@ def hundred_kb_phase(card, device=torch.device("cuda")) -> dict:
             "step_check": step_check, "wall_s": wall}
 
 
+# ------------------------------------------------------------- phase 18
+# a user's 100 kb all-genome run through the entry points: kmers and train
+# through the CLI, then the apps on the bundle train writes.  Denoise scores
+# every intra-chromosome pair at min_distance 0, sum over the chromosomes of
+# n_c (n_c + 1) / 2 = 23,607,738 pixels (3,103,786 on chr1); the band of
+# the intra contacts (diagonals 1..199, as scripts/bench_apps_100kb.py draws
+# them); partners drawn per row of the inter contacts; pairs per chromosome
+# of the closed-form vs forward check (the JAX script's default); queries
+# per k of predict_multiway
+PIXELS_100KB, INTRA_BAND, INTER_DRAWS = 23_607_738, 200, 32
+DEV_SAMPLE_100KB, QUERIES_PER_K_100KB = 100_000, 20_000
+
+
+def draw_contacts(genome, rng):
+    """Dense f32 (N, N) contact matrices, drawn with numpy into one
+    preallocated array each (never an (N, N) f64):
+    * intra: per chromosome the banded block of
+      scripts/bench_apps_100kb.py (diagonal ``off`` = 1..199 holds
+      ``rng.random(w - off) / off``), made symmetric; one bin of each
+      chromosome all zero, its row and column (a gap for denoise);
+    * inter: symmetric, ``INTER_DRAWS`` partners drawn per row off its
+      chromosome (about twice that many positive entries per row), values
+      in [0.5, 1.5); then 1% of the rows all zero and 1% with one positive
+      entry (at least one each), so build_frozen_tables' z-score loop takes
+      each of its branches (no positive entry, one, several).
+    -> (intra, inter)."""
+    n = genome.num_nodes
+    intra = np.zeros((n, n), np.float32)
+    for c in range(genome.num_chroms):
+        s, e = genome.chrom_range[c]
+        w = int(e - s)
+        block = np.zeros((w, w), np.float32)
+        ii = np.arange(w)
+        for off in range(1, min(w, INTRA_BAND)):
+            block[ii[:-off], ii[:-off] + off] = (
+                rng.random(w - off).astype(np.float32) / off)
+        block = block + block.T
+        gap = int(rng.integers(w))
+        block[gap, :] = 0.0
+        block[:, gap] = 0.0
+        intra[s - 1:e - 1, s - 1:e - 1] = block
+    chrom = genome.node2chrom[1:]
+    rows = np.repeat(np.arange(n, dtype=np.int64), INTER_DRAWS)
+    cols = rng.integers(0, n, rows.size)
+    off = chrom[rows] != chrom[cols]
+    lo = np.minimum(rows[off], cols[off])
+    hi = np.maximum(rows[off], cols[off])
+    key = np.unique(lo * n + hi)
+    lo, hi = key // n, key % n
+    val = (rng.random(len(key)) + 0.5).astype(np.float32)
+    inter = np.zeros((n, n), np.float32)
+    inter[lo, hi] = val
+    inter[hi, lo] = val
+    m = max(1, n // 100)
+    special = rng.choice(n, 2 * m, replace=False)
+    inter[special, :] = 0.0
+    inter[:, special] = 0.0
+    taken = set(special.tolist())
+    for r in special[m:]:
+        while True:
+            j = int(rng.integers(n))
+            if chrom[j] != chrom[r] and j not in taken:
+                break
+        inter[r, j] = inter[j, r] = np.float32(rng.random() + 0.5)
+    return intra, inter
+
+
+def write_chrom_queries(path, genome, rng, per_k):
+    """``per_k`` queries of each k = 2..5 (k = 2 first), each k distinct
+    bins of one chromosome drawn uniformly, written as the JAX package's
+    scripts/bench_apps_100kb.py writes them (chrom:coord at the bin's
+    middle, tab-separated)."""
+    res = genome.resolution
+    lines = []
+    for k in KS:
+        chroms = rng.integers(0, genome.num_chroms, per_k)
+        for c in range(genome.num_chroms):
+            m = int((chroms == c).sum())
+            if not m:
+                continue
+            w = int(genome.chrom_range[c, 1] - genome.chrom_range[c, 0])
+            bins = np.sort(np.argsort(rng.random((m, w)), axis=1)[:, :k],
+                           axis=1)
+            name = genome.chrom_names[c]
+            lines += ["\t".join(f"{name}:{b * res + res // 2}" for b in row)
+                      for row in bins.tolist()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def model_to(params, frozen, device):
+    """Copies of ``params`` and ``frozen`` on ``device``."""
+    return (hs._tree_to(params, device),
+            hs.FrozenTables(*hs._tree_to(tuple(frozen), device)))
+
+
+def denoise_100kb(params, frozen, dims, genome, intra, cpu_model,
+                  device) -> dict:
+    """Phase 18 (c): ``denoise_pixels`` over the 23 chromosomes (one timed
+    pass after a warm-up on the smallest chromosome, ``np.random.seed``
+    set first, the counts zeroed just before and read just after: no
+    kernel), its parts timed inside that pass; the pixel count and range;
+    per chromosome the closed form against the forward over
+    ``DEV_SAMPLE_100KB`` sampled pairs (both bf16 on the card, as
+    scripts/bench_apps_100kb.py checks them); on chr1 the card's f32 pair
+    probabilities against the CPU's on ``cpu_model``; the .mcool write
+    where h5py is importable."""
+    import importlib.util
+    from matcha_tpu_torch.apps import denoise_contact as dn
+    from matcha_tpu_torch.apps.pairwise_fast import pairwise_proba_matrix
+    bins = np.diff(genome.chrom_range, axis=1)[:, 0]
+    np.random.seed(SEED + 30)
+    dn.denoise_chromosome(params, frozen, dims, genome, intra,
+                          int(np.argmin(bins)), 0)            # warm-up
+    np.random.seed(SEED + 31)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with denoise_parts() as parts:
+        bin1, bin2, bal, _ = dn.denoise_pixels(params, frozen, dims, genome,
+                                               intra, log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    out = {"wall_s": wall, "pixels": len(bal), "launches": launched,
+           "parts_s": parts}
+    print(f"denoise 100 kb: {len(bal)} pixels over {genome.num_chroms} "
+          f"chromosomes in {wall:.3f} s (expected {PIXELS_100KB}); parts "
+          f"{json.dumps(out['parts_s'])}; launches {launched}", flush=True)
+    if not (len(bin1) == len(bin2) == len(bal) == PIXELS_100KB):
+        fail(f"denoise at 100 kb gave {len(bal)} pixels, expected "
+             f"{PIXELS_100KB}")
+    if not np.isfinite(bal).all() or (bal < 0).any() or (bal > 1).any():
+        fail("denoised values at 100 kb are not finite or outside [0, 1]")
+    if any(launched.values()):
+        fail(f"denoise launched {launched}: the closed form needs no kernel")
+
+    rng = np.random.default_rng(SEED + 91)
+    devs = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    for c in range(genome.num_chroms):
+        s = genome.chrom_range[c, 0]
+        pairs = dn.generate_pair_wise(genome, c, 0)
+        sample = pairs[rng.permutation(len(pairs))[:DEV_SAMPLE_100KB]]
+        full = pairwise_proba_matrix(params, frozen, dims, genome, c)
+        fwd = predict_proba(params, frozen, dims, sample, BATCH)
+        devs.append(float(np.abs(full[sample[:, 0] - s, sample[:, 1] - s]
+                                 - fwd).max()))
+    out["deviation_s"] = time.perf_counter() - t0
+    out["deviation_forward_launches"] = launch_counts()
+    out["deviation_sample_per_chrom"] = DEV_SAMPLE_100KB
+    out["closed_form_vs_forward_bf16_max_abs_err"] = max(devs)
+    f32 = dims._replace(compute_dtype="float32")
+    p_card = pairwise_proba_matrix(params, frozen, f32, genome, 0)
+    p_cpu = pairwise_proba_matrix(*cpu_model, f32, genome, 0)
+    out["chr1_f32_card_vs_cpu_max_abs_err"] = float(np.abs(p_card
+                                                           - p_cpu).max())
+    print(f"denoise 100 kb: closed form vs forward on {DEV_SAMPLE_100KB} "
+          f"pairs per chromosome, bf16 on the card, {max(devs):.3e} (tol "
+          f"{TOL_PROBA_BF16}); chr1 f32 card vs CPU "
+          f"{out['chr1_f32_card_vs_cpu_max_abs_err']:.3e} (tol "
+          f"{TOL_PROBA_F32})", flush=True)
+    if (max(devs) > TOL_PROBA_BF16
+            or out["chr1_f32_card_vs_cpu_max_abs_err"] > TOL_PROBA_F32):
+        fail("the 100 kb denoise pair probabilities disagree")
+    if importlib.util.find_spec("h5py") is None:
+        out["write_s"] = "not run"
+        print("denoise 100 kb: the .mcool write was not run on this "
+              "machine: h5py is absent", flush=True)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            dn.write_denoised_mcool(os.path.join(tmp, "denoised.mcool"),
+                                    genome, bin1, bin2, bal)
+            out["write_s"] = time.perf_counter() - t0
+    return out
+
+
+def predict_multiway_100kb(bundle, qpath, genome, dims, cpu_model, tmp,
+                           device) -> dict:
+    """Phase 18 (d): ``run_predict_multiway`` through its entry point on
+    the bundle, its stages timed inside the call, the counts zeroed just
+    before and read just after (K1 once per chunk of k >= 3, nothing
+    else); the probabilities' range; 2,000 queries per k bf16 on the card
+    against f32 on the CPU (``cpu_model``).  -> the results, with the
+    parsed queries ("samples")."""
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with HostMemory() as mem, predict_stages() as stages:
+        proba = run_predict_multiway(bundle, qpath,
+                                     os.path.join(tmp, "output.txt"),
+                                     batch_size=BATCH, device=str(device))
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    samples = parse_interaction_file(qpath, genome)
+    sizes = np.asarray([len(s_) for s_ in samples])
+    want = {key: 0 for key in launched}
+    want["K1"] = sum(-(-int((sizes == k).sum()) // BATCH) for k in KS
+                     if k >= 3)
+    out = {"metric": "predict_multiway_hyperedges_per_s_100kb",
+           "value": len(proba) / wall, "wall_s": wall,
+           "candidates": len(proba),
+           "stages_s": stages,
+           "host_memory": mem.reading(), "launches": launched}
+    print(f"predict_multiway 100 kb: {len(proba)} queries in {wall:.3f} s; "
+          f"launches {launched} (expected {want})", flush=True)
+    if launched != want:
+        fail(f"predict_multiway at 100 kb launched {launched}, expected "
+             f"{want}")
+    if proba.shape != (len(KS) * QUERIES_PER_K_100KB,) or not (
+            (proba > 0) & (proba < 1)).all():
+        fail(f"predict_multiway at 100 kb: shape {proba.shape}, or "
+             f"probabilities outside (0, 1)")
+    pick = np.concatenate([i * QUERIES_PER_K_100KB + np.arange(CHECK_PER_K)
+                           for i in range(len(KS))])
+    c_params, c_frozen = cpu_model
+    p_cpu = predict_proba(c_params, c_frozen,
+                          dims._replace(compute_dtype="float32"),
+                          [samples[i] for i in pick], BATCH)
+    out["bf16_card_vs_f32_cpu_max_abs_err"] = float(
+        np.abs(proba[pick] - p_cpu).max())
+    print(f"predict_multiway 100 kb: bf16 card vs f32 CPU on {len(pick)} "
+          f"queries {out['bf16_card_vs_f32_cpu_max_abs_err']:.3e} (tol "
+          f"{TOL_PROBA_BF16})", flush=True)
+    if out["bf16_card_vs_f32_cpu_max_abs_err"] > TOL_PROBA_BF16:
+        fail("predict_multiway at 100 kb disagrees with the f32 CPU")
+    return {**out, "samples": samples}
+
+
+def apps_100kb_phase(card, device=torch.device("cuda")) -> dict:
+    """Phase 18: a user's 100 kb all-genome run through the entry points
+    (hg38 chr1-22 + chrX at 100,000 bp, 30,344 nodes): (a) the inputs,
+    with numpy only (``draw_contacts``, phase 11's edge list); (b)
+    ``kmers`` (a subprocess) and ``train`` (``pipeline.main``) through the
+    CLI with phase 11's config and bf16 tables; (c) the bundle train wrote,
+    loaded once (``load_model_bundle``: f32 tables on the card), and
+    denoise over the 23 chromosomes; (d) ``run_predict_multiway`` through
+    its entry point; (e) outlier ranking on the loaded bundle.  -> each
+    stage's launches for the kernels line."""
+    t_phase = time.perf_counter()
+    genome = GenomeBins(HG38_NAMES, HG38, RES_100KB)
+    n = genome.num_nodes
+    bins = np.diff(genome.chrom_range, axis=1)[:, 0]
+    if n != NODES_100KB or int((bins * (bins + 1) // 2).sum()) \
+            != PIXELS_100KB:
+        fail(f"hg38 at 100 kb has {n} bins and "
+             f"{int((bins * (bins + 1) // 2).sum())} intra pairs, expected "
+             f"{NODES_100KB} and {PIXELS_100KB}")
+    on_card = device.type == "cuda"
+    out = {"metric": "apps_100kb", "nodes": n, "card": card}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        out["card_memory_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the inputs: temp_dir's two matrices and the bundle's two
+        temp = os.path.join(tmp, "temp")
+        need = 4 * 4 * n * n + 10 ** 9
+        free = shutil.disk_usage(tmp).free
+        out["disk_free_gb"], out["disk_needed_gb"] = free / 1e9, need / 1e9
+        print(f"apps 100 kb: {free / 1e9:.1f} GB free under {tmp}, the "
+              f"phase writes up to {need / 1e9:.1f} GB", flush=True)
+        if free < need:
+            fail(f"the 100 kb run needs {need / 1e9:.1f} GB of disk under "
+                 f"{tmp}; {free / 1e9:.1f} GB are free")
+        from matcha_tpu_torch.data.mcool import save_contacts
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 90)
+        genome.save(temp)
+        intra, inter = draw_contacts(genome, rng)
+        save_contacts(temp, intra, inter)
+        del intra, inter
+        out["clusters"] = write_clusters(temp, genome, rng)
+        out["inputs_s"] = time.perf_counter() - t0
+        print(f"apps 100 kb: inputs written in {out['inputs_s']:.1f} s",
+              flush=True)
+
+        # (b) kmers and train through the CLI
+        cfg = write_cli_config(tmp, temp, genome, table_dtype="bfloat16")
+        cli_kmers_and_train(cfg, tmp, temp, genome, out, device)
+        out["train_launches"] = out.pop("launches")
+        print(f"apps 100 kb: kmers {out['kmers_s']:.1f} s, train "
+              f"{out['train_s']:.1f} s (build_frozen_tables "
+              f"{out['train_build_frozen_tables_s']:.1f} s), host memory "
+              f"{json.dumps(out['train_host_memory'])}, launches "
+              f"{out['train_launches']}", flush=True)
+        bundle = os.path.join(temp, "model2load")
+
+        # (c) the bundle loaded once; denoise
+        t0 = time.perf_counter()
+        with HostMemory() as mem, \
+                timed_calls(runtime, "build_frozen_tables") as bf, \
+                timed_calls(np, "load") as ld:
+            params, dims, _, frozen = load_model_bundle(bundle, device)
+        if on_card:
+            torch.cuda.synchronize()
+        out["load"] = {"wall_s": time.perf_counter() - t0,
+                       "np_load_s": ld["load"],
+                       "build_frozen_tables_s": bf["build_frozen_tables"],
+                       "host_memory": mem.reading(),
+                       "inter_z": [list(frozen.inter_z.shape),
+                                   str(frozen.inter_z.dtype)]}
+        if on_card:
+            out["load"]["card_memory_gb"] = \
+                torch.cuda.memory_allocated() / 1e9
+        print(f"apps 100 kb: bundle loaded {json.dumps(out['load'])}",
+              flush=True)
+        if dims.compute_dtype != "bfloat16":
+            fail(f"the 100 kb bundle holds compute_dtype "
+                 f"{dims.compute_dtype}, expected train's bfloat16")
+        t0 = time.perf_counter()
+        cpu_model = model_to(params, frozen, "cpu")
+        out["cpu_copy_s"] = time.perf_counter() - t0
+        intra = np.load(os.path.join(bundle, "intra_adj.npy"))
+        out["denoise"] = denoise_100kb(params, frozen, dims, genome, intra,
+                                       cpu_model, device)
+        del intra
+
+        # (d) predict_multiway through its entry point
+        qpath = os.path.join(tmp, "queries.txt")
+        write_chrom_queries(qpath, genome, np.random.default_rng(SEED + 92),
+                            QUERIES_PER_K_100KB)
+        pmw = predict_multiway_100kb(bundle, qpath, genome, dims, cpu_model,
+                                     tmp, device)
+        samples = pmw.pop("samples")
+        out["predict_multiway"] = pmw
+
+        # (e) outlier ranking on the loaded bundle
+        out["outlier"] = outlier_phase((params, dims, frozen), cpu_model,
+                                       samples, genome, card,
+                                       metric="outlier_rows_per_s_100kb")
+        del params, frozen, cpu_model
+    if on_card:
+        out["card_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    print(f"apps 100 kb: phase wall {out['phase_wall_s']:.1f} s", flush=True)
+    return {"train": out["train_launches"],
+            "denoise": out["denoise"]["launches"],
+            "predict_multiway": pmw["launches"],
+            "outlier": out["outlier"]["launches"],
+            "wall_s": out["phase_wall_s"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -3916,14 +4372,15 @@ def main():
             fail("probabilities disagree with the f32 CPU reference")
 
         # 5. serving times
-        walls = []
+        walls, splits = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            run_predict_multiway(bundle, inp, out, batch_size=BATCH,
-                                 device="cuda")
+            with predict_stages() as stages:
+                run_predict_multiway(bundle, inp, out, batch_size=BATCH,
+                                     device="cuda")
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        splits = [stage_split(bundle, inp, out) for _ in range(3)]
+            splits.append(stages)
         split = {k: statistics.median(s[k] for s in splits)
                  for k in splits[0]}
         params, dims, _, frozen = load_model_bundle(bundle, "cuda")
@@ -3984,7 +4441,11 @@ def main():
         bundle = os.path.join(tmp, "model2load")
         make_bundle(bundle, genome, device)
         denoise_phase(bundle, genome, device, card)
-        outl = outlier_phase(bundle, samples, genome, device, card)
+        on_card = load_model_bundle(bundle, device)
+        on_cpu = load_model_bundle(bundle, "cpu")
+        outl = outlier_phase((on_card[0], on_card[1], on_card[3]),
+                             (on_cpu[0], on_cpu[3]), samples, genome, card)
+        del on_card, on_cpu
 
     # 14. the regress mode, per-occurrence feature dropout, MATCHA_RECON_BF16
     set_fuse_tail(False)
@@ -3998,6 +4459,11 @@ def main():
     set_fuse_tail(False)
     big = hundred_kb_phase(card)
     bk = big["kernels"]
+    torch.cuda.empty_cache()
+
+    # 18. a user's 100 kb run through the entry points: kmers and train
+    # through the CLI, then the apps on the bundle it wrote
+    apps = apps_100kb_phase(card)
     torch.cuda.empty_cache()
 
     # 16. multi-rank training on the one card
@@ -4029,6 +4495,9 @@ def main():
                 occ_counts[name]
         out["launches_device_epoch_100kb"] = big["counts"][name]
         out["launches_fit_100kb"] = big["fit_counts"][name]
+        out["launches_apps_100kb"] = {
+            stage: apps[stage][name]
+            for stage in ("train", "denoise", "predict_multiway", "outlier")}
         return out
 
     k2 = tk["K2_L5"]

@@ -21,7 +21,9 @@ last three hold the closed-form pair scorer, a per-occurrence training step
 and the recon decode with bf16 operands on the card against the CPU; then
 a device-resident epoch against the indexed epoch on its rows, bit for
 bit.  The walk pretraining's: K3 and K4 at the SGNS shapes, one SGNS step card
-against CPU, and the co-occurrence scatter's determinism.  The last runs
+against CPU, and the co-occurrence scatter's determinism.  A bundle trained
+through the CLI on phase 18's inputs at a small size, its denoise and
+predict_multiway on the card against the CPU.  The last runs
 only on a machine with several cards: meshes of one rank per card on NCCL
 against one rank.
 """
@@ -854,6 +856,72 @@ def test_pair_cooccurrence_is_deterministic_on_the_card(cuda):
     assert torch.equal(a, b)
     ref = pair_cooccurrence(PaddedIncidence(inc.members.cpu()), w.cpu(), 3067)
     assert float((a.cpu() - ref).abs().max()) <= 1e-6 * float(ref.max())
+
+
+@pytest.mark.cuda
+def test_bundle_apps_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A bundle that ``train`` wrote through the CLI on the CPU, on
+    chip_smoke.py phase 18's inputs at a small size (4 chromosomes of
+    41-130 bins at 10 kb, dim 64, 8 heads, f32), scored on the card and on
+    the CPU: every chromosome's closed-form pair probabilities (1e-4) and
+    denoise_pixels (np.random.seed before each side: the same pixels, the
+    values 1e-4; no kernel), then run_predict_multiway (1e-4; on the card
+    K1 once per chunk of k >= 3, nothing else)."""
+    import contextlib
+    import io
+    import chip_smoke
+    from matcha_tpu_torch import pipeline
+    from matcha_tpu_torch.apps import denoise_contact as dn
+    from matcha_tpu_torch.apps.pairwise_fast import pairwise_proba_matrix
+    from matcha_tpu_torch.apps.predict_multiway import run_predict_multiway
+    from matcha_tpu_torch.data.mcool import save_contacts
+    from matcha_tpu_torch.genome import GenomeBins
+    from matcha_tpu_torch.train.runtime import load_model_bundle
+    genome = GenomeBins(["chr1", "chr2", "chr3", "chr4"],
+                        [1_290_000, 900_000, 600_000, 400_000], 10_000)
+    temp = str(tmp_path / "temp")
+    genome.save(temp)
+    save_contacts(temp, *chip_smoke.draw_contacts(
+        genome, np.random.default_rng(11)))
+    chip_smoke.write_clusters(temp, genome, np.random.default_rng(12))
+    cfg = chip_smoke.write_cli_config(str(tmp_path), temp, genome,
+                                      batch_size=64, num_batch_per_iter=2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipeline.main(["kmers", "-c", cfg])
+        pipeline.main(["train", "-c", cfg, "--device", "cpu"])
+    bundle = os.path.join(temp, "model2load")
+    intra = np.load(os.path.join(bundle, "intra_adj.npy"))
+    proba, pixels = {}, {}
+    for device in ("cuda", "cpu"):
+        params, dims, g, frozen = load_model_bundle(bundle, device)
+        assert (dims.dim, dims.n_head, dims.compute_dtype) == (
+            64, 8, "float32")
+        before = _counts()
+        proba[device] = [pairwise_proba_matrix(params, frozen, dims, g, c)
+                         for c in range(4)]
+        np.random.seed(21)
+        pixels[device] = dn.denoise_pixels(params, frozen, dims, g, intra,
+                                           log=lambda *a: None)
+        assert _counts() == before
+    for a, b in zip(proba["cuda"], proba["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(pixels["cuda"][0], pixels["cpu"][0])
+    np.testing.assert_array_equal(pixels["cuda"][1], pixels["cpu"][1])
+    assert len(pixels["cuda"][2]) == 130 * 131 // 2 + 91 * 92 // 2 + \
+        61 * 62 // 2 + 41 * 42 // 2
+    np.testing.assert_allclose(pixels["cuda"][2], pixels["cpu"][2], rtol=0,
+                               atol=1e-4)
+    queries = str(tmp_path / "queries.txt")
+    chip_smoke.write_chrom_queries(queries, genome,
+                                   np.random.default_rng(13), per_k=150)
+    before = _counts()
+    card = run_predict_multiway(bundle, queries, str(tmp_path / "card.txt"),
+                                batch_size=100, device="cuda")
+    assert np.subtract(_counts(), before).tolist() == [6, 0, 0, 0, 0, 0, 0]
+    cpu = run_predict_multiway(bundle, queries, str(tmp_path / "cpu.txt"),
+                               batch_size=100, device="cpu")
+    assert card.shape == (600,) and ((card > 0) & (card < 1)).all()
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)
 
 
 def _cards_rank(rank, device, n_data, n_model, tensor_parallel=False):
