@@ -30,8 +30,9 @@ Phases, all in this process; any failure exits non-zero before the last line:
      against torch.bincount on uniform, Zipf, hub and out-of-range ids at n
      = 3,068, 60,000 and 1,000,000 (both of its routes), its idx starting on
      and off a 16-byte boundary; K3 and K4 at the walk pretraining's SGNS
-     shapes (f32, d = 64, n = 3,067, T = 4,096 and 24,576 unigram-skewed
-     ids: K3 1e-5, K4 exactly, each the same bits twice); the walks'
+     shapes (f32, d = 64, n = 3,067 and the 100 kb table's 30,345, T =
+     4,096 and 24,576 unigram-skewed ids: K3 1e-5, K4 exactly, each the same
+     bits twice); the walks'
      co-occurrence scatter (plain torch) on 8,282 hyperedges of 2-25 nodes
      against scipy's CSR product (rtol 1e-6, atol 1e-7) and the same bits
      twice.
@@ -159,8 +160,11 @@ Phases, all in this process; any failure exits non-zero before the last line:
      table's largest entry).  Prints the walk build's parts, the walk
      simulation, the pair building and the SGNS rate, the rate and the
      device's idle share over a profiled window of 50 minibatches, and K3
-     and K4 at these shapes (events, device time, bound, plain version,
-     index_add_ / torch.bincount).  Then a table-mode model initialised
+     and K4 at these shapes and into the 100 kb table's 30,345 rows
+     (events, device time, bound, plain version, index_add_ /
+     torch.bincount; for K3 also index_add_ from its own inputs, the
+     zeroing and casts included, and each of its kernels' device time).
+     Then a table-mode model initialised
      from the embeddings (init_model(embedding_mode="table", table_init=))
      trains a 10-step stage-2 epoch at phase 6's configuration, the counts
      zeroed just before and read just after: K1 x3, K2 x3, K3 x1 per step
@@ -390,6 +394,15 @@ TOL_RECON_BF16 = 2e-2
 # counts of one minibatch (the centers; the contexts and negatives)
 SGNS_V, SGNS_M, SGNS_NEG, SGNS_D = 3_067, 4_096, 5, 64
 SGNS_T = (SGNS_M, SGNS_M * (1 + SGNS_NEG))
+# K3 and K4 at the same minibatches into the 100 kb table's 30,345 rows (the
+# pretraining a user runs at 100 kb)
+SGNS_V_100KB = 30_345
+# K3's two routes (csrc/table_scatter.cu), told apart by the kernels a call
+# launched
+K3_ROUTES = {"scatter_local_kernel": "local: one launch, each block a band of "
+                                     "rows over all the ids",
+             "band_count_kernel": "grid: band count, band scan, band place, "
+                                  "row sort, sum, fixup (six launches)"}
 # minibatches of the profiled SGNS window, and of the hg38-size random
 # hypergraph the co-occurrence scatter is checked on (phase 11's cluster count)
 SGNS_PROFILE_STEPS, COOC_EDGES = 50, 8_282
@@ -712,10 +725,12 @@ def check_scatter_bincount(device) -> dict:
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         ok = (torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+              and torch.allclose(got, ts.scatter_add_plain(g, idx, n),
+                                 rtol=1e-5, atol=1e-5)
               and torch.equal(got, ts.scatter_add_cuda(g, idx, n)))
         exact = torch.equal(cnt, torch.bincount(idx.long(),
                                                 minlength=n).float())
-        print(f"K3 vs index_add_: T={T} n={n} {dt} max_abs_err={err:.3e} "
+        print(f"K3 vs index_add_ and plain: T={T} n={n} {dt} max_abs_err={err:.3e} "
               f"tol=1e-05 deterministic {'ok' if ok else 'FAIL'}; "
               f"K4 vs bincount exact {'ok' if exact else 'FAIL'}",
               flush=True)
@@ -747,25 +762,27 @@ def check_bincount(device):
           flush=True)
 
 
-def sgns_ids(rng, T: int) -> np.ndarray:
+def sgns_ids(rng, T: int, V: int = SGNS_V) -> np.ndarray:
     """T node ids drawn as the SGNS step draws its negatives: from the
-    unigram^0.75 of Zipf-by-rank visit counts (p_i ~ 1/i over the SGNS_V
-    nodes in a random order: the busiest node takes ~4% of the draws)."""
-    counts = (1.0 / rng.permutation(np.arange(1, SGNS_V + 1))) ** 0.75
+    unigram^0.75 of Zipf-by-rank visit counts (p_i ~ 1/i over the V nodes
+    in a random order: at V = SGNS_V the busiest node takes ~4% of the
+    draws)."""
+    counts = (1.0 / rng.permutation(np.arange(1, V + 1))) ** 0.75
     cdf = np.cumsum(counts / counts.sum())
     return np.minimum(np.searchsorted(cdf, rng.random(T)),
-                      SGNS_V - 1).astype(np.int32)
+                      V - 1).astype(np.int32)
 
 
-def sgns_kernel_inputs(device, T: int, hub: bool = False):
+def sgns_kernel_inputs(device, T: int, hub: bool = False, V: int = SGNS_V):
     """K3's and K4's inputs as one SGNS minibatch gives them: f32 update
     rows (T, 64) at the scale of the step's gradients and unigram-skewed
-    ids (T,).  ``hub`` puts half of the ids on row 3 and makes the rows
-    multiples of 1/4, so every sum is exact in f32 whatever the order."""
+    ids (T,) into V rows.  ``hub`` puts half of the ids on row 3 and makes
+    the rows multiples of 1/4, so every sum is exact in f32 whatever the
+    order."""
     rng = np.random.default_rng(SEED + T)
     g = (rng.integers(-8, 9, (T, SGNS_D)) / 4 if hub
          else rng.standard_normal((T, SGNS_D)) * 0.01)
-    ids = sgns_ids(rng, T)
+    ids = sgns_ids(rng, T, V)
     if hub:
         ids[rng.permutation(T)[:T // 2]] = 3
     return (torch.tensor(g, dtype=torch.float32, device=device),
@@ -773,33 +790,35 @@ def sgns_kernel_inputs(device, T: int, hub: bool = False):
 
 
 def check_sgns_kernels(device) -> float:
-    """Phase 3: K3 and K4 at the SGNS shapes (f32, d = 64, n = 3,067 rows,
-    T = 4,096 and 24,576 unigram-skewed ids, and the same with a hub row
-    holding half of T) against their plain versions (K3 1e-5, K4 exactly),
-    each the same bits across two calls.  -> the worst K3 error."""
+    """Phase 3: K3 and K4 at the SGNS shapes (f32, d = 64, n = 3,067 rows and
+    the 100 kb table's 30,345, T = 4,096 and 24,576 unigram-skewed ids, and
+    the same with a hub row holding half of T) against their plain versions
+    (K3 1e-5, K4 exactly), each the same bits across two calls.  -> the
+    worst K3 error."""
     worst = 0.0
-    for T in SGNS_T:
-        for hub in (False, True):
-            g, idx = sgns_kernel_inputs(device, T, hub)
-            got = ts.scatter_add_cuda(g, idx, SGNS_V)
-            ref = ts.scatter_add_plain(g, idx, SGNS_V)
-            cnt = ts.bincount_cuda(idx, SGNS_V)
-            same = (torch.equal(got, ts.scatter_add_cuda(g, idx, SGNS_V))
-                    and torch.equal(cnt, ts.bincount_cuda(idx, SGNS_V)))
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            exact = torch.equal(cnt, ts.bincount_plain(idx, SGNS_V))
-            ok = same and exact and torch.allclose(got, ref, rtol=1e-5,
-                                                   atol=1e-5)
-            ids = "hub" if hub else "unigram"
-            print(f"K3 / K4 vs plain at the SGNS shape T={T} n={SGNS_V} d="
-                  f"{SGNS_D} f32, {ids} ids: K3 max_abs_err={err:.3e} "
-                  f"tol=1e-05, K4 exact {exact}, same bits twice {same} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"K3 / K4 disagree with their plain versions at the "
-                     f"SGNS shape T={T} ({ids} ids)")
-            worst = max(worst, err)
+    for V in (SGNS_V, SGNS_V_100KB):
+        for T in SGNS_T:
+            for hub in (False, True):
+                g, idx = sgns_kernel_inputs(device, T, hub, V)
+                got = ts.scatter_add_cuda(g, idx, V)
+                ref = ts.scatter_add_plain(g, idx, V)
+                cnt = ts.bincount_cuda(idx, V)
+                same = (torch.equal(got, ts.scatter_add_cuda(g, idx, V))
+                        and torch.equal(cnt, ts.bincount_cuda(idx, V)))
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                exact = torch.equal(cnt, ts.bincount_plain(idx, V))
+                ok = same and exact and torch.allclose(got, ref, rtol=1e-5,
+                                                       atol=1e-5)
+                ids = "hub" if hub else "unigram"
+                print(f"K3 / K4 vs plain at the SGNS shape T={T} n={V} d="
+                      f"{SGNS_D} f32, {ids} ids: K3 max_abs_err={err:.3e} "
+                      f"tol=1e-05, K4 exact {exact}, same bits twice {same} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"K3 / K4 disagree with their plain versions at the "
+                         f"SGNS shape T={T}, n={V} ({ids} ids)")
+                worst = max(worst, err)
     return worst
 
 
@@ -1181,6 +1200,51 @@ def device_ms_per_call(fn, iters=20):
         return "not measured"
     return sum(t / c * math.ceil(c / iters)
                for _, t, c in kernels if c) / 1e3
+
+
+def k3_timing(g, idx, n: int, ids: str) -> dict:
+    """K3 on g (T, d) and idx into n rows: CUDA events around the wrapper,
+    its device time with each of its kernels' share, its byte bound (each
+    input read once, the output written once), its plain version, and two
+    yardsticks on the device: index_add_ into a zeroed f32 buffer from a g
+    already in f32 and int64 ids (the yardstick recorded since K3's first
+    redesign), and the same function from K3's own inputs, the zeroing and
+    the casts included."""
+    T, d = g.shape
+    idx64, g32 = idx.long(), g.float()
+    acc = torch.zeros((n, d), device=g.device)
+
+    def full():
+        return torch.zeros((n, d), device=g.device).index_add_(
+            0, idx.long(), g.float())
+    parts = {}
+    for _ in range(3):  # late in a long process a trace can come back empty
+        kernels, _ = device_kernels(
+            lambda: [ts.scatter_add_cuda(g, idx, n) for _ in range(20)])
+        for name, t, c in kernels:
+            if c:
+                key = name.split("::", 1)[-1].split("(")[0].split("<")[0] or name
+                parts[key] = parts.get(key, 0.0) + t / c * math.ceil(c / 20) / 1e3
+        if parts:
+            break
+    return {"T": T, "n": n, "d": d, "dtype": str(g.dtype).split(".")[-1],
+            "ids": ids,
+            "ms": cuda_ms(lambda: ts.scatter_add_cuda(g, idx, n)),
+            "device_ms": sum(parts.values()) if parts else "not measured",
+            "device_kernels_ms": parts,
+            "plain_ms": cuda_ms(lambda: ts.scatter_add_plain(g, idx, n)),
+            "library_ms": cuda_ms(lambda: acc.index_add_(0, idx64, g32)),
+            "library_device_ms": device_ms_per_call(
+                lambda: acc.index_add_(0, idx64, g32)),
+            "library": "torch.Tensor.index_add_",
+            "library_full_ms": cuda_ms(full),
+            "library_full_device_ms": device_ms_per_call(full),
+            "library_full": "torch.zeros(n, d).index_add_(0, idx.long(), "
+                            "g.float())",
+            "bound_ms": (T * d * g.element_size() + T * 4 + n * d * 4)
+            / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "k3_route": next((r for k, r in K3_ROUTES.items() if k in parts),
+                             "not measured")}
 
 
 def profile_scoring(params, frozen, dims, samples) -> dict:
@@ -1588,30 +1652,18 @@ def time_table_kernels(device, T: int, n: int, kinds) -> dict:
     torch.profiler, beside their byte bounds (each input read once, each
     output written once), their plain versions and the one PyTorch call
     that computes the same function (index_add_, torch.bincount; events and
-    device time).  -> {"K3", "K4", "K3_<kind>", "K4_<kind>"} for the
-    uniform and the skewed ``kinds`` of ids."""
+    device time; for K3 also from its own inputs, k3_timing).  -> {"K3",
+    "K4", "K3_<kind>", "K4_<kind>"} for the uniform and the skewed
+    ``kinds`` of ids."""
     out = {}
     gen = torch.Generator().manual_seed(SEED + 6)
     g = torch.randn((T, DIM), generator=gen).to(device, torch.bfloat16)
-    g32 = g.float()
-    acc = torch.zeros((n, DIM), device=device)
     for kind in kinds:
         idx = torch.from_numpy(skewed_ids(
             kind, np.random.default_rng(SEED + 6), T, n)).to(device)
         idx64 = idx.long()
-        k3_bytes = T * DIM * 2 + T * 4 + n * DIM * 4
         name = "K3" if kind == "uniform" else f"K3_{kind}"
-        out[name] = {
-            "T": T, "n": n, "d": DIM, "dtype": "bfloat16", "ids": kind,
-            "ms": cuda_ms(lambda: ts.scatter_add_cuda(g, idx, n)),
-            "device_ms": device_ms_per_call(
-                lambda: ts.scatter_add_cuda(g, idx, n)),
-            "plain_ms": cuda_ms(lambda: ts.scatter_add_plain(g, idx, n)),
-            "library_ms": cuda_ms(lambda: acc.index_add_(0, idx64, g32)),
-            "library_device_ms": device_ms_per_call(
-                lambda: acc.index_add_(0, idx64, g32)),
-            "library": "torch.Tensor.index_add_",
-            "bound_ms": k3_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        out[name] = k3_timing(g, idx, n, kind)
         k4 = "K4" if kind == "uniform" else f"K4_{kind}"
         out[k4] = {
             "T": T, "n": n, "ids": kind,
@@ -2358,42 +2410,34 @@ def cli_kmers_and_train(cfg: str, tmp: str, temp: str, genome, out: dict,
 
 # ----------------------------------------------------- walk pretraining
 def time_sgns_kernels(device) -> dict:
-    """K3 and K4 at the SGNS shapes (f32, d = 64, n = 3,067, T = 4,096 and
-    24,576 unigram-skewed ids): CUDA events around the wrapper and the
-    kernels' device time from torch.profiler, beside their bounds (each
-    input read once, the output written once), their plain versions and
-    ``index_add_`` / ``torch.bincount`` (by events and on the device)."""
+    """K3 and K4 at the SGNS shapes (f32, d = 64, n = 3,067 and the 100 kb
+    table's 30,345 rows, T = 4,096 and 24,576 unigram-skewed ids): CUDA
+    events around the wrapper and the kernels' device time from
+    torch.profiler, beside their bounds (each input read once, the output
+    written once), their plain versions and ``index_add_`` (both
+    yardsticks, k3_timing) / ``torch.bincount`` (by events and on the
+    device).  -> {"K3_T<T>", "K4_T<T>"} at n = 3,067 and {"K3_T<T>_n30345",
+    "K4_T<T>_n30345"}."""
     out = {}
-    for T in SGNS_T:
-        g, idx = sgns_kernel_inputs(device, T)
-        idx64 = idx.long()
-        acc = torch.zeros((SGNS_V, SGNS_D), device=device)
-        out[f"K3_T{T}"] = {
-            "T": T, "n": SGNS_V, "d": SGNS_D, "dtype": "float32",
-            "ms": cuda_ms(lambda: ts.scatter_add_cuda(g, idx, SGNS_V)),
-            "device_ms": device_ms_per_call(
-                lambda: ts.scatter_add_cuda(g, idx, SGNS_V)),
-            "plain_ms": cuda_ms(lambda: ts.scatter_add_plain(g, idx,
-                                                             SGNS_V)),
-            "library_ms": cuda_ms(lambda: acc.index_add_(0, idx64, g)),
-            "library_device_ms": device_ms_per_call(
-                lambda: acc.index_add_(0, idx64, g)),
-            "library": "torch.Tensor.index_add_",
-            "bound_ms": (T * SGNS_D * 4 + T * 4 + SGNS_V * SGNS_D * 4)
-            / PEAK_BYTES * 1e3, "bound_by": "bytes"}
-        out[f"K4_T{T}"] = {
-            "T": T, "n": SGNS_V,
-            "ms": cuda_ms(lambda: ts.bincount_cuda(idx, SGNS_V)),
-            "device_ms": device_ms_per_call(
-                lambda: ts.bincount_cuda(idx, SGNS_V)),
-            "plain_ms": cuda_ms(lambda: ts.bincount_plain(idx, SGNS_V)),
-            "library_ms": cuda_ms(lambda: torch.bincount(
-                idx64, minlength=SGNS_V)),
-            "library_device_ms": device_ms_per_call(
-                lambda: torch.bincount(idx64, minlength=SGNS_V)),
-            "library": "torch.bincount",
-            "bound_ms": (T * 4 + SGNS_V * 4) / PEAK_BYTES * 1e3,
-            "bound_by": "bytes"}
+    for V in (SGNS_V, SGNS_V_100KB):
+        sfx = "" if V == SGNS_V else f"_n{V}"
+        for T in SGNS_T:
+            g, idx = sgns_kernel_inputs(device, T, V=V)
+            idx64 = idx.long()
+            out[f"K3_T{T}{sfx}"] = k3_timing(g, idx, V, "unigram")
+            out[f"K4_T{T}{sfx}"] = {
+                "T": T, "n": V,
+                "ms": cuda_ms(lambda: ts.bincount_cuda(idx, V)),
+                "device_ms": device_ms_per_call(
+                    lambda: ts.bincount_cuda(idx, V)),
+                "plain_ms": cuda_ms(lambda: ts.bincount_plain(idx, V)),
+                "library_ms": cuda_ms(lambda: torch.bincount(
+                    idx64, minlength=V)),
+                "library_device_ms": device_ms_per_call(
+                    lambda: torch.bincount(idx64, minlength=V)),
+                "library": "torch.bincount",
+                "bound_ms": (T * 4 + V * 4) / PEAK_BYTES * 1e3,
+                "bound_by": "bytes"}
     return out
 
 
@@ -4563,7 +4607,16 @@ def main():
          "bound_ms": tk["K3"]["bound_ms"], "bound_by": "bytes",
          "library_ms": tk["K3"]["library_ms"],
          "library_device_ms": tk["K3"]["library_device_ms"],
+         "library_full_device_ms": tk["K3"]["library_full_device_ms"],
+         "shapes": [{k: e[k] for k in (
+             "T", "n", "dtype", "ids", "device_ms", "library_device_ms",
+             "library_full_device_ms", "bound_ms", "k3_route")}
+             for e in [tk["K3"], bk["K3"]] + [
+                 sg[f"K3_T{T}{sfx}"] for sfx in ("", f"_n{SGNS_V_100KB}")
+                 for T in SGNS_T]],
          "sgns": {f"T{T}": sg[f"K3_T{T}"] for T in SGNS_T},
+         "sgns_100kb": {f"T{T}": sg[f"K3_T{T}_n{SGNS_V_100KB}"]
+                        for T in SGNS_T},
          "at_100kb": bk["K3"]},
         {"name": "bincount", "route": "cuda",
          "source": "matcha_tpu_torch/csrc/table_scatter.cu",

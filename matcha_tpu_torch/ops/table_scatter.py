@@ -95,9 +95,11 @@ def scatter_add_cuda(g: torch.Tensor, idx: torch.Tensor,
     """Launch K3 on ``torch.cuda.current_stream()``: g (T, d) f32 or bf16
     with d <= 1536, idx (T,) int32, both contiguous on one card -> (n_rows,
     d) f32; ids outside [0, n_rows) are dropped.  The kernel groups the
-    tokens by row (a stable counting sort) and sums each row in token order,
-    so the result is the same bits on every call.  One call runs five CUDA
-    kernels and counts as one launch of K3.  Raises on anything else."""
+    tokens by row (a stable counting sort) and sums each row in a fixed
+    order, so the result is the same bits on every call.  One call runs one
+    CUDA kernel (small T: each block takes a band of rows over all the ids)
+    or six (a sort by band, then by row, and sums over pieces) and counts as
+    one launch of K3.  Raises on anything else."""
     _check(g.is_cuda, "g must be a CUDA tensor")
     _check(g.dtype in (torch.float32, torch.bfloat16),
            "g must be float32 or bfloat16, got {}", g.dtype)

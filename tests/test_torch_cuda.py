@@ -150,10 +150,23 @@ def test_k2_is_deterministic(cuda):
         assert torch.equal(u, v)
 
 
+# K3's plan (csrc/table_scatter.cu): the 100 kb step, an SGNS minibatch at
+# the 100 kb vocabulary, a table past the old one-chunk point, the old
+# route boundary (6,144 rows), both sides of each limit of the one-launch
+# local route (T <= 32,768 tokens, d <= 128, at most 1,024 rows for each of
+# 132 blocks) and a table whose bands take several sort passes (more than
+# 3,072 bands of 3,072 rows)
+K3_PLAN_SHAPES = [(114_688, 30_345, 64), (4096, 30_345, 64),
+                  (114_688, 600_000, 64), (114_688, 6144, 64),
+                  (114_688, 6145, 64), (32_768, 3067, 64), (32_769, 3067, 64),
+                  (2000, 300, 128), (2000, 300, 129), (4096, 135_168, 64),
+                  (4096, 135_169, 64), (40_000, 9_500_000, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,n,d", [(114_688, 3068, 64), (1001, 300, 64),
-                                   (3, 5, 16), (0, 7, 64)])
+                                   (3, 5, 16), (0, 7, 64), *K3_PLAN_SHAPES])
 def test_k3_matches_index_add(cuda, dtype, T, n, d):
     rng = np.random.default_rng(T + n)
     g = torch.tensor(rng.standard_normal((T, d)), dtype=dtype, device=cuda)
@@ -197,7 +210,7 @@ def skewed_ids(kind: str, rng, T: int, n: int) -> np.ndarray:
                                   "out_of_range"])
 @pytest.mark.parametrize("T,n,d", [(114_688, 3068, 64), (5000, 60_000, 64),
                                    (3000, 300, 1), (2000, 300, 1536),
-                                   (4097, 1000, 48)])
+                                   (4097, 1000, 48), *K3_PLAN_SHAPES])
 def test_k3_skewed_and_out_of_range_ids(cuda, dtype, kind, T, n, d):
     """g in multiples of 1/4 makes every sum exact in f32, whatever the
     order, so the kernel meets the plain version (index_add_ with the

@@ -27,7 +27,8 @@ from test_torch_cuda import skewed_ids
 
 
 @pytest.mark.parametrize("oracle", ["pallas", "at_add"])
-@pytest.mark.parametrize("T,N", [(1024, 300), (512, 128), (640, 3068)])
+@pytest.mark.parametrize("T,N", [(1024, 300), (512, 128), (640, 3068),
+                                 (2048, 30_345)])
 def test_scatter_plain_matches_jax(rng, oracle, T, N):
     d = 64
     g = rng.standard_normal((T, d)).astype(np.float32)
