@@ -1,0 +1,8 @@
+"""Device operations (kernels, memcpy, memset) per training step of the
+profiled stretch."""
+
+from portbench.core import roofline
+
+
+def read(records):
+    return roofline.ops_per_unit(records, "train")

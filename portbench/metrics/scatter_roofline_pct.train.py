@@ -1,0 +1,8 @@
+"""The table gather's gradient's least time over its device time in the
+profiled training steps, in %."""
+
+from portbench.core import roofline
+
+
+def read(records):
+    return roofline.share(records, "scatter", "train")
