@@ -48,6 +48,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.device import resolve_device, to_device
 from matcha_tpu_torch.models.modules import (dropout, encoder_layer,
                                              encoder_layer_init, feed_forward,
@@ -402,7 +403,8 @@ def _per_occurrence_embed(params: Dict, frozen: FrozenTables,
     # pads and rows held elsewhere sort after every chromosome, stay zero
     group = torch.where(held, chrom, torch.full_like(chrom, n_chroms))
     order = torch.argsort(group, stable=True)
-    counts = torch.bincount(group, minlength=n_chroms + 1).tolist()
+    with telemetry.sync("groups"):
+        counts = torch.bincount(group, minlength=n_chroms + 1).tolist()
     rate = dims.feature_dropout
     keep = None
     if generator is not None and rate > 0.0:

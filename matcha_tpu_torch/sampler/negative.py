@@ -12,7 +12,8 @@ Phase 1 proposes ``max_trials`` candidate rounds in parallel and Bloom-probes
 only the first ``max_probes`` structurally valid ones per row; phase 2
 re-proposes, one round at a time, only for the rows still unaccepted, for at
 most ``extra_rounds`` rounds (the host tests once per round whether any row
-is left, the condition of the JAX package's while loop).  With no filter
+is left, the condition of the JAX package's while loop: the telemetry sync
+``round``; the rounds run are the count ``rounds``).  With no filter
 (stage 1) negatives are copies of the positives.
 
 Random draws come from explicit CPU ``torch.Generator``s (see
@@ -37,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.device import resolve_device, to_device
 from matcha_tpu_torch.models.modules import rand, split_generator
 from matcha_tpu_torch.sampler.bloom import DeviceBloomFilter
@@ -232,8 +234,11 @@ def sample_negatives_with_stats(
     cur_ok = stage_has[0]        # a structurally valid trial exists
 
     for _ in range(max(int(extra_rounds), 0)):
-        if not bool((~found).any()):
+        with telemetry.sync("round"):
+            left = bool((~found).any())
+        if not left:
             break
+        telemetry.count("rounds")
         g_retry, g_round = split_generator(g_retry, 2)
         t = sort_small(torch.where(change, _draw(lo, hi, rand(g_round,
                                                               (n, k), dev)),

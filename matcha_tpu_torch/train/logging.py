@@ -1,8 +1,9 @@
 """Structured training observability.
 
-A copy of ``matcha_tpu/train/logging.py`` (the port imports nothing of the
-JAX package): a JSONL metrics stream, one object per epoch, with optional
-TensorBoard scalars, and a pass-through for log lines.
+After ``matcha_tpu/train/logging.py`` (the port imports nothing of the JAX
+package): a JSONL metrics stream, one object per epoch, with the epoch's
+host time split (``host``, from ``telemetry.epoch_split``), and a
+pass-through for log lines.
 """
 
 from __future__ import annotations
@@ -14,28 +15,22 @@ from typing import Dict, Optional
 
 
 class MetricsLogger:
-    """Writes one JSON object per epoch to ``<dir>/metrics.jsonl``; mirrors
-    scalars to TensorBoard when available and enabled."""
+    """Writes one JSON object per epoch to ``<dir>/metrics.jsonl``."""
 
-    def __init__(self, log_dir: Optional[str] = None,
-                 tensorboard: bool = False, stdout=print):
+    def __init__(self, log_dir: Optional[str] = None, stdout=print):
         self.log_dir = log_dir
         self.stdout = stdout
         self._file = None
-        self._tb = None
         self._start = time.time()
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-            if tensorboard:
-                try:
-                    from torch.utils.tensorboard import SummaryWriter
-                    self._tb = SummaryWriter(log_dir)
-                except ImportError:
-                    self._tb = None
 
     def log_epoch(self, stage: str, epoch: int, train: Dict, valid: Dict,
-                  ) -> None:
+                  host: Optional[Dict] = None) -> None:
+        """``host``: the training epoch's host time per step by span, its
+        syncs, sampler rounds and kernel launches per step
+        (``telemetry.epoch_split``); null when not given."""
         record = {
             "time": time.time() - self._start,
             "stage": stage, "epoch": epoch,
@@ -44,18 +39,11 @@ class MetricsLogger:
             "hyperedges_per_sec": train.get("hyperedges_per_sec"),
             "train_metrics": train.get("metrics"),
             "valid_metrics": valid.get("metrics"),
+            "host": host,
         }
         if self._file:
             self._file.write(json.dumps(record) + "\n")
             self._file.flush()
-        if self._tb:
-            for name, m in [("train_bce", train), ("valid_bce", valid)]:
-                if m.get("bce") is not None:
-                    self._tb.add_scalar(f"{stage}/{name}", m["bce"], epoch)
-            for split, m in [("train", train), ("valid", valid)]:
-                for k, v in m.get("metrics", {}).items():
-                    self._tb.add_scalar(f"{stage}/{split}_auroc_{k}",
-                                        v["auroc"], epoch)
 
     def __call__(self, message: str) -> None:
         self.stdout(message)
@@ -63,5 +51,3 @@ class MetricsLogger:
     def close(self) -> None:
         if self._file:
             self._file.close()
-        if self._tb:
-            self._tb.close()

@@ -14,7 +14,9 @@ draws each epoch's permutations there too.  PyTorch runs eagerly: an
 epoch is a Python loop of steps, with no host synchronisation inside it
 except the sampler's phase-2 test; the epoch's losses, sampler counters
 and per-size metrics (computed on the predictions' device,
-``train/metrics.py``) come back in one fetch.
+``train/metrics.py``) come back in one fetch.  Each step and each epoch is
+a ``telemetry`` unit with host spans around its phases and a count of its
+host synchronisations; ``fit``'s metrics log carries each epoch's split.
 
 ``Trainer.fit`` runs one stage: epochs (indexed when the buckets fit the pin
 budget, else the host batcher path), the reference's mixed-size eval after
@@ -55,6 +57,7 @@ bundle written by either package loads in the other.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import os
 import pickle
 import time
@@ -63,6 +66,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.data.batcher import BucketedBatcher
 from matcha_tpu_torch.device import to_device
 from matcha_tpu_torch.genome import GenomeBins
@@ -87,7 +91,6 @@ from matcha_tpu_torch.sampler.negative import (ChromTable, sample_negatives,
 from matcha_tpu_torch.train.metrics import (device_metrics_fn,
                                             format_metrics,
                                             metrics_from_device)
-from matcha_tpu_torch.utils import profile_trace
 
 
 class TrainSettings(NamedTuple):
@@ -164,27 +167,29 @@ def _sample_all_negatives(table, blooms, settings: TrainSettings, batch,
                           generator, ns: int = 1):
     """Per-k negatives over a batch dict -> ({k: x = (pos; neg)},
     {k: weights}, (bloom fallbacks, orig fallbacks, rows)); the x rows are
-    laid out shard-major for ns > 1 (read back with ``shard_split``)."""
-    xs, ws, fb = {}, {}, []
-    gens = split_generator(generator, len(batch))
-    for gen, k in zip(gens, sorted(batch.keys())):
-        pos, w = batch[k]
-        neg, st = sample_negatives_with_stats(
-            gen, pos, table, settings.min_distance,
-            None if blooms is None else blooms[k],
-            neg_num=settings.neg_num, max_trials=settings.max_trials,
-            extra_rounds=settings.extra_rounds,
-            max_probes=(settings.max_probes_k2 if k == 2
-                        else settings.max_probes),
-            hard_ratio=settings.hard_ratio,
-            chrom_bounds=settings.chrom_bounds,
-            propose_impl=settings.propose_impl)
-        fb.append(torch.stack([st["bloom_fallback"], st["orig_fallback"],
-                               st["rows"]]))
-        xs[k] = shard_concat([pos.to(torch.int32), neg], ns)
-        ws[k] = w
-    fb = torch.stack(fb).sum(dim=0)
-    return xs, ws, (fb[0], fb[1], fb[2])
+    laid out shard-major for ns > 1 (read back with ``shard_split``).  The
+    telemetry span ``sample``."""
+    with telemetry.span("sample"):
+        xs, ws, fb = {}, {}, []
+        gens = split_generator(generator, len(batch))
+        for gen, k in zip(gens, sorted(batch.keys())):
+            pos, w = batch[k]
+            neg, st = sample_negatives_with_stats(
+                gen, pos, table, settings.min_distance,
+                None if blooms is None else blooms[k],
+                neg_num=settings.neg_num, max_trials=settings.max_trials,
+                extra_rounds=settings.extra_rounds,
+                max_probes=(settings.max_probes_k2 if k == 2
+                            else settings.max_probes),
+                hard_ratio=settings.hard_ratio,
+                chrom_bounds=settings.chrom_bounds,
+                propose_impl=settings.propose_impl)
+            fb.append(torch.stack([st["bloom_fallback"],
+                                   st["orig_fallback"], st["rows"]]))
+            xs[k] = shard_concat([pos.to(torch.int32), neg], ns)
+            ws[k] = w
+        fb = torch.stack(fb).sum(dim=0)
+        return xs, ws, (fb[0], fb[1], fb[2])
 
 
 def _bucket_bce_and_preds(logits, batch, ws, ns: int = 1):
@@ -227,13 +232,14 @@ def _batch_loss_merged(params, frozen, dims, table, blooms, settings,
     xs, ws, fb = _sample_all_negatives(table, blooms, settings, batch, g_neg,
                                        ns)
     mode = "pad-max" if settings.token_stream == "hybrid" else "per-k"
-    logits, recon = forward_buckets(params, frozen, dims, xs,
-                                    generator=g_fwd, train=train,
-                                    return_recon=True, node_table=node_table,
-                                    attention_mode=mode,
-                                    recon_chrom=recon_chrom, n_shards=ns)
-    bce, preds = _bucket_bce_and_preds(logits, batch, ws, ns)
-    loss = settings.alpha * bce + settings.beta * recon
+    with telemetry.span("forward"):
+        logits, recon = forward_buckets(
+            params, frozen, dims, xs, generator=g_fwd, train=train,
+            return_recon=True, node_table=node_table, attention_mode=mode,
+            recon_chrom=recon_chrom, n_shards=ns)
+    with telemetry.span("loss"):
+        bce, preds = _bucket_bce_and_preds(logits, batch, ws, ns)
+        loss = settings.alpha * bce + settings.beta * recon
     return loss, _aux(bce, recon, preds, fb)
 
 
@@ -248,16 +254,18 @@ def _batch_loss_padded(params, frozen, dims, table, blooms, settings,
                                        ns)
     ks = sorted(batch.keys())
     L = max(ks)
-    x_all = shard_concat([torch.nn.functional.pad(xs[k], (0, L - k))
-                          for k in ks], ns)
-    logits_all, recon = forward(params, frozen, dims, x_all,
-                                generator=g_fwd, train=train,
-                                return_recon=True, node_table=node_table,
-                                recon_chrom=recon_chrom)
-    logits = dict(zip(ks, shard_split(logits_all, ns,
-                                      [xs[k].shape[0] for k in ks])))
-    bce, preds = _bucket_bce_and_preds(logits, batch, ws, ns)
-    loss = settings.alpha * bce + settings.beta * recon
+    with telemetry.span("forward"):
+        x_all = shard_concat([torch.nn.functional.pad(xs[k], (0, L - k))
+                              for k in ks], ns)
+        logits_all, recon = forward(params, frozen, dims, x_all,
+                                    generator=g_fwd, train=train,
+                                    return_recon=True, node_table=node_table,
+                                    recon_chrom=recon_chrom)
+        logits = dict(zip(ks, shard_split(logits_all, ns,
+                                          [xs[k].shape[0] for k in ks])))
+    with telemetry.span("loss"):
+        bce, preds = _bucket_bce_and_preds(logits, batch, ws, ns)
+        loss = settings.alpha * bce + settings.beta * recon
     return loss, _aux(bce, recon, preds, fb)
 
 
@@ -275,21 +283,24 @@ def _batch_loss_regress(params, frozen, dims, table, blooms, settings,
     total_bce, total_recon, preds = 0.0, 0.0, []
     for gen, k in zip(split_generator(g_fwd, len(batch)), sorted(batch)):
         n_pos = batch[k][0].shape[0]
-        y = torch.cat([ws[k].reshape(-1).float(),
-                       torch.zeros(xs[k].shape[0] - n_pos,
-                                   device=xs[k].device)])[:, None]
-        logits, recon = forward(params, frozen, dims, xs[k], generator=gen,
-                                train=train, return_recon=True,
-                                node_table=node_table,
-                                recon_chrom=recon_chrom)
-        pred = torch.nn.functional.softplus(logits)
-        preds.append(torch.sigmoid(pred[:n_pos, 0]
-                                   - pred[n_pos:2 * n_pos, 0]))
-        total_bce = total_bce + ((pred - y) ** 2).mean()
-        total_recon = total_recon + recon
-    bce = total_bce / len(batch)
-    recon = total_recon / len(batch)
-    loss = settings.alpha * bce + settings.beta * recon
+        with telemetry.span("forward"):
+            logits, recon = forward(params, frozen, dims, xs[k],
+                                    generator=gen, train=train,
+                                    return_recon=True, node_table=node_table,
+                                    recon_chrom=recon_chrom)
+        with telemetry.span("loss"):
+            y = torch.cat([ws[k].reshape(-1).float(),
+                           torch.zeros(xs[k].shape[0] - n_pos,
+                                       device=xs[k].device)])[:, None]
+            pred = torch.nn.functional.softplus(logits)
+            preds.append(torch.sigmoid(pred[:n_pos, 0]
+                                       - pred[n_pos:2 * n_pos, 0]))
+            total_bce = total_bce + ((pred - y) ** 2).mean()
+            total_recon = total_recon + recon
+    with telemetry.span("loss"):
+        bce = total_bce / len(batch)
+        recon = total_recon / len(batch)
+        loss = settings.alpha * bce + settings.beta * recon
     return loss, _aux(bce, recon, torch.cat(preds), fb)
 
 
@@ -367,8 +378,9 @@ class _HostFetch:
     """Several device tensors on their way to the host as float64 in one
     copy (counts stay exact).  On the card the copy goes, without waiting,
     into pinned host memory on the current stream, behind an event;
-    ``result()`` waits on that event (the one host synchronisation) and
-    splits the buffer.  On the CPU the values are there at once."""
+    ``result()`` waits on that event (the one host synchronisation, the
+    telemetry sync ``fetch``) and splits the buffer.  On the CPU the values
+    are there at once."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         self.shapes = {n: tuple(t.shape) for n, t in tensors.items()}
@@ -385,8 +397,9 @@ class _HostFetch:
             self.host = flat
 
     def wait(self) -> None:
-        if self.event is not None:
-            self.event.synchronize()
+        with telemetry.sync("fetch"):
+            if self.event is not None:
+                self.event.synchronize()
 
     def result(self) -> Dict[str, np.ndarray]:
         self.wait()
@@ -590,28 +603,52 @@ class Trainer:
         self._pinned_shape = None
         self._dev_buckets = None
         self._dev_shape = None
+        self._epochs = 0
+        # the telemetry unit of the last training epoch (``_epoch_unit``)
+        self.last_epoch: Optional[telemetry.Unit] = None
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One step on {k: (positives (B, k) int32, weights (B,))} on the
         params' device -> aux tensors (no host synchronisation on one
-        device).  Under a mesh every rank passes the whole batch, backs the
-        whole loss / W through its rows, and the flat gradient is summed
-        over the ranks once (``_sum_grads``) before AdamW."""
-        g_tab, g_loss = split_generator(self.generator, 2)
-        self.optimizer.zero_grad(set_to_none=False)
-        with using_active_mesh(self.mesh):
-            node_table = encode_node_table(self.params, self.frozen,
-                                           self.dims, generator=g_tab,
-                                           train=True)
-            loss, aux = batch_loss(self.params, self.frozen, self.dims,
-                                   self.chrom_table, self.blooms,
-                                   self.settings, batch, g_loss, node_table,
-                                   True)
-            world = 1 if self.mesh is None else self.mesh.size
-            (loss / world if world > 1 else loss).backward()
-        self._sum_grads()
-        self.optimizer.step()
-        return {k: v.detach() for k, v in aux.items()}
+        device but the sampler's round tests).  Under a mesh every rank
+        passes the whole batch, backs the whole loss / W through its rows,
+        and the flat gradient is summed over the ranks once
+        (``_sum_grads``) before AdamW.  A telemetry unit ``step`` with the
+        spans ``optimizer``, ``encode``, ``sample``, ``forward``, ``loss``
+        and ``backward``."""
+        with telemetry.unit("step"):
+            g_tab, g_loss = split_generator(self.generator, 2)
+            with telemetry.span("optimizer"):
+                self.optimizer.zero_grad(set_to_none=False)
+            with using_active_mesh(self.mesh):
+                with telemetry.span("encode"):
+                    node_table = encode_node_table(self.params, self.frozen,
+                                                   self.dims, generator=g_tab,
+                                                   train=True)
+                loss, aux = batch_loss(self.params, self.frozen, self.dims,
+                                       self.chrom_table, self.blooms,
+                                       self.settings, batch, g_loss,
+                                       node_table, True)
+                world = 1 if self.mesh is None else self.mesh.size
+                with telemetry.span("backward"):
+                    (loss / world if world > 1 else loss).backward()
+            with telemetry.span("optimizer"):
+                self._sum_grads()
+                self.optimizer.step()
+            return {k: v.detach() for k, v in aux.items()}
+
+    @contextlib.contextmanager
+    def _epoch_unit(self):
+        """A telemetry unit ``epoch`` numbered by this Trainer's training
+        epochs (0 first), with the kernel launches made inside it as its
+        counts ``launches.<kernel>``; kept as ``last_epoch``."""
+        before = telemetry.kernel_launches()
+        with telemetry.unit("epoch", index=self._epochs) as u:
+            self._epochs += 1
+            yield u
+            for name, n in telemetry.kernel_launches().items():
+                telemetry.count(f"launches.{name}", n - before[name])
+        self.last_epoch = u
 
     def _sum_grads(self) -> None:
         """Under a mesh with a process group: one all-reduce (SUM) of every
@@ -744,16 +781,18 @@ class Trainer:
         stacked = {}
         for k, idx in batcher.next_epoch_indices().items():
             e, w = self._pinned[k]
-            idx = torch.as_tensor(idx, device=e.device).long()
+            with telemetry.sync("indices"):
+                idx = torch.as_tensor(idx, device=e.device).long()
             stacked[k] = (e[idx], w[idx])
         return self._launch_epoch(stacked)
 
     def train_epoch_indexed(self, batcher: BucketedBatcher) -> Dict:
         """One epoch over the pinned base arrays (launch, then the one
         fetch); ``elapsed`` ends when the result is on the host."""
-        t0 = time.perf_counter()
-        return self._finish_indexed(self.train_epoch_indexed_launch(batcher),
-                                    t0=t0)
+        with self._epoch_unit():
+            t0 = time.perf_counter()
+            return self._finish_indexed(
+                self.train_epoch_indexed_launch(batcher), t0=t0)
 
     def prepare_device_epochs(self, train_buckets, batch_size: int,
                               num_batch_per_iter: int) -> None:
@@ -808,17 +847,22 @@ class Trainer:
     def train_epoch_device(self) -> Dict:
         """One device-resident epoch (launch, then the one fetch); the
         result has ``train_epoch_indexed``'s keys."""
-        t0 = time.perf_counter()
-        return self._finish_indexed(self.train_epoch_device_launch(), t0=t0)
+        with self._epoch_unit():
+            t0 = time.perf_counter()
+            return self._finish_indexed(self.train_epoch_device_launch(),
+                                        t0=t0)
 
     def train_epoch(self, batcher: BucketedBatcher) -> Dict:
         """One epoch with the batches gathered on the host and copied."""
         dev = _leaves(self.params)[0].device
-        t0 = time.perf_counter()
-        stacked = {k: (torch.as_tensor(e, device=dev),
-                       torch.as_tensor(w, device=dev))
-                   for k, (e, w) in batcher.next_epoch().items()}
-        return self._run_epoch(stacked, t0)
+        with self._epoch_unit():
+            t0 = time.perf_counter()
+            stacked = {}
+            for k, (e, w) in batcher.next_epoch().items():
+                with telemetry.sync("rows"):
+                    stacked[k] = (torch.as_tensor(e, device=dev),
+                                  torch.as_tensor(w, device=dev))
+            return self._run_epoch(stacked, t0)
 
     # ------------------------------------------------------------------ eval
     def eval_epoch(self, test_buckets, batch_size: int = 96,
@@ -1026,8 +1070,8 @@ class Trainer:
           params at the start of every epoch.
         profile_dir: a ``torch.profiler`` trace of epoch 1's training and
           eval (the first epoch after the warm-up epoch 0) under this
-          directory (``utils.profile_trace``); the same window whether or
-          not the epochs overlap.
+          directory (``telemetry.profile_trace``); the same window whether
+          or not the epochs overlap.
         checkpoint_format: "pickle" (one file, ``save_checkpoint``) or
           "orbax": ``checkpoint_path`` and ``resume_path`` are directories
           of ``train/checkpoint.OrbaxCheckpointer`` step checkpoints
@@ -1105,11 +1149,12 @@ class Trainer:
                 log(f"resumed from {resume_path}: continuing at epoch "
                     f"{start_epoch} (best {best:.4f})")
 
-        def post_epoch(epoch, tr, ev, save):
+        def post_epoch(epoch, tr, ev, save, split):
             """An epoch's bookkeeping: the log lines, the history, the
-            metrics log, the checkpoint on the best AUPRC and the resume
-            snapshot; save(path, epoch, best or None for a checkpoint)
-            writes the epoch's state."""
+            metrics log (with ``split``, the epoch's
+            ``telemetry.epoch_split``), the checkpoint on the best AUPRC
+            and the resume snapshot; save(path, epoch, best or None for a
+            checkpoint) writes the epoch's state."""
             nonlocal best
             roc, aupr, _ = format_metrics(tr["metrics"])
             fb = ""
@@ -1126,7 +1171,7 @@ class Trainer:
                 f"{ev['recon']:.4f} auc: {roc} aupr: {aupr}")
             history.append({"train": tr, "valid": ev})
             if metrics_logger is not None:
-                metrics_logger.log_epoch(stage, epoch, tr, ev)
+                metrics_logger.log_epoch(stage, epoch, tr, ev, host=split)
             val_aupr = ev["metrics"].get(
                 max_k, ev["metrics"].get("all", {"auprc": 0.0}))["auprc"]
             if np.isnan(val_aupr):
@@ -1152,7 +1197,7 @@ class Trainer:
                     _write_checkpoint(path, params_to_numpy(params), opt,
                                       epoch, key, best_)
 
-        def finalize(epoch, aux, elapsed, ev_handle, snap):
+        def finalize(epoch, aux, elapsed, ev_handle, snap, split):
             """Epoch ``epoch``'s host work, on the worker thread."""
             ev = self._finish_eval(ev_handle)
             tr = self._finish_indexed(aux, elapsed)
@@ -1162,7 +1207,7 @@ class Trainer:
                 _write_checkpoint(path, host["params"], host["opt_state"],
                                   ep, None if best_ is None else host["key"],
                                   best_)
-            post_epoch(epoch, tr, ev, save_host)
+            post_epoch(epoch, tr, ev, save_host, split)
             if host["emb"] is not None:
                 # the serial loop's export at the top of epoch + 1
                 np.save(embeddings_path, host["emb"])
@@ -1186,13 +1231,16 @@ class Trainer:
                     # later epochs' exports come from the snapshots
                     self.export_embeddings(embeddings_path)
                 # the trace covers the epoch's training and eval either way
-                prof = profile_trace(profile_dir if epoch == 1 else None)
+                prof = telemetry.profile_trace(profile_dir if epoch == 1
+                                               else None)
                 if overlap:
                     with prof:
                         t0 = time.perf_counter()
-                        aux = self.train_epoch_indexed_launch(batcher)
-                        aux["fetch"].wait()
+                        with self._epoch_unit():
+                            aux = self.train_epoch_indexed_launch(batcher)
+                            aux["fetch"].wait()
                         elapsed = time.perf_counter() - t0
+                        split = telemetry.epoch_split(self.last_epoch)
                         ev_handle = (self.eval_epoch_pinned_launch(
                             pinned_eval, seed=seed + epoch)
                             if pinned_eval is not None else None)
@@ -1203,14 +1251,15 @@ class Trainer:
                     if pending is not None:
                         pending.result()
                     pending = worker.submit(finalize, epoch, aux, elapsed,
-                                            ev_handle, snap)
+                                            ev_handle, snap, split)
                     continue
                 with prof:
                     tr = (self.train_epoch_indexed(batcher) if use_indexed
                           else self.train_epoch(batcher))
+                    split = telemetry.epoch_split(self.last_epoch)
                     ev = self.eval_epoch(test_buckets, batch_size=batch_size,
                                          seed=seed + epoch)
-                post_epoch(epoch, tr, ev, save_live)
+                post_epoch(epoch, tr, ev, save_live, split)
             if pending is not None:
                 pending.result()
         finally:

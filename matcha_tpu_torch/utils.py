@@ -1,11 +1,9 @@
-"""Small utilities: parameter summaries, the clique-expansion adjacency and a
-profiler scope.
+"""Small utilities: parameter summaries and the clique-expansion adjacency.
 
 Port of ``matcha_tpu/utils.py``.  The param tree is the port's nested dict /
 list of tensors (the JAX package's tree with tensors as leaves), so the
 summaries print what the JAX package prints for a tree carried across by
-``interop``.  ``profile_trace`` is a ``torch.profiler`` scope that writes a
-Chrome trace.
+``interop``.  The profiler scope lives in ``telemetry`` (``profile_trace``).
 
 The JAX module's ``enable_compile_cache`` (XLA's persistent executable
 cache) and ``warm_loop_runtime`` (a first-loop initialisation of a remote TPU
@@ -16,12 +14,9 @@ shape, and the hand-written kernels are built once into ``_build/``
 
 from __future__ import annotations
 
-import contextlib
-import os
 from typing import Dict
 
 import numpy as np
-import torch
 
 
 def _leaf_shapes(tree, path=()):
@@ -72,21 +67,3 @@ def edgelist_to_adjacency(flat: np.ndarray, offsets: np.ndarray,
         np.add.at(adj, (i[mask] - 1, j[mask] - 1), 1)
     return adj
 
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str | None):
-    """A ``torch.profiler`` scope (host and, where a card is present, device
-    activity) that writes one Chrome trace,
-    ``<host>_<pid>.<time>.pt.trace.json`` (TensorBoard's layout), under
-    ``log_dir`` when it ends; a no-op for ``None``."""
-    if log_dir is None:
-        yield
-        return
-    os.makedirs(log_dir, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
-        yield

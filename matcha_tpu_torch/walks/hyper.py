@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from scipy.sparse import csr_matrix
 
+from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.ops.incidence import PaddedIncidence, pair_cooccurrence
 
 from matcha_tpu_torch.walks.alias import (build_alias_tables,
@@ -177,26 +178,24 @@ def build_walk_tables(num_nodes: int, hyperedges, *, p: float = 2,
                       timings: dict | None = None, device="cuda"):
     """Full table-construction phase of the hypergraph walker:
     incidence -> co-occurrence weights -> first/second-order alias tables.
-    timings: optional dict that receives per-phase wall seconds."""
-    import time as _time
-    t0 = _time.time()
-    ev_mats = incidence_matrices(num_nodes, hyperedges)
-    EV = ev_mats[0]
-    node_degree = np.asarray(EV.sum(axis=0)).reshape(-1)
-    t1 = _time.time()
+    timings: optional dict that receives per-phase host seconds (telemetry
+    spans) and the weights' nonzero count."""
+    with telemetry.span("incidence", into=timings):
+        ev_mats = incidence_matrices(num_nodes, hyperedges)
+        EV = ev_mats[0]
+        node_degree = np.asarray(EV.sum(axis=0)).reshape(-1)
     # ff = VE_od @ EV_od : (N, N) node-node weights, diagonal removed —
     # computed on device by default (see cooccurrence_csr)
-    W = cooccurrence_csr(num_nodes, hyperedges, backend=weight_backend,
-                         ev_matrices=ev_mats, device=device)
-    t2 = _time.time()
-    first = first_order_tables(W, node_degree)
-    t3 = _time.time()
-    second, edge_keys = second_order_tables(W, EV, node_degree, p=p, q=q)
-    t4 = _time.time()
+    with telemetry.span("cooccurrence", into=timings):
+        W = cooccurrence_csr(num_nodes, hyperedges, backend=weight_backend,
+                             ev_matrices=ev_mats, device=device)
+    with telemetry.span("first_order", into=timings):
+        first = first_order_tables(W, node_degree)
+    with telemetry.span("second_order", into=timings):
+        second, edge_keys = second_order_tables(W, EV, node_degree, p=p,
+                                                q=q)
     if timings is not None:
-        timings.update(incidence_s=t1 - t0, cooccurrence_s=t2 - t1,
-                       first_order_s=t3 - t2, second_order_s=t4 - t3,
-                       w_nnz=int(W.nnz))
+        timings["w_nnz"] = int(W.nnz)
     return first, second, edge_keys
 
 
@@ -212,10 +211,8 @@ def hypergraph_walks(num_nodes: int, hyperedges, *, p: float = 2,
         num_nodes, hyperedges, p=p, q=q, weight_backend=weight_backend,
         timings=timings, device=device)
     # lockstep simulation — the same walker as the clique path
-    import time as _time
-    t0 = _time.time()
-    walks = simulate_second_order_walks(num_nodes, first, second, edge_keys,
-                                        num_walks, walk_length, rng)
-    if timings is not None:
-        timings["simulate_s"] = _time.time() - t0
+    with telemetry.span("simulate", into=timings):
+        walks = simulate_second_order_walks(num_nodes, first, second,
+                                            edge_keys, num_walks,
+                                            walk_length, rng)
     return walks

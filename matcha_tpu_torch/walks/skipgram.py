@@ -31,13 +31,13 @@ as int32 at the hg38 1 Mb configuration's ~25.6 M pairs).
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.device import resolve_device
 from matcha_tpu_torch.ops.table_scatter import bincount, scatter_add
 
@@ -161,27 +161,26 @@ def train_skipgram(walks: np.ndarray, vocab: int, dim: int, *,
 
     losses = []
     for _ in range(epochs):
-        t0 = time.perf_counter()
-        pairs = walks_to_pairs(walks, window, rng)
-        n_pairs = len(pairs)
-        if len(pairs) >= batch:
-            # wrap the tail around to fill the last minibatch (truncating
-            # would silently drop up to batch-1 pairs every epoch)
-            n_b = -(-len(pairs) // batch)
-            pad = n_b * batch - len(pairs)
-            if pad:
-                pairs = np.concatenate([pairs, pairs[:pad]])
-            pairs_b = pairs.reshape(n_b, batch, 2)
-        else:
-            pairs_b = pairs[None, :, :]
-        t1 = time.perf_counter()
-        emb_in, emb_out, ls = sgns_epoch_chunked(
-            emb_in, emb_out, pairs_b, cdf, generator, neg_num=neg_num, lr=lr)
-        losses.append(float(ls.mean()))
+        with telemetry.span("pairs", into=timings):
+            pairs = walks_to_pairs(walks, window, rng)
+            n_pairs = len(pairs)
+            if len(pairs) >= batch:
+                # wrap the tail around to fill the last minibatch
+                # (truncating would silently drop up to batch-1 pairs
+                # every epoch)
+                n_b = -(-len(pairs) // batch)
+                pad = n_b * batch - len(pairs)
+                if pad:
+                    pairs = np.concatenate([pairs, pairs[:pad]])
+                pairs_b = pairs.reshape(n_b, batch, 2)
+            else:
+                pairs_b = pairs[None, :, :]
+        with telemetry.span("sgns", into=timings):
+            emb_in, emb_out, ls = sgns_epoch_chunked(
+                emb_in, emb_out, pairs_b, cdf, generator, neg_num=neg_num,
+                lr=lr)
+            losses.append(float(ls.mean()))
         if timings is not None:
-            timings["pairs_s"] = timings.get("pairs_s", 0.0) + t1 - t0
-            timings["sgns_s"] = (timings.get("sgns_s", 0.0)
-                                 + time.perf_counter() - t1)
             timings["pairs"] = timings.get("pairs", 0) + n_pairs
             timings["minibatches"] = (timings.get("minibatches", 0)
                                       + pairs_b.shape[0])

@@ -127,6 +127,37 @@ def test_logger_passes_lines_through():
     mlog.close()
 
 
+@pytest.mark.parametrize("overlap", ["1", "0"])
+def test_logger_writes_the_host_split(small, tmp_path, monkeypatch,
+                                      overlap):
+    """Each epoch's record holds its host time per step by span, its syncs
+    (one per size and phase-2 round in a step; one per size for the
+    epoch's indices and its one fetch, over its steps), its sampler rounds
+    and its kernel launches per step (none on the CPU)."""
+    monkeypatch.setenv("MATCHA_FIT_OVERLAP", overlap)
+    mlog = MetricsLogger(str(tmp_path))
+    _trainer(small).fit(small["train"], small["test"], epochs=2,
+                        metrics_logger=mlog, **FIT)
+    mlog.close()
+    recs = [json.loads(ln) for ln in
+            (tmp_path / "metrics.jsonl").read_text().strip().split("\n")]
+    assert [r["epoch"] for r in recs] == [0, 1]
+    for rec in recs:
+        host = rec["host"]
+        assert host["steps"] == FIT["num_batch_per_iter"]
+        assert set(host["ms_per_step"]) == {
+            "optimizer", "encode", "sample", "forward", "loss", "backward",
+            "epoch"}
+        assert all(v > 0 for v in host["ms_per_step"].values())
+        ks = len(small["train"])
+        assert host["syncs_per_step"] == pytest.approx(
+            ks + host["rounds_per_step"] + (ks + 1) / host["steps"])
+        assert host["sync_wait_ms_per_step"] > 0
+        assert host["launches_per_step"] == {
+            k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6_fwd",
+                             "K6_bwd")}
+
+
 # --------------------------------------------------------------- the setup
 def _buckets(rng, n, n_edges, ks):
     out = {}
