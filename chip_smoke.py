@@ -5,19 +5,25 @@ walk pretraining and multi-rank training on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a GPU
 
-Phases, all in this process; any failure exits non-zero before the last line:
+Phases, all in this process; any failure exits non-zero before the last line.
+Wherever a phase checks the launch counts of a stage-2 step or eval batch
+(the sampler against filters, k <= 6, on the card), K7 also launches once
+per size and once more per phase-2 round the sampler ran:
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile every kernel from csrc/ with nvcc (sm_90a), one nvcc per
      source, all at once: K1 (attention forward), K2 (attention backward),
      K3 (scatter-add) and K4 (bincount), K5 (phase-1 proposals), K6 (the
-     fused classifier tail, forward and backward).
+     fused classifier tail, forward and backward), K7 (the sampler's chain).
   3. kernels vs plain: each kernel's wrapper against its plain PyTorch version
      on the card, over the shapes the main paths give it (f32 with TF32 off,
      and bf16), with the tolerances stated below; the Bloom hashes computed
      on the card against an independent numpy build, bit for bit; K5 bit for
      bit at k = 1..6, n = 6,144 and a ragged 1,001, T = 1, 5, 8, 16 and S =
      1, 2, T, and the sampler's "pallas" phase 1 (K5) against its "xla" one
-     for one generator (the same negatives); K6 in eval and train mode (the same mask bits on both
+     for one generator (the same negatives); the sampler on K7 against
+     the eager chain at 2,048 and 96 positives per k = 2..5, "xla" and
+     "pallas", hard_ratio 1 and 0.5 (negatives and counts bit for bit);
+     K6 in eval and train mode (the same mask bits on both
      sides; bf16 takes the backward's tensor-core route), its backward's
      bits across two calls, and its masks' keep shares and seed
      determinism; K6's forward and backward at T = 114,688 / 1,000 / 65 / 3
@@ -54,7 +60,10 @@ Phases, all in this process; any failure exits non-zero before the last line:
      proposals): Trainer -> pin_base_buckets -> train_epoch_indexed; one
      stage-1 step, then a warm-up epoch and a timed epoch of 10 stage-2
      steps.  The counts are zeroed just before the timed epoch and read just
-     after: each step must launch K1 x3, K2 x3, K3 x1 and K4 x1.  Losses
+     after: each step must launch K1 x3, K2 x3, K3 x1, K4 x1 and K7 x4, and
+     K7 once more per phase-2 round the sampler ran (counted by wrapping
+     the sampler's round loop, and equal to the step units' own ``rounds``
+     and the epoch's ``launches.K7``).  Losses
      finite, params changed; a deterministic step (dropout off, the same
      negatives and recon chromosome) as f32 on the card against f32 on the
      CPU (the plain path), and as bf16 on the card.
@@ -79,8 +88,9 @@ Phases, all in this process; any failure exits non-zero before the last line:
      while epoch N+1 is dispatched) and serial (MATCHA_FIT_OVERLAP=0).  The
      counts are zeroed just before each stage 2 and read at the start of
      every epoch's training: each step must launch K1 x3, K2 x3, K3 x1, K4
-     x1, K5 x4 and K6 forward and backward x1, each eval batch K1 x1, K4 x1
-     (the recon loss's counts) and K5 x4.  The two runs must be bit-equal:
+     x1, K5 x4, K6 forward and backward x1 and K7 x4, each eval batch K1
+     x1, K4 x1 (the recon loss's counts), K5 x4 and K7 x4, and K7 once more
+     per phase-2 round.  The two runs must be bit-equal:
      history, final params, every checkpoint and resume snapshot, every
      embeddings file; each writes one non-empty trace.  Both runs' epoch
      walls (training part, eval dispatch, total) are printed.  Losses
@@ -95,13 +105,17 @@ Phases, all in this process; any failure exits non-zero before the last line:
      stage-2 step with the fused tail on / off and the proposals "pallas" /
      "xla" (in turns; per route also a profiled step with its device
      operation count, its host synchronisations and the negatives alone),
-     and the fit's epoch and eval walls.
+     and the fit's epoch and eval walls; K7 beside K5 at 2,048 and 96
+     positives per k = 2..5 (K7's phase 1 alone by events and device time,
+     the bytes bound; the whole per-size sampler call, draws and rounds
+     included, on K7 and, as the plain column, on the eager chain).
  10. shapes the kernels do not take: a dim-16, 4-head model (f32, k = 2, 3,
      the hg38 genome) with the fused tail on; the counts are zeroed just
      before and read just after one Trainer.train_step ("xla" proposals:
-     K3 and K4 once, K1, K2, K5 and K6 never), one predict_proba (no K1)
-     and one k = 7 sample_negatives with propose_impl="pallas", which must
-     warn and launch no K5; the same step with dropout off on fixed
+     K3 and K4 once, K7 once per k and per round, K1, K2, K5 and K6
+     never), one predict_proba (no K1) and one k = 7 sample_negatives with
+     propose_impl="pallas", which must warn and launch no K5 and no K7; the
+     same step with dropout off on fixed
      negatives against f32 on the CPU (1e-5 loss, 1e-4 grads), and the
      probabilities against the CPU's (1e-4).
  11. run_train through the CLI at full width: the hg38 genome, random
@@ -113,9 +127,9 @@ Phases, all in this process; any failure exits non-zero before the last line:
      "xla" / fused tail off; the artifacts (bundle, embeddings, checkpoint,
      metrics log) must exist and the bundle must score candidates; the
      counts are zeroed just before the train stage and read just after: K1-
-     K4 launched, K5 and K6 not.  Prints each stage's wall, the train sizes,
-     whether the native parser and counter built, and which of h5py, scipy,
-     matplotlib and pandas the machine has.
+     K4 and K7 launched, K5 and K6 not.  Prints each stage's wall, the
+     train sizes, whether the native parser and counter built, and which of
+     h5py, scipy, matplotlib and pandas the machine has.
  12. denoise at full width on the serving bundle: the port's denoise
      computation (denoise_pixels, the closed form) over all 23 chromosomes
      at min_distance 0, the counts zeroed just before and read just after
@@ -285,6 +299,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.apps.predict import predict_proba
 from matcha_tpu_torch.apps.predict_multiway import (parse_interaction_file,
                                                     run_predict_multiway)
@@ -303,6 +318,7 @@ from matcha_tpu_torch.models.modules import (dropout, layer_norm, mha_init,
                                              pff, split_generator)
 from matcha_tpu_torch.ops import fused_tail as ft
 from matcha_tpu_torch.ops import propose as tp
+from matcha_tpu_torch.ops import sample_negatives as sn
 from matcha_tpu_torch.ops import table_scatter as ts
 from matcha_tpu_torch.ops.hyperedge_attention import (
     hyperedge_attention, hyperedge_attention_bwd_cuda,
@@ -320,6 +336,7 @@ from matcha_tpu_torch.parallel.stream import shard_concat
 from matcha_tpu_torch.pipeline import resolve_perf
 from matcha_tpu_torch.sampler import bloom as tb
 from matcha_tpu_torch.sampler.bloom import build_bloom_dict
+from matcha_tpu_torch.sampler import negative as tn
 from matcha_tpu_torch.sampler.negative import ChromTable, sample_negatives
 from matcha_tpu_torch.train import runtime
 from matcha_tpu_torch.train.checkpoint import OrbaxCheckpointer
@@ -969,6 +986,116 @@ def check_propose(device, genome):
           "'xla' for one generator at k = 2..5", flush=True)
 
 
+def sampled(seed, args, kw, eager=False):
+    """sample_negatives_with_stats from a generator seeded ``seed``: on K7,
+    or (eager=True) on the eager chain -> (negatives, counts, K7
+    launches)."""
+    real = tn._sample_k7
+    if eager:
+        tn._sample_k7 = tn._sample_eager
+    before = sn.sample_negatives_cuda.launches
+    try:
+        neg, st = tn.sample_negatives_with_stats(
+            torch.Generator().manual_seed(seed), *args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        tn._sample_k7 = real
+    return (neg, [int(v) for v in st.values()],
+            sn.sample_negatives_cuda.launches - before)
+
+
+def check_k7(device, genome):
+    """Phase 3: the sampler on K7 against the eager chain for one generator,
+    bit for bit (negatives and counts), at the training cells' shapes (2,048
+    and 96 positives per k = 2..5, 8 rounds, 4 / 2 probes, the Trainer's
+    host bounds), "xla" (K7's phase 1) and "pallas" (K5, then K7's
+    selection), hard_ratio 1 and 0.5."""
+    for b in (TRAIN_BATCH, 96):
+        table, bounds, pos, blooms = sampler_problem(genome, device,
+                                                     SEED + 70 + b, n_pos=b)
+        for k in TRAIN_KS:
+            for impl in ("xla", "pallas"):
+                for hard in (1.0, 0.5):
+                    args = (pos[k], table, 0, blooms[k])
+                    kw = dict(max_probes=4 if k == 2 else 2, hard_ratio=hard,
+                              chrom_bounds=bounds, propose_impl=impl)
+                    neg, st, n7 = sampled(SEED + k, args, kw)
+                    ref, rst, _ = sampled(SEED + k, args, kw, eager=True)
+                    if not (torch.equal(neg, ref) and st == rst) or n7 < 1:
+                        fail(f"K7 differs from the eager chain at b={b} "
+                             f"k={k} {impl} hard_ratio={hard}: counts {st} "
+                             f"against {rst}, {n7} launches")
+    print("K7 vs the eager chain: b = 2,048 and 96, k = 2..5, 'xla' and "
+          "'pallas', hard_ratio 1 and 0.5: negatives and counts bit-equal "
+          "ok", flush=True)
+
+
+def time_k7(device, card) -> dict:
+    """Phase 9: K7 beside K5 at the training cells' sampler shapes (2,048
+    and 96 positives per k = 2..5, neg_num 3, T = 8, S = 4 / 2): K7's
+    phase 1 by CUDA events around the wrapper and its device time by the
+    profiler, K5 the same on inputs of its shapes, and the whole per-size
+    sampler call (draws included) by events on K7 and, as the plain
+    version, on the eager chain; K7 launches per call; the bound: the
+    uniforms read and the negatives written at 3.35 TB/s."""
+    out = {}
+    for b in (TRAIN_BATCH, 96):
+        table, bounds, pos, blooms = sampler_problem(
+            hg38_genome(), device, SEED + 80 + b, n_pos=b)
+        for k in TRAIN_KS:
+            n, T, S = 3 * b, 8, 4 if k == 2 else 2
+            p = pos[k].to(torch.int32).contiguous()
+            gen = torch.Generator(device=device).manual_seed(SEED + k)
+            u_count, u_rank = (torch.rand(shape, device=device,
+                                          generator=gen)
+                               for shape in ((n,), (n, k)))
+            u = torch.rand((T, n, k), device=device, generator=gen)
+            starts, ends = tn._bounds_on(bounds, device)
+
+            def k7():
+                return sn.sample_negatives_cuda(
+                    p, 3, u_count, u_rank, None, u, starts=starts, ends=ends,
+                    node2chrom=None, n_nodes=table.node2chrom.shape[0],
+                    hard_ratio=1.0, bloom=blooms[k], min_distance=0,
+                    max_probes=S)
+            args5 = propose_inputs(device, k, n, seed=SEED + 90 + k)
+
+            def k5():
+                return tp.propose_phase1_cuda(*args5, min_distance=0,
+                                              max_probes=S)
+            args = (pos[k], table, 0, blooms[k])
+            kw = dict(max_probes=S, chrom_bounds=bounds)
+            _, _, launches = sampled(SEED + k, args, kw)
+            real = tn._sample_k7
+
+            def eager():
+                tn._sample_k7 = tn._sample_eager
+                try:
+                    return tn.sample_negatives_with_stats(
+                        torch.Generator().manual_seed(SEED + k), *args, **kw)
+                finally:
+                    tn._sample_k7 = real
+            nbytes = 4 * (n + n * k + T * n * k) + 4 * b * k + 4 * n * k
+            out[f"K7_b{b}_k{k}"] = {
+                "b": b, "k": k, "n": n, "T": T, "S": S,
+                "ms": cuda_ms(k7), "device_ms": device_ms_per_call(k7),
+                "k5_ms": cuda_ms(k5), "k5_device_ms": device_ms_per_call(k5),
+                "sampler_ms": cuda_ms(lambda: tn.sample_negatives_with_stats(
+                    torch.Generator().manual_seed(SEED + k), *args, **kw),
+                    iters=10),
+                "plain_ms": cuda_ms(eager, iters=5),
+                "launches_per_call": launches,
+                "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+                "mbytes": nbytes / 1e6}
+    for b in (TRAIN_BATCH, 96):
+        rows = [out[f"K7_b{b}_k{k}"] for k in TRAIN_KS]
+        out[f"step_b{b}"] = {key: sum(r[key] for r in rows) for key in
+                             ("sampler_ms", "plain_ms", "launches_per_call")}
+    print(json.dumps({"metric": "k7_sample_negatives", **out, "card": card}),
+          flush=True)
+    return out
+
+
 def tail_inputs(device, T, dtype, seed):
     """y and h like the attention output and the static stream, and the
     tail's params at full width (d = 64) with LayerNorms off 1/0."""
@@ -1254,16 +1381,43 @@ def profile_scoring(params, frozen, dims, samples) -> dict:
 
 
 # ----------------------------------------------------------------- training
+_rounds_run = [0]          # the sampler's phase-2 rounds since the zero
+_rounds_lock = threading.Lock()
+
+
+def count_rounds():
+    """Count every phase-2 round the sampler runs in this process, in any
+    thread, into ``_rounds_run``: wraps ``sampler/negative.py:_rounds``
+    (the loop both chains run; on the card each round is one K7 launch),
+    once per process."""
+    if getattr(tn._rounds, "counted", False):
+        return
+    real = tn._rounds
+
+    def rounds(*args, **kw):
+        for u in real(*args, **kw):
+            with _rounds_lock:
+                _rounds_run[0] += 1
+            yield u
+    rounds.counted = True
+    tn._rounds = rounds
+
+
 def launch_counts() -> dict:
+    """Each kernel's launches, and ``rounds``: the sampler's phase-2
+    rounds, since ``zero_launch_counts``."""
     return {"K1": hyperedge_attention.launches,
             "K2": hyperedge_attention_bwd_cuda.launches,
             "K3": ts.scatter_add.launches, "K4": ts.bincount.launches,
             "K5": tp.propose_phase1.launches,
             "K6_fwd": ft.fused_tail_fwd_cuda.launches,
-            "K6_bwd": ft.fused_tail_bwd_cuda.launches}
+            "K6_bwd": ft.fused_tail_bwd_cuda.launches,
+            "K7": sn.sample_negatives_cuda.launches,
+            "rounds": _rounds_run[0]}
 
 
 def zero_launch_counts():
+    count_rounds()
     hyperedge_attention.launches = 0
     hyperedge_attention_bwd_cuda.launches = 0
     ts.scatter_add.launches = 0
@@ -1271,21 +1425,33 @@ def zero_launch_counts():
     tp.propose_phase1.launches = 0
     ft.fused_tail_fwd_cuda.launches = 0
     ft.fused_tail_bwd_cuda.launches = 0
+    sn.sample_negatives_cuda.launches = 0
+    _rounds_run[0] = 0
 
 
-def step_counts(fused: bool, pallas: bool) -> dict:
+def step_counts(fused: bool, pallas: bool, filters: bool = True) -> dict:
     """One training step's launches: K1 and K2 once per k >= 3, K3 and K4
     once, K5 once per k with the "pallas" proposals against filters, K6
-    forward and backward once with the fused tail."""
+    forward and backward once with the fused tail, K7 once per k against
+    filters (stage 2) and once more per phase-2 round (``with_rounds``)."""
     n_attn = sum(1 for k in TRAIN_KS if k >= 3)
     return {"K1": n_attn, "K2": n_attn, "K3": 1, "K4": 1,
-            "K5": len(TRAIN_KS) if pallas else 0,
-            "K6_fwd": int(fused), "K6_bwd": int(fused)}
+            "K5": len(TRAIN_KS) if pallas and filters else 0,
+            "K6_fwd": int(fused), "K6_bwd": int(fused),
+            "K7": len(TRAIN_KS) if filters else 0}
 
 
-def check_counts(counts: dict, steps: int, what: str):
+def with_rounds(want: dict, got: dict) -> dict:
+    """``want`` (launches before the sampler's phase-2 rounds) plus the
+    rounds ``got`` counted, each one more K7 launch."""
+    return {**want, "K7": want["K7"] + got["rounds"],
+            "rounds": got["rounds"]}
+
+
+def check_counts(counts: dict, steps: int, what: str, filters: bool = True):
     """Phase 6's path: the unfused tail and the "xla" proposals."""
-    want = {k: v * steps for k, v in step_counts(False, False).items()}
+    want = with_rounds(scaled(step_counts(False, False, filters), steps),
+                       counts)
     print(f"{what}: launches {counts} (expected {want})", flush=True)
     if counts != want:
         fail(f"{what} launched {counts}, expected {want}")
@@ -1520,7 +1686,7 @@ def train_phase(genome, device, card) -> dict:
         fail("the stage-1 buckets do not fit the pin budget")
     zero_launch_counts()
     r1 = s1.train_epoch_indexed(b1)
-    check_counts(launch_counts(), 1, "stage-1 step")
+    check_counts(launch_counts(), 1, "stage-1 step", filters=False)
     print(f"stage-1 step: {json.dumps(r1)}", flush=True)
 
     # stage 2: warm-up epoch, then the timed epoch (the main path's run)
@@ -1539,6 +1705,15 @@ def train_phase(genome, device, card) -> dict:
     timed = trainer.train_epoch_indexed(b2)
     counts = launch_counts()
     check_counts(counts, TRAIN_STEPS, f"timed epoch of {TRAIN_STEPS} steps")
+    # the step units' own count of the rounds, and the epoch's K7 launches
+    epoch = trainer.last_epoch
+    unit_rounds = sum(u.counts.get("rounds", 0)
+                      for u in telemetry.units("step") if u.parent == epoch.id)
+    if unit_rounds != counts["rounds"] or \
+            epoch.counts.get("launches.K7") != counts["K7"]:
+        fail(f"the timed epoch's step units count {unit_rounds} rounds and "
+             f"{epoch.counts.get('launches.K7')} K7 launches, the sampler "
+             f"ran {counts['rounds']} rounds and K7 {counts['K7']} launches")
     for name, res in (("stage-1", r1), ("warm-up", warm), ("timed", timed)):
         if not (np.isfinite(res["bce"]) and np.isfinite(res["recon"])):
             fail(f"{name} epoch losses are not finite: {res}")
@@ -1689,12 +1864,19 @@ def added(a: dict, b: dict) -> dict:
     return {k: a[k] + b[k] for k in a}
 
 
-def eval_counts(with_filters: bool) -> dict:
+def eval_counts(pallas: bool, filters: bool = True) -> dict:
     """One eval batch's launches: K1 once (the padded forward, L = 5), K4
-    once (the recon loss's counts), K5 once per k against filters."""
+    once (the recon loss's counts), K5 once per k with the "pallas"
+    proposals against filters, K7 once per k against filters (and once
+    more per phase-2 round: ``with_rounds``)."""
     return {"K1": 1, "K2": 0, "K3": 0, "K4": 1,
-            "K5": len(TRAIN_KS) if with_filters else 0, "K6_fwd": 0,
-            "K6_bwd": 0}
+            "K5": len(TRAIN_KS) if pallas and filters else 0, "K6_fwd": 0,
+            "K6_bwd": 0, "K7": len(TRAIN_KS) if filters else 0}
+
+
+def counts_match(got: dict, want: dict) -> bool:
+    """``got`` is ``want`` plus one K7 launch per phase-2 round it ran."""
+    return got == with_rounds(want, got)
 
 
 def same(a: dict, b: dict, keys=("bce", "recon")) -> float:
@@ -1816,9 +1998,11 @@ def fit_phase(problem, genome, card) -> dict:
     t0 = time.perf_counter()
     h1 = s1.fit(buckets, test, epochs=1, log=log, **fit_kw)
     stage1_s = time.perf_counter() - t0
-    want1 = added(scaled(step_counts(True, False), TRAIN_STEPS),
-                  scaled(eval_counts(False), n_eval))
     got1 = launch_counts()
+    want1 = with_rounds(added(scaled(step_counts(True, False, False),
+                                     TRAIN_STEPS),
+                              scaled(eval_counts(False, False), n_eval)),
+                        got1)
     print(f"fit stage 1: launches {got1} (expected {want1})", flush=True)
     if got1 != want1:
         fail(f"fit stage 1 launched {got1}, expected {want1}")
@@ -1838,11 +2022,12 @@ def fit_phase(problem, genome, card) -> dict:
                                            tmp, overlap, log, **fit_kw)
         what = "overlapped" if overlap else "serial"
         for i, got in enumerate(run["epoch_counts"]):
+            want = with_rounds(want_epoch, got)
             print(f"fit stage 2 ({what}) epoch {i}: launches {got} "
-                  f"(expected {want_epoch})", flush=True)
-            if got != want_epoch:
+                  f"(expected {want})", flush=True)
+            if got != want:
                 fail(f"fit stage-2 ({what}) epoch {i} launched {got}, "
-                     f"expected {want_epoch}")
+                     f"expected {want}")
         hist = run["hist"]
         if len(hist) != FIT_EPOCHS or len(run["epoch_counts"]) != FIT_EPOCHS:
             fail(f"fit ({what}) ran {len(hist)} epochs, expected "
@@ -2189,7 +2374,8 @@ def small_model_phase(genome, device, card) -> dict:
     torch.cuda.synchronize()
     step = launch_counts()
     want = {k: 0 for k in step}
-    want.update(K3=1, K4=1)
+    want.update(K3=1, K4=1, K7=len(ks))
+    want = with_rounds(want, step)
     losses = [float(aux["bce"]), float(aux["recon"])]
     print(f"small model (dim {dim}, {n_head} heads, k = {list(ks)}): one "
           f"train_step launched {step} (expected {want}); bce, recon "
@@ -2228,10 +2414,10 @@ def small_model_phase(genome, device, card) -> dict:
     print(f"k = 7 sample_negatives with propose_impl='pallas': warned "
           f"{warned}; launches {k7}; {neg.shape[0]} sorted negatives "
           f"{valid}", flush=True)
-    if not warned or k7["K5"] or not valid \
+    if not warned or k7["K5"] or k7["K7"] or not valid \
             or neg.shape != (3 * len(wide), 7):
         fail("the k = 7 'pallas' sampler call did not warn, launched K5 or "
-             "gave invalid negatives")
+             "K7 or gave invalid negatives")
     out = {"metric": "shapes_the_kernels_do_not_take", "dim": dim,
            "n_head": n_head, "ks": list(ks), "step_launches": step,
            "predict_launches": serve, "k7_sampler_launches": k7,
@@ -2402,10 +2588,10 @@ def cli_kmers_and_train(cfg: str, tmp: str, temp: str, genome, out: dict,
         fail(f"run_train's embeddings: shape {emb.shape}, finite "
              f"{bool(np.isfinite(emb).all())}")
     launched = out["launches"]
-    if not all(launched[k] for k in ("K1", "K2", "K3", "K4")) or any(
+    if not all(launched[k] for k in ("K1", "K2", "K3", "K4", "K7")) or any(
             launched[k] for k in ("K5", "K6_fwd", "K6_bwd")):
-        fail(f"run_train launched {launched}: expected K1-K4, and no K5 "
-             f"or K6 on the shipped path")
+        fail(f"run_train launched {launched}: expected K1-K4 and K7, and "
+             f"no K5 or K6 on the shipped path")
 
 
 # ----------------------------------------------------- walk pretraining
@@ -2633,10 +2819,11 @@ def pretrain_phase(problem, genome, card, cfg: str,
     n_attn = sum(1 for k in TRAIN_KS if k >= 3)
     want_tm = {k: 0 for k in counts}
     want_tm.update(K1=n_attn * TRAIN_STEPS, K2=n_attn * TRAIN_STEPS,
-                   K3=TRAIN_STEPS)
+                   K3=TRAIN_STEPS, K7=len(TRAIN_KS) * TRAIN_STEPS)
     zero_launch_counts()
     res = tm.train_epoch_indexed(batcher)
     got_tm = launch_counts()
+    want_tm = with_rounds(want_tm, got_tm)
     print(f"table-mode stage-2 epoch: launches {got_tm} (expected "
           f"{want_tm}), train bce {res['bce']:.4f} recon {res['recon']}",
           flush=True)
@@ -2895,7 +3082,8 @@ def modes_phase(problem, genome, card) -> dict:
     trainer.train_step(batch)
     torch.cuda.synchronize()
     step = launch_counts()
-    want_step = {**none, "K1": n_attn, "K2": n_attn, "K4": len(TRAIN_KS)}
+    want_step = {**none, "K1": n_attn, "K2": n_attn, "K4": len(TRAIN_KS),
+                 "K7": len(TRAIN_KS)}
     test = random_buckets(genome, np.random.default_rng(SEED + 50),
                           TEST_PER_K)
     per_k = EVAL_SAMPLES // len(TRAIN_KS)
@@ -2903,6 +3091,7 @@ def modes_phase(problem, genome, card) -> dict:
     want_fit = {k: v * TRAIN_STEPS for k, v in want_step.items()}
     want_fit["K1"] += n_attn * n_eval
     want_fit["K4"] += len(TRAIN_KS) * n_eval
+    want_fit["K7"] += len(TRAIN_KS) * n_eval
     logs = []
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "model.chkpt")
@@ -2915,6 +3104,8 @@ def modes_phase(problem, genome, card) -> dict:
         fit_s = time.perf_counter() - t0
         fit = launch_counts()
         written = os.path.exists(ckpt)
+    want_step, want_fit = with_rounds(want_step, step), with_rounds(want_fit,
+                                                                    fit)
     ev = hist[0]["valid"]
     sel = ev["metrics"].get(max(TRAIN_KS), {}).get("auprc", float("nan"))
     out["regress"] = {
@@ -2948,7 +3139,9 @@ def modes_phase(problem, genome, card) -> dict:
     zero_launch_counts()
     timed = trainer.train_epoch_indexed(batcher)
     epoch = launch_counts()
-    want = {**none, "K1": n_attn * TRAIN_STEPS, "K2": n_attn * TRAIN_STEPS}
+    want = with_rounds({**none, "K1": n_attn * TRAIN_STEPS,
+                        "K2": n_attn * TRAIN_STEPS,
+                        "K7": len(TRAIN_KS) * TRAIN_STEPS}, epoch)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3004,7 +3197,7 @@ def modes_phase(problem, genome, card) -> dict:
     timed = trainer.train_epoch_indexed(batcher)
     epoch = launch_counts()
     set_recon_bf16(None)
-    want = {k: v * TRAIN_STEPS for k, v in step_counts(False, False).items()}
+    want = with_rounds(scaled(step_counts(False, False), TRAIN_STEPS), epoch)
     rel = abs(recon_on - recon_off) / abs(recon_off)
     out["recon_bf16"] = {
         "epoch_launches": epoch, "epoch_s": timed["elapsed"],
@@ -3560,9 +3753,10 @@ def mesh_phase(problem, genome, card, sizes=None,
                      for e in ("warm", "timed") for k in ("bce", "recon"))
         cell["params_equal_across_ranks"] = same_params
         print(f"mesh {n_data}x{n_model}: {json.dumps(cell)} (expected "
-              f"launches per rank {want_step}; grad tol {TOL_MESH_GRAD})",
+              f"launches per rank {want_step}, K7 once more per round; "
+              f"grad tol {TOL_MESH_GRAD})",
               flush=True)
-        if any(r["counts"] != want_step for r in ranks):
+        if not all(counts_match(r["counts"], want_step) for r in ranks):
             fail(f"a rank of the {n_data}x{n_model} mesh launched other "
                  "counts")
         if not worst <= TOL_MESH_GRAD or not cell["loss_f32_rel_err"] <= \
@@ -3632,9 +3826,10 @@ def tp_check(ranks, dp, n_data, n_model, names, want_step) -> dict:
            "blocks_equal_across_data_groups": blocks,
            "whole_params_equal_across_ranks": whole}
     print(f"mesh {n_data}x{n_model} tensor-parallel: {json.dumps(out)} "
-          f"(expected launches per rank {want_step}; grad tol "
+          f"(expected launches per rank {want_step}, K7 once more per "
+          f"round; grad tol "
           f"{TOL_MESH_GRAD})", flush=True)
-    if any(t["counts"] != want_step for t in tps):
+    if not all(counts_match(t["counts"], want_step) for t in tps):
         fail(f"a rank of the tensor-parallel {n_data}x{n_model} mesh "
              "launched other counts")
     if not worst <= TOL_MESH_GRAD or not loss_err <= TOL_MESH_GRAD:
@@ -3670,9 +3865,9 @@ def occ_check(ranks, ref, names, want_step) -> dict:
                             "hyperedges_per_sec")},
            "params_equal_across_ranks": same}
     print(f"mesh {OCC_MESH[0]}x{OCC_MESH[1]} per-occurrence: "
-          f"{json.dumps(out)} (expected launches per rank {want}; grad tol "
-          f"{TOL_MESH_GRAD})", flush=True)
-    if any(o["counts"] != want for o in occ):
+          f"{json.dumps(out)} (expected launches per rank {want}, K7 once "
+          f"more per round; grad tol {TOL_MESH_GRAD})", flush=True)
+    if not all(counts_match(o["counts"], want) for o in occ):
         fail("a rank of the per-occurrence mesh launched other counts")
     if not worst <= TOL_MESH_GRAD or not loss_err <= TOL_MESH_GRAD:
         fail("the per-occurrence mesh step differs from one rank with "
@@ -3697,7 +3892,7 @@ def mesh_fit_check(ranks) -> dict:
            "history": fits[0]["history"], "resumed": fits[0]["resumed"]}
     print(f"mesh 2x1 fit (fused tail, pallas, orbax): {json.dumps(out)}",
           flush=True)
-    if any(f["counts"] != want for f in fits):
+    if not all(counts_match(f["counts"], want) for f in fits):
         fail("a rank of the mesh's fit launched other counts")
     if any(len(f["history"]) != MESH_FIT_EPOCHS or len(f["resumed"]) != 1
            for f in fits):
@@ -3954,9 +4149,10 @@ def hundred_kb_phase(card, device=torch.device("cuda")) -> dict:
         saved = load_checkpoint(ckpt, device="cpu")
     del trainer.train_epoch_indexed_launch
     eval_batches = (len(TRAIN_KS) * TEST_PER_K_100KB) // TRAIN_BATCH
-    want = added(scaled(step_counts(False, False),
-                        FIT_EPOCHS_100KB * STEPS_100KB),
-                 scaled(eval_counts(False), FIT_EPOCHS_100KB * eval_batches))
+    want = with_rounds(added(
+        scaled(step_counts(False, False), FIT_EPOCHS_100KB * STEPS_100KB),
+        scaled(eval_counts(False), FIT_EPOCHS_100KB * eval_batches)),
+        fit_counts)
     print(f"100 kb fit launches {fit_counts} (expected {want})", flush=True)
     if fit_counts != want:
         fail(f"the 100 kb fit launched {fit_counts}, expected {want}")
@@ -4370,6 +4566,7 @@ def main():
     check_cooccurrence(device)
     check_bloom(device)
     check_propose(device, hg38_genome())
+    check_k7(device, hg38_genome())
     worst_tail = check_fused_tail(device)
     check_tail_masks(device)
 
@@ -4469,6 +4666,7 @@ def main():
     fit = fit_phase(train["problem"], genome, card)
     counts = fit["counts"]
     nk = time_new_kernels(device, card)
+    k7t = time_k7(device, card)
     step_ab(train["problem"], card)
 
     # 10. shapes the kernels do not take
@@ -4676,7 +4874,25 @@ def main():
          "ms": nk["K6_bwd"]["ms"], "device_ms": nk["K6_bwd"]["device_ms"],
          "plain_ms": nk["K6_bwd"]["plain_ms"],
          "bound_ms": nk["K6_bwd"]["bound_ms"],
-         "bound_by": nk["K6_bwd"]["bound_by"], "library_ms": None}]}),
+         "bound_by": nk["K6_bwd"]["bound_by"], "library_ms": None},
+        {"name": "sample_negatives", "route": "cuda",
+         "source": "matcha_tpu_torch/csrc/sample_negatives.cu",
+         "replaces": "none: the eager sampler chain "
+                     "(matcha_tpu_torch/sampler/negative.py:_sample_eager)",
+         "launches": counts["K7"], "launches_step_path": step_path["K7"],
+         "rounds_step_path": step_path["rounds"],
+         **mesh_launches("K7"), "max_abs_err": 0,
+         "ms": k7t[f"K7_b{TRAIN_BATCH}_k5"]["ms"],
+         "device_ms": k7t[f"K7_b{TRAIN_BATCH}_k5"]["device_ms"],
+         "bound_ms": k7t[f"K7_b{TRAIN_BATCH}_k5"]["bound_ms"],
+         "bound_by": "bytes",
+         "sampler_ms": k7t[f"K7_b{TRAIN_BATCH}_k5"]["sampler_ms"],
+         "plain_ms": k7t[f"K7_b{TRAIN_BATCH}_k5"]["plain_ms"],
+         "ms_note": "ms / device_ms: phase 1 alone on uniforms drawn "
+                    "before; sampler_ms against plain_ms: the whole "
+                    "per-size call, draws and rounds included, on K7 and "
+                    "on the eager chain",
+         "library_ms": None}]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,43 +22,19 @@
 // candidate to slot popc(mask & lanes below t) when that is < S, and lanes
 // s < S with s >= popc(mask) write the zero rows.  Every output is written
 // exactly once.  Rows past n and lanes past T take part in the ballot with
-// ok = false.  The result is a pure function of u: the multiply is __fmul_rn
-// (no FMA may fuse it into the add across the floor), so the kernel agrees
-// bit for bit with the plain PyTorch version.
+// ok = false.  A lane's proposal is proposal.cuh's (shared with K7): a pure
+// function of u, the multiply __fmul_rn (no FMA may fuse it into the add
+// across the floor), so the kernel agrees bit for bit with the plain PyTorch
+// version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "proposal.cuh"
+
 namespace {
 
 constexpr int NT = 256;  // threads per block
-
-__device__ __forceinline__ void cx(int& a, int& b) {
-  const int lo = min(a, b), hi = max(a, b);
-  a = lo;
-  b = hi;
-}
-
-// the compare-exchange pairs of matcha_tpu_torch/sampler/negative.py:_SORT_NETS
-template <int K>
-__device__ __forceinline__ void sort_net(int* c) {
-  if constexpr (K == 2) {
-    cx(c[0], c[1]);
-  } else if constexpr (K == 3) {
-    cx(c[0], c[2]); cx(c[0], c[1]); cx(c[1], c[2]);
-  } else if constexpr (K == 4) {
-    cx(c[0], c[2]); cx(c[1], c[3]); cx(c[0], c[1]); cx(c[2], c[3]);
-    cx(c[1], c[2]);
-  } else if constexpr (K == 5) {
-    cx(c[0], c[3]); cx(c[1], c[4]); cx(c[0], c[2]); cx(c[1], c[3]);
-    cx(c[0], c[1]); cx(c[2], c[4]); cx(c[1], c[2]); cx(c[3], c[4]);
-    cx(c[2], c[3]);
-  } else if constexpr (K == 6) {
-    cx(c[0], c[5]); cx(c[1], c[3]); cx(c[2], c[4]); cx(c[1], c[2]);
-    cx(c[3], c[4]); cx(c[0], c[3]); cx(c[2], c[5]); cx(c[0], c[1]);
-    cx(c[2], c[3]); cx(c[4], c[5]); cx(c[1], c[2]); cx(c[3], c[4]);
-  }
-}
 
 template <int K, int G>
 __global__ void __launch_bounds__(NT)
@@ -72,22 +48,20 @@ __global__ void __launch_bounds__(NT)
   bool ok = false;
   if (r < n && t < T) {
     const size_t row = (size_t)r * K;
-    const size_t ur = ((size_t)t * n + r) * K;
-    ok = true;
+    int o[K];
+    float l[K], h[K];
+    unsigned cm = 0;
 #pragma unroll
     for (int c = 0; c < K; ++c) {
+      o[c] = orig[row + c];
+      l[c] = h[c] = 0.0f;
       if (change[row + c]) {
-        const float l = lo[row + c];
-        const float w = __fsub_rn(hi[row + c], l);
-        const float f = fminf(floorf(__fmul_rn(w, u[ur + c])), __fsub_rn(w, 1.0f));
-        v[c] = (int)__fadd_rn(l, f);
-      } else {
-        v[c] = orig[row + c];
+        cm |= 1u << c;
+        l[c] = lo[row + c];
+        h[c] = hi[row + c];
       }
     }
-    sort_net<K>(v);
-#pragma unroll
-    for (int c = 0; c + 1 < K; ++c) ok = ok && (v[c + 1] - v[c] > min_distance);
+    ok = proposal::candidate<K>(o, cm, l, h, u + ((size_t)t * n + r) * K, min_distance, v);
   }
   // every lane of the warp reaches the ballot: no return above
   const unsigned ballot = __ballot_sync(0xffffffffu, ok);

@@ -20,12 +20,18 @@ Random draws come from explicit CPU ``torch.Generator``s (see
 ``models/modules.py``); the streams differ from jax.random's, so the port is
 held to the JAX package exactly where the uniforms are injected (phase 1)
 and by the same invariant and distribution tests elsewhere.
+
+On a CUDA tensor with k <= 6 the chain after the uniform draws is K7
+(``ops/sample_negatives.py``): one launch per size and one per phase-2
+round, from the same draws of the same generators, with the eager chain's
+negatives and counts bit for bit; the CPU and k > 6 run the eager chain.
 ``propose_impl="pallas"`` runs phase 1 through ``ops/propose.py`` (K5 on a
-CUDA tensor) on the same arrays and uniforms as the "xla" branch, so the
-two branches give the same negatives bit for bit.  (The JAX package's
-"pallas" branch draws its uniforms feature-major, (T, k, n): another draw
-from the same distribution.)  For k > 6, beyond K5's sorting networks, it
-warns and takes the "xla" branch, as the JAX package does.
+CUDA tensor, then K7's selection) on the same arrays and uniforms as the
+"xla" branch, so the two branches give the same negatives bit for bit.
+(The JAX package's "pallas" branch draws its uniforms feature-major, (T,
+k, n): another draw from the same distribution.)  For k > 6, beyond K5's
+sorting networks, it warns and takes the "xla" branch, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -170,42 +176,13 @@ def _chrom_range(orig, table: ChromTable, chrom_bounds):
     return bounds[c, 0].float(), bounds[c, 1].float()
 
 
-def sample_negatives_with_stats(
-        generator: Optional[torch.Generator], positives: torch.Tensor,
-        table: ChromTable, min_distance: int,
-        bloom: Optional[DeviceBloomFilter], *, neg_num: int = 3,
-        max_trials: int = 8, hard_ratio: float = 1.0, extra_rounds: int = 32,
-        max_probes: Optional[int] = None,
-        chrom_bounds: Optional[tuple] = None,
-        propose_impl: str = "xla") -> Tuple[torch.Tensor, dict]:
-    """Generate (B*neg_num, k) negatives for a (B, k) positive bucket.
-
-    hard_ratio: fraction of negatives corrupted chromosome-constrained at
-    the binomially chosen positions; the rest are wholly random hyperedges
-    over the full node range.
-
-    -> (negatives, stats): ``bloom_fallback`` counts rows that ended on a
-    structurally valid Bloom-hit candidate, ``orig_fallback`` rows that fell
-    back to the positive itself, ``rows`` the rows sampled (0-d int32
-    tensors on the positives' device)."""
-    if propose_impl not in ("xla", "pallas"):
-        raise ValueError(f"propose_impl must be 'xla' or 'pallas', "
-                         f"got {propose_impl!r}")
-    b, k = positives.shape
-    n = b * neg_num
-    dev = positives.device
-    orig = positives.to(torch.int32).repeat(neg_num, 1)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    rows = torch.full((), n, dtype=torch.int32, device=dev)
-    if bloom is None:
-        # stage 1: no rejection sets, negatives == positives
-        return orig, {"bloom_fallback": zero, "orig_fallback": zero,
-                      "rows": rows}
-    if generator is None:
-        raise ValueError("sampling negatives against a filter needs a "
-                         "generator")
-
-    g_mask, g_hard, g_trial, g_retry = split_generator(generator, 4)
+def _corruption(g_mask, g_hard, orig, table: ChromTable, hard_ratio: float,
+                chrom_bounds):
+    """The change mask (n, k) bool and the [lo, hi) ranges (n, k) f32 the
+    corrupted members are drawn in: the chromosome's, or the whole node
+    range for the rows the hard draw makes simple (all members corrupted)."""
+    n, k = orig.shape
+    dev = orig.device
     change = _sample_change_mask(g_mask, n, k, dev)
     lo, hi = _chrom_range(orig, table, chrom_bounds)
     if hard_ratio < 1.0:
@@ -214,14 +191,35 @@ def sample_negatives_with_stats(
         lo = torch.where(hard, lo, torch.ones((), device=dev))
         hi = torch.where(hard, hi, torch.full(
             (), float(table.node2chrom.shape[0]), device=dev))
+    return change, lo, hi
 
-    T = max(1, min(int(max_trials), 16))
-    S = T if max_probes is None else max(1, min(int(max_probes), T))
-    if propose_impl == "pallas" and k not in _SORT_NETS:
-        # as the JAX package does: K5's sorting networks stop at k = 6
-        warnings.warn(f"propose_impl='pallas' fell back to XLA (K5 takes "
-                      f"k <= 6, got k={k})", stacklevel=2)
-        propose_impl = "xla"
+
+def _rounds(g_retry, extra_rounds: int, left, n: int, k: int, device):
+    """The phase-2 rounds: while ``left()`` (the host's test, the sync
+    ``round``) says rows are left, at most ``extra_rounds`` times, each
+    round's (n, k) uniforms from its own child of ``g_retry``."""
+    for _ in range(max(int(extra_rounds), 0)):
+        with telemetry.sync("round"):
+            go = left()
+        if not go:
+            return
+        telemetry.count("rounds")
+        g_retry, g_round = split_generator(g_retry, 2)
+        yield rand(g_round, (n, k), device)
+
+
+def _sample_eager(generator, positives, table: ChromTable, min_distance: int,
+                  bloom: DeviceBloomFilter, neg_num: int, T: int, S: int,
+                  hard_ratio: float, extra_rounds: int, chrom_bounds,
+                  propose_impl: str):
+    """The sampler's chain in eager PyTorch (every device, any k): the
+    plain version of K7 (``ops/sample_negatives.py``)."""
+    n, k = positives.shape[0] * neg_num, positives.shape[1]
+    dev = positives.device
+    orig = positives.to(torch.int32).repeat(neg_num, 1)
+    g_mask, g_hard, g_trial, g_retry = split_generator(generator, 4)
+    change, lo, hi = _corruption(g_mask, g_hard, orig, table, hard_ratio,
+                                 chrom_bounds)
     if propose_impl == "pallas":
         from matcha_tpu_torch.ops.propose import propose_phase1 as phase1
     else:
@@ -233,16 +231,9 @@ def sample_negatives_with_stats(
     chosen, found = _first_accepted(probe, acc_stage)
     cur_ok = stage_has[0]        # a structurally valid trial exists
 
-    for _ in range(max(int(extra_rounds), 0)):
-        with telemetry.sync("round"):
-            left = bool((~found).any())
-        if not left:
-            break
-        telemetry.count("rounds")
-        g_retry, g_round = split_generator(g_retry, 2)
-        t = sort_small(torch.where(change, _draw(lo, hi, rand(g_round,
-                                                              (n, k), dev)),
-                                   orig))
+    for u in _rounds(g_retry, extra_rounds, lambda: bool((~found).any()),
+                     n, k, dev):
+        t = sort_small(torch.where(change, _draw(lo, hi, u), orig))
         ok_r = ((t[:, 1:] - t[:, :-1]) > min_distance).all(dim=-1)
         take = ~found & ok_r & ~bloom.contains(t)
         # a row with no valid candidate yet keeps its first valid one (even
@@ -257,9 +248,117 @@ def sample_negatives_with_stats(
     stats = {
         "bloom_fallback": (~found & cur_ok).sum().to(torch.int32),
         "orig_fallback": use_orig.sum().to(torch.int32),
-        "rows": rows,
+        "rows": torch.full((), n, dtype=torch.int32, device=dev),
     }
     return neg, stats
+
+
+@lru_cache(maxsize=16)
+def _bounds_on(chrom_bounds: tuple, device):
+    """``chrom_bounds`` as (starts, ends), two (C,) int32 tensors on
+    ``device``, made once per bounds and device."""
+    table = torch.tensor(np.asarray(chrom_bounds, np.int32).T.copy(),
+                         device=device)
+    return table[0], table[1]
+
+
+def _sample_k7(generator, positives, table: ChromTable, min_distance: int,
+               bloom: DeviceBloomFilter, neg_num: int, T: int, S: int,
+               hard_ratio: float, extra_rounds: int, chrom_bounds,
+               propose_impl: str):
+    """The sampler's chain on the card through K7: the same draws from the
+    same generators as ``_sample_eager``, the chain after them one launch
+    (phase 1; with "pallas" K5 then K7's selection) and one per phase-2
+    round; the same negatives and counts bit for bit."""
+    from matcha_tpu_torch.ops import sample_negatives as k7
+    n, k = positives.shape[0] * neg_num, positives.shape[1]
+    dev = positives.device
+    pos = positives.to(torch.int32).contiguous()
+    g_mask, g_hard, g_trial, g_retry = split_generator(generator, 4)
+    if propose_impl == "pallas":
+        from matcha_tpu_torch.ops.propose import propose_phase1
+        orig = pos.repeat(neg_num, 1)
+        change, lo, hi = (t.contiguous() for t in _corruption(
+            g_mask, g_hard, orig, table, hard_ratio, chrom_bounds))
+        probe, has = propose_phase1(orig, change, lo, hi,
+                                    rand(g_trial, (T, n, k), dev),
+                                    min_distance=min_distance, max_probes=S)
+        state = k7.select_cuda(pos, neg_num, change, lo, hi, probe, has,
+                               bloom=bloom)
+    else:
+        if chrom_bounds is None:
+            starts, ends = table.chrom_start, table.chrom_end
+            node2chrom = table.node2chrom
+        else:
+            starts, ends = _bounds_on(chrom_bounds, dev)
+            node2chrom = None
+        gc, gp = split_generator(g_mask, 2)
+        state = k7.sample_negatives_cuda(
+            pos, neg_num, rand(gc, (n,), dev), rand(gp, (n, k), dev),
+            rand(g_hard, (n, 1), dev) if hard_ratio < 1.0 else None,
+            rand(g_trial, (T, n, k), dev), starts=starts, ends=ends,
+            node2chrom=node2chrom, n_nodes=table.node2chrom.shape[0],
+            hard_ratio=hard_ratio, bloom=bloom, min_distance=min_distance,
+            max_probes=S)
+    for u in _rounds(g_retry, extra_rounds, lambda: int(state.counts[0]) > 0,
+                     n, k, dev):
+        k7.round_cuda(state, pos, neg_num, u, bloom=bloom,
+                      min_distance=min_distance)
+    return state.neg, {"bloom_fallback": state.counts[1],
+                       "orig_fallback": state.counts[2],
+                       "rows": state.counts[3]}
+
+
+def sample_negatives_with_stats(
+        generator: Optional[torch.Generator], positives: torch.Tensor,
+        table: ChromTable, min_distance: int,
+        bloom: Optional[DeviceBloomFilter], *, neg_num: int = 3,
+        max_trials: int = 8, hard_ratio: float = 1.0, extra_rounds: int = 32,
+        max_probes: Optional[int] = None,
+        chrom_bounds: Optional[tuple] = None,
+        propose_impl: str = "xla") -> Tuple[torch.Tensor, dict]:
+    """Generate (B*neg_num, k) negatives for a (B, k) positive bucket.
+
+    hard_ratio: fraction of negatives corrupted chromosome-constrained at
+    the binomially chosen positions; the rest are wholly random hyperedges
+    over the full node range.
+
+    On a CUDA tensor with k <= 6 the chain after the uniform draws runs as
+    K7 (``_sample_k7``), else eagerly (``_sample_eager``): the same
+    negatives and counts from the same generator.
+
+    -> (negatives, stats): ``bloom_fallback`` counts rows that ended on a
+    structurally valid Bloom-hit candidate, ``orig_fallback`` rows that fell
+    back to the positive itself, ``rows`` the rows sampled (0-d int32
+    tensors on the positives' device)."""
+    if propose_impl not in ("xla", "pallas"):
+        raise ValueError(f"propose_impl must be 'xla' or 'pallas', "
+                         f"got {propose_impl!r}")
+    b, k = positives.shape
+    n = b * neg_num
+    dev = positives.device
+    if bloom is None:
+        # stage 1: no rejection sets, negatives == positives
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return positives.to(torch.int32).repeat(neg_num, 1), {
+            "bloom_fallback": zero, "orig_fallback": zero,
+            "rows": torch.full((), n, dtype=torch.int32, device=dev)}
+    if generator is None:
+        raise ValueError("sampling negatives against a filter needs a "
+                         "generator")
+
+    T = max(1, min(int(max_trials), 16))
+    S = T if max_probes is None else max(1, min(int(max_probes), T))
+    if propose_impl == "pallas" and k not in _SORT_NETS:
+        # as the JAX package does: K5's sorting networks stop at k = 6
+        warnings.warn(f"propose_impl='pallas' fell back to XLA (K5 takes "
+                      f"k <= 6, got k={k})", stacklevel=2)
+        propose_impl = "xla"
+    # K7 takes what the sorting networks cover, and T <= 16 always
+    chain = (_sample_k7 if dev.type == "cuda" and k in _SORT_NETS
+             else _sample_eager)
+    return chain(generator, positives, table, min_distance, bloom, neg_num,
+                 T, S, hard_ratio, extra_rounds, chrom_bounds, propose_impl)
 
 
 def sample_negatives(generator, positives, table, min_distance, bloom,

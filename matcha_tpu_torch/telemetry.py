@@ -218,13 +218,15 @@ def kernel_launches() -> Dict[str, int]:
     from matcha_tpu_torch.ops import fused_tail as ft
     from matcha_tpu_torch.ops import hyperedge_attention as ha
     from matcha_tpu_torch.ops import propose as pp
+    from matcha_tpu_torch.ops import sample_negatives as sn
     from matcha_tpu_torch.ops import table_scatter as ts
     return {"K1": ha.hyperedge_attention.launches,
             "K2": ha.hyperedge_attention_bwd_cuda.launches,
             "K3": ts.scatter_add.launches, "K4": ts.bincount.launches,
             "K5": pp.propose_phase1.launches,
             "K6_fwd": ft.fused_tail_fwd_cuda.launches,
-            "K6_bwd": ft.fused_tail_bwd_cuda.launches}
+            "K6_bwd": ft.fused_tail_bwd_cuda.launches,
+            "K7": sn.sample_negatives_cuda.launches}
 
 
 def epoch_split(epoch: Unit) -> Dict:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 (attention forward), K2 (its backward), K3 (scatter-add), K4 (bincount),
-K5 (phase-1 proposals) and K6 (the fused classifier tail, forward and
-backward).
+K5 (phase-1 proposals), K6 (the fused classifier tail, forward and
+backward) and K7 (the sampler's chain, against the eager chain bit for
+bit).
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -29,6 +30,7 @@ against one rank.
 """
 
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -388,6 +390,184 @@ def test_k5_is_one_launch_and_one_allocation(cuda):
     with pytest.raises(ValueError, match=r"True\), torch.int32 \(6144, 5\)"):
         tp.propose_phase1(args[0], args[1].to(torch.int32), *args[2:],
                           min_distance=0, max_probes=2)
+
+
+# ------------------------------------------------ K7: the sampler's chain
+def _k7_problem(device, k, b, seed=0, dense=False, blocked=True):
+    """b distinct sorted positives of size k on three chromosomes of 60, 40
+    and 30 nodes, their chromosome table and host bounds, and a Bloom
+    filter: of the positives (sparse), or of 20,000 random rows at
+    capacity 10 (dense: every bit set, every candidate a hit); blocked or
+    classic."""
+    from matcha_tpu_torch.genome import GenomeBins
+    from matcha_tpu_torch.sampler import negative as tn
+    from matcha_tpu_torch.sampler.bloom import build_bloom
+    genome = GenomeBins(["chr1", "chr2", "chr3"],
+                        [60_000_000, 40_000_000, 30_000_000], 1_000_000)
+    rng = np.random.default_rng(seed)
+    N = genome.num_nodes
+    pos = np.sort(rng.integers(1, N + 1, (4 * b, k)), axis=1)
+    pos = pos[(np.diff(pos, axis=1) > 0).all(axis=1)][:b].astype(np.int32)
+    rows = np.sort(rng.integers(1, N + 1, (20_000, k)), axis=1) if dense \
+        else pos
+    bloom = build_bloom(rows, capacity=10 if dense else None,
+                        error_rate=1e-3 if blocked else 1e-4, device=device)
+    assert bloom.blocked == blocked
+    return (torch.tensor(pos, device=device),
+            tn.ChromTable.from_genome(genome, device=device),
+            tuple((int(s), int(e)) for s, e in genome.chrom_range), bloom)
+
+
+def _sampled(seed, *args, eager=False, **kw):
+    """sample_negatives_with_stats from a generator seeded ``seed``, on K7
+    or (eager=True) on the eager chain -> (negatives, counts, K7 launches,
+    K5 launches, phase-2 rounds)."""
+    from matcha_tpu_torch import telemetry
+    from matcha_tpu_torch.ops import sample_negatives as sn
+    from matcha_tpu_torch.sampler import negative as tn
+    before = (sn.sample_negatives_cuda.launches, tp.propose_phase1.launches)
+    with pytest.MonkeyPatch.context() as mp, telemetry.unit("step") as u:
+        if eager:
+            mp.setattr(tn, "_sample_k7", tn._sample_eager)
+        neg, st = tn.sample_negatives_with_stats(
+            torch.Generator().manual_seed(seed), *args, **kw)
+        torch.cuda.synchronize()
+    return (neg, [int(v) for v in st.values()],
+            sn.sample_negatives_cuda.launches - before[0],
+            tp.propose_phase1.launches - before[1], u.counts.get("rounds", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("T,S", [(1, 1), (8, 2), (8, 4), (16, 8)])
+def test_k7_equals_the_eager_chain_bit_for_bit(cuda, k, T, S):
+    """K7 against the eager chain from one generator: the same negatives
+    and counts, over blocked and classic filters, hard_ratio 1 and 0.5,
+    min_distance 0 and 2, the Trainer's host bounds and the node2chrom
+    gather, n = 6,144 and a ragged 2,049 (a multiple of no block); one K7
+    launch plus one per phase-2 round, none on the eager side."""
+    for blocked in (True, False):
+        for b in (2048, 683):
+            pos, table, bounds, bloom = _k7_problem(cuda, k, b, seed=k * T + b,
+                                                    blocked=blocked)
+            for hard in (1.0, 0.5):
+                for md in (0, 2):
+                    for cb in (bounds, None):
+                        args = (pos, table, md, bloom)
+                        kw = dict(max_trials=T, max_probes=S, hard_ratio=hard,
+                                  chrom_bounds=cb)
+                        seed = 1000 * k + 10 * T + S + md
+                        neg, st, n7, _, rounds = _sampled(seed, *args, **kw)
+                        ref, rst, e7, _, _ = _sampled(seed, *args, eager=True,
+                                                      **kw)
+                        what = (blocked, b, hard, md, cb is None)
+                        assert torch.equal(neg, ref), what
+                        assert st == rst and st[2] == 3 * b, what
+                        assert n7 == 1 + rounds and e7 == 0, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [True, False])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("k", [3, 4])
+def test_k7_dense_filter_runs_every_round_and_both_fallbacks(cuda, k, impl,
+                                                             blocked):
+    """A filter that holds every candidate: no row is ever accepted, so all
+    32 phase-2 rounds run (33 K7 launches); min_distance 12 leaves many
+    rows no valid candidate (chr3's 30 nodes hold no valid row of 4), so
+    rows fall back to their positive as well as to a Bloom hit; the eager
+    chain agrees on all of it."""
+    pos, table, bounds, bloom = _k7_problem(cuda, k, 683, seed=7, dense=True,
+                                            blocked=blocked)
+    args = (pos, table, 12, bloom)
+    kw = dict(max_probes=2, chrom_bounds=bounds, propose_impl=impl)
+    neg, st, n7, n5, rounds = _sampled(3, *args, **kw)
+    ref, rst, _, _, ref_rounds = _sampled(3, *args, eager=True, **kw)
+    assert torch.equal(neg, ref) and st == rst
+    assert rounds == ref_rounds == 32 and n7 == 33
+    assert n5 == (impl == "pallas")
+    assert st[0] > 0 and st[1] > 0 and st[0] + st[1] == 3 * 683
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hard_ratio", [1.0, 0.6])
+@pytest.mark.parametrize("dense", [False, True])
+def test_k7_pallas_route_equals_xla(cuda, hard_ratio, dense):
+    """propose_impl="pallas" on the card is K5 and then K7's selection: the
+    same negatives and counts as "xla" (K7's phase 1) and the eager chain,
+    at every k K5 takes."""
+    for k in range(2, 7):
+        pos, table, bounds, bloom = _k7_problem(cuda, k, 2048, seed=k,
+                                                dense=dense)
+        args = (pos, table, 0, bloom)
+        kw = dict(max_probes=4 if k == 2 else 2, hard_ratio=hard_ratio,
+                  chrom_bounds=bounds, extra_rounds=4)
+        got = {impl: _sampled(k, *args, propose_impl=impl, **kw)
+               for impl in ("xla", "pallas")}
+        ref = _sampled(k, *args, eager=True, propose_impl="xla", **kw)
+        for impl, (neg, st, n7, n5, rounds) in got.items():
+            assert torch.equal(neg, ref[0]) and st == ref[1], (k, impl)
+            assert n7 == 1 + rounds and n5 == (impl == "pallas"), (k, impl)
+
+
+@pytest.mark.cuda
+def test_k7_takes_no_k_above_6(cuda):
+    """k = 7 is past the sorting networks: the eager chain runs and no K7
+    (nor K5, with a warning for "pallas") is launched."""
+    pos, table, bounds, bloom = _k7_problem(cuda, 7, 300)
+    for impl in ("xla", "pallas"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            neg, st, n7, n5, _ = _sampled(4, pos, table, 0, bloom,
+                                          chrom_bounds=bounds,
+                                          propose_impl=impl)
+        assert n7 == 0 and n5 == 0 and neg.shape == (900, 7)
+        assert bool((neg[:, 1:] > neg[:, :-1]).all())
+
+
+@pytest.mark.cuda
+def test_k7_step_and_device_epoch_equal_the_eager_sampler(cuda, monkeypatch):
+    """A training step and a device-resident epoch at dim 64 / 8 heads in
+    bf16 give the same losses and parameters, bit for bit, whether the
+    sampler runs on K7 or on the eager chain; the K7 side records
+    ``launches.K7`` in its epoch, one per size and step plus the rounds."""
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.ops import sample_negatives as sn
+    from matcha_tpu_torch.sampler import negative as tn
+    from matcha_tpu_torch.train import runtime as tr
+    monkeypatch.setattr(th, "_FUSE_TAIL", False)
+    _, dims, params, frozen, blooms, table, buckets = _small_problem(
+        cuda, ks=(2, 3, 4), dim=64, n_head=8)
+    dims = dims._replace(compute_dtype="bfloat16")
+    settings = tr.TrainSettings(alpha=1.0, beta=0.001, token_stream="merged")
+    batch = {k: (torch.tensor(e[:128], device=cuda),
+                 torch.ones(128, device=cuda)) for k, e in buckets.items()}
+    train = {k: (e[:50], np.ones(50, np.float32))
+             for k, e in buckets.items()}
+    out = {}
+    for eager in (False, True):
+        with pytest.MonkeyPatch.context() as mp:
+            if eager:
+                mp.setattr(tn, "_sample_k7", tn._sample_eager)
+            t = tr.Trainer(params, frozen, dims, table, settings,
+                           blooms=blooms, seed=5)
+            before = sn.sample_negatives_cuda.launches
+            aux = t.train_step(batch)
+            step_launches = sn.sample_negatives_cuda.launches - before
+            t.prepare_device_epochs(train, 32, 3)
+            got = t.train_epoch_device()
+            out[eager] = (aux, step_launches, got, t)
+    (aux, n7, got, a), (aux_e, e7, got_e, b) = out[False], out[True]
+    assert n7 >= 3 and e7 == 0
+    assert a.last_epoch.counts["launches.K7"] >= 9
+    assert b.last_epoch.counts["launches.K7"] == 0
+    for key in aux:
+        assert torch.equal(aux[key], aux_e[key]), key
+    for key in ("bce", "recon", "fallback_bloom_rate", "fallback_orig_rate",
+                "metrics"):
+        assert got[key] == got_e[key], key
+    for x, y in zip(tr._leaves(a.params), tr._leaves(b.params)):
+        assert torch.equal(x, y)
 
 
 def _tail_inputs(device, T, dtype, seed=0):
