@@ -105,6 +105,11 @@ class FrozenTables(NamedTuple):
 
 _FUSE_TAIL: Optional[bool] = None
 _RECON_BF16: Optional[bool] = None
+# the float32 bytes of one intermediate of the recon loss: a rank's node rows
+# are decoded in blocks of rows under it (hg38 at 10 kb on a model axis of
+# 4: 75,785 rows, 8 blocks at chr1's 24,897 columns; 1 Mb and 100 kb: one
+# block)
+RECON_BLOCK_BYTES = 1 << 30
 
 
 def _recon_decode_bf16() -> bool:
@@ -513,13 +518,86 @@ def _padded_recon_parts(params, frozen, r: int):
             ar < widths[r], widths[r])
 
 
+def _round(t: torch.Tensor) -> torch.Tensor:
+    """A recon decode operand as the one-block path takes it: rounded to
+    bf16 under ``MATCHA_RECON_BF16``, else as it is; autograd hands an
+    operand's gradient back through the same rounding."""
+    return t.to(torch.bfloat16).float() if _recon_decode_bf16() else t
+
+
+def _rows_and_one(t: torch.Tensor) -> torch.Tensor:
+    """[round(t), 1]: the decode's left operand with the bias's column."""
+    return torch.cat([_round(t), torch.ones((t.shape[0], 1),
+                                            device=t.device)], dim=1)
+
+
+def _block_diff(inter_z, start: int, lo: int, hi: int, a1, wb):
+    """target - decode of this rank's node rows [lo, hi): chromosome r's
+    columns of inter_z from ``start`` in f32, less a1 @ wb (the decode and
+    its bias in one product) -> (hi - lo, F) f32."""
+    diff = inter_z[lo:hi, start:start + wb.shape[1]].to(torch.float32,
+                                                        copy=True)
+    return diff.addmm_(a1, wb, alpha=-1.0)
+
+
+class _ReconBlocks(torch.autograd.Function):
+    """sum_i w_n[i] * mean over chromosome r's F columns of (target_i -
+    tanh(h_i) @ w - b)^2 over a rank's node rows h (R, d), in blocks of
+    ``step`` rows, so that no float32 intermediate exceeds
+    ``RECON_BLOCK_BYTES``: the columns are r's own (the one-block path
+    decodes f_max padded columns and masks the rest), the bias rides in
+    the product as a row of ones, and no pass over a block is spent on a
+    mask or a scale.  Saves h, the decoder and the weights only; the
+    backward decodes each block again (the telemetry span
+    ``recon_backward``)."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, w_n, inter_z, start: int, step: int):
+        ctx.save_for_backward(h, w, b, w_n)
+        ctx.inter_z, ctx.start, ctx.step = inter_z, start, step
+        wb = torch.cat([_round(w), b[None, :]])                  # (d + 1, F)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lo in range(0, h.shape[0], step):
+            hi = min(lo + step, h.shape[0])
+            diff = _block_diff(inter_z, start, lo, hi, _rows_and_one(
+                torch.tanh(h[lo:hi].float())), wb)
+            total += torch.einsum("ij,ij->i", diff, diff) @ w_n[lo:hi]
+        return total / w.shape[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, b, w_n = ctx.saved_tensors
+        with telemetry.span("recon_backward"):
+            d = w.shape[0]
+            wb = torch.cat([_round(w), b[None, :]])
+            dwb = torch.zeros(wb.shape, dtype=torch.float32, device=w.device)
+            dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+            for lo in range(0, h.shape[0], ctx.step):
+                hi = min(lo + ctx.step, h.shape[0])
+                t = torch.tanh(h[lo:hi].float())
+                a1 = _rows_and_one(t)
+                diff = _block_diff(ctx.inter_z, ctx.start, lo, hi, a1, wb)
+                # the decode's cotangent is diff scaled per row by s: the
+                # scale goes onto the (rows, d + 1) operands instead
+                s = (w_n[lo:hi] * (g * (-2.0 / w.shape[1])))[:, None]
+                dwb.addmm_((a1 * s).t(), diff)
+                dh[lo:hi] = _round((diff @ wb[:d].t()) * s) * (1.0 - t * t)
+        return (dh.to(h.dtype), _round(dwb[:d]).to(w.dtype),
+                dwb[d].to(b.dtype), None, None, None, None)
+
+
 def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
                     x_flat: torch.Tensor, node_table: torch.Tensor,
                     r: int) -> torch.Tensor:
     """Per-node form of ``recon_loss_with_chrom`` (equal up to f32 summation
     order): every token of a node shares its embedding row, so the
     token-mean MSE is the node MSE weighted by the node's token count (K4
-    on a CUDA tensor).  Decodes N node rows instead of T token rows.
+    on a CUDA tensor).  Decodes N node rows instead of T token rows.  Where
+    the rank's rows times the widest chromosome exceed
+    ``RECON_BLOCK_BYTES`` of float32, they are decoded in blocks of rows
+    (``_ReconBlocks``, the backward decoding each block again); where they
+    fit, the one block runs as plain autograd ops.  The telemetry count
+    ``recon_blocks``.
 
     Under a mesh x_flat is this rank's token block: the counts are summed
     over the ranks (``bincount_sharded``).  With a model axis, inter_z
@@ -543,33 +621,44 @@ def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
         lo = min(mesh.model_index * n_z, R)
         hi = min(lo + n_z, R)
 
-    w_r, b_r, cols, col_ok, width_r = _padded_recon_parts(params, frozen, r)
-    widths = [f.shape[1] for f in frozen.features]
-    f_max = int(max(widths))
-    if frozen.inter_z.shape[1] >= sum(widths) + f_max:
-        # inter_z carries >= f_max zero pad columns (the Trainer adds them):
-        # the target is a contiguous slice; the pad columns are masked
-        start = int(sum(widths[:r]))
-        target = frozen.inter_z[:hi - lo, start:start + f_max].float()
+    widths = [int(f.shape[1]) for f in frozen.features]
+    f_max = max(widths)
+    start = sum(widths[:r])
+    if (hi - lo) * f_max * 4 > RECON_BLOCK_BYTES:
+        step = max(1, RECON_BLOCK_BYTES // (4 * widths[r]))
+        telemetry.count("recon_blocks", -(-(hi - lo) // step))
+        dec = params["embed"]["recon"][r]
+        total = _ReconBlocks.apply(node_table[lo:hi], dec["w"], dec["b"],
+                                   w_n[lo:hi], frozen.inter_z, start, step)
     else:
-        target = frozen.inter_z[:hi - lo][:, cols].float()       # (R, F)
-    h_dec = torch.tanh(node_table[lo:hi].float())
-    if _recon_decode_bf16():
-        # bf16 operands, f32 accumulation and an unrounded f32 result, as
-        # the JAX package's preferred_element_type=float32: a bf16 x bf16
-        # matmul in torch rounds its result to bf16, so the operands are
-        # rounded to bf16 and multiplied as f32, where each product of two
-        # bf16 values is exact (8 + 8 significant bits <= 24; TF32, where
-        # it is on, leaves bf16 values as they are)
-        recon = (h_dec.to(torch.bfloat16).float()
-                 @ w_r.to(torch.bfloat16).float() + b_r)         # (R, F)
-    else:
-        recon = h_dec @ w_r + b_r                                # (R, F)
-    sq = torch.where(col_ok[None, :], (target - recon) ** 2,
-                     torch.zeros((), device=recon.device))
-    per_node = sq.sum(dim=-1) / width_r
-    loss = torch.where(denom > 0,
-                       (per_node * w_n[lo:hi]).sum() / denom.clamp_min(1.0),
+        telemetry.count("recon_blocks", 1)
+        w_r, b_r, cols, col_ok, width_r = _padded_recon_parts(params, frozen,
+                                                              r)
+        if frozen.inter_z.shape[1] >= sum(widths) + f_max:
+            # inter_z carries >= f_max zero pad columns (the Trainer adds
+            # them to whole tables): the target is a contiguous slice; the
+            # pad columns are masked
+            target = frozen.inter_z[:hi - lo, start:start + f_max].float()
+        else:
+            target = frozen.inter_z[:hi - lo][:, cols].float()   # (R, F)
+        h_dec = torch.tanh(node_table[lo:hi].float())
+        if _recon_decode_bf16():
+            # bf16 operands, f32 accumulation and an unrounded f32 result,
+            # as the JAX package's preferred_element_type=float32: a bf16 x
+            # bf16 matmul in torch rounds its result to bf16, so the
+            # operands are rounded to bf16 and multiplied as f32, where
+            # each product of two bf16 values is exact (8 + 8 significant
+            # bits <= 24; TF32, where it is on, leaves bf16 values as they
+            # are)
+            recon = (h_dec.to(torch.bfloat16).float()
+                     @ w_r.to(torch.bfloat16).float() + b_r)     # (R, F)
+        else:
+            recon = h_dec @ w_r + b_r                            # (R, F)
+        sq = torch.where(col_ok[None, :], (target - recon) ** 2,
+                         torch.zeros((), device=recon.device))
+        per_node = sq.sum(dim=-1) / width_r
+        total = (per_node * w_n[lo:hi]).sum()
+    loss = torch.where(denom > 0, total / denom.clamp_min(1.0),
                        torch.zeros((), device=denom.device))
     if sharded:
         loss = all_gather_rows(loss.reshape(1), mesh.model_group).sum()
@@ -635,16 +724,18 @@ def _recon(params, frozen, dims, x_flat, node_table, occ, g_rec, r):
     """A forward's recon loss: per node from the table, or, with the
     per-occurrence embedding (``_Occurrences``), per token from it (the
     reference's placement, ref Code/Modules.py:192-199); under a model axis
-    the data row's tokens' embeddings are gathered over the model group."""
-    if occ is None:
-        return recon_loss_fn(params, frozen, dims, x_flat, node_table,
-                             g_rec, r)
-    emb = occ.emb
-    if occ.sizes is not None:
-        emb = all_gather_blocks(emb, occ.sizes,
-                                active_data_mesh().model_group)
-    return recon_loss_with_chrom(params, frozen, dims, occ.tokens, emb,
-                                 _recon_chrom(dims, g_rec, r))
+    the data row's tokens' embeddings are gathered over the model group.
+    The telemetry span ``recon``."""
+    with telemetry.span("recon"):
+        if occ is None:
+            return recon_loss_fn(params, frozen, dims, x_flat, node_table,
+                                 g_rec, r)
+        emb = occ.emb
+        if occ.sizes is not None:
+            emb = all_gather_blocks(emb, occ.sizes,
+                                    active_data_mesh().model_group)
+        return recon_loss_with_chrom(params, frozen, dims, occ.tokens, emb,
+                                     _recon_chrom(dims, g_rec, r))
 
 
 def forward(params: Dict, frozen: FrozenTables, dims: ModelDims,

@@ -49,10 +49,25 @@ scopes its mesh to each of its calls with ``using_active_mesh``, so a
 second Trainer (or none) never changes what another runs.  A 1 x 1 mesh is
 no mesh.
 
+Tables already cut.  A caller that cannot hold a whole table (hg38 at 10
+kb: a 198.9 GB bfloat16 ``inter_z``) builds only its rank's block of rows,
+the rows ``frozen_row_blocks`` names, and hands the Trainer those blocks
+(``holds_rank_blocks`` tells them from whole tables); the rows are those
+``shard_frozen`` would have kept.
+
 Collectives on gloo.  Where a group's backend is gloo and the tensor lies
 on a card (several ranks sharing one card, where NCCL refuses two ranks on
 one device), a collective copies that tensor through host memory and warns
 once per collective that it does so.
+
+Tracing.  Each collective is a ``telemetry`` span ``collective.<op>``
+(``all_gather``, ``reduce_scatter``, ``all_reduce``) with the counts
+``collective.<op>`` (calls) and ``collective_bytes.<op>`` (the bytes of the
+collective's whole buffer on this rank: an all-gather's output, a
+reduce-scatter's input, an all-reduce's tensor).  A collective that
+autograd will run in the backward, on its own thread where no unit is open,
+is counted when the forward records it, from the shapes; its span opens in
+the backward without counts.
 """
 
 from __future__ import annotations
@@ -63,6 +78,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from matcha_tpu_torch import telemetry
 
 
 class Mesh:
@@ -129,15 +146,25 @@ def _staged(t: torch.Tensor, group, name: str) -> bool:
     return True
 
 
+def _nccl(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and "nccl" in str(dist.get_backend(group))
+
+
 def _group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """In-place SUM of ``t`` over ``group`` (no autograd); a no-op without
-    a group."""
-    if group is None:
-        return t
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _counted(op: str, nbytes: int) -> None:
+    """Counts one collective ``op`` of ``nbytes`` in the open unit."""
+    telemetry.count(f"collective.{op}")
+    telemetry.count(f"collective_bytes.{op}", int(nbytes))
+
+
+def _sum_into(t: torch.Tensor, group) -> torch.Tensor:
     if _staged(t, group, "all_reduce"):
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t)
@@ -146,6 +173,16 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     else:
         dist.all_reduce(t, group=group)
     return t
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """In-place SUM of ``t`` over ``group`` (no autograd); a no-op without
+    a group."""
+    if group is None:
+        return t
+    _counted("all_reduce", _nbytes(t))
+    with telemetry.span("collective.all_reduce"):
+        return _sum_into(t, group)
 
 
 class _DenseGrad(torch.autograd.Function):
@@ -188,9 +225,19 @@ class _StagedGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         i = dist.get_rank(ctx.group)
-        total = all_reduce_sum(g.to(torch.float32, copy=True), ctx.group)
+        with telemetry.span("collective.all_reduce"):
+            total = _sum_into(g.to(torch.float32, copy=True), ctx.group)
         return (total[i * ctx.rows:(i + 1) * ctx.rows].to(g.dtype),
                 None)
+
+
+def _gather(src: torch.Tensor, group, staged: bool) -> torch.Tensor:
+    if staged:
+        return _StagedGather.apply(src, group)
+    out = _gather_fn()(src, 0, group)
+    if hasattr(out, "wait"):
+        out = out.wait()
+    return _DenseGrad.apply(out)
 
 
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
@@ -201,12 +248,18 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     if _group_size(group) == 1:
         return t
     src = t.contiguous()
-    if _staged(src, group, "all_gather"):
-        return _StagedGather.apply(src, group)
-    out = _gather_fn()(src, 0, group)
-    if hasattr(out, "wait"):
-        out = out.wait()
-    return _DenseGrad.apply(out)
+    staged = _staged(src, group, "all_gather")
+    whole = _nbytes(src) * _group_size(group)
+    _counted("all_gather", whole)
+    if src.requires_grad and torch.is_grad_enabled():
+        # the backward: a reduce-scatter of the cotangent (staged: an f32
+        # all-reduce of the whole cotangent)
+        if staged:
+            _counted("all_reduce", 4 * src.numel() * _group_size(group))
+        else:
+            _counted("reduce_scatter", whole)
+    with telemetry.span("collective.all_gather"):
+        return _gather(src, group, staged)
 
 
 def all_gather_blocks(t: torch.Tensor, sizes: Sequence[int],
@@ -238,17 +291,21 @@ class _ReduceScatter(torch.autograd.Function):
         n = _group_size(group)
         top = t.shape[0] // n
         src = t.contiguous()
-        if src.is_cuda and "nccl" in str(dist.get_backend(group)):
+        if _nccl(src, group):
             out = torch.empty((top,) + tuple(src.shape[1:]), dtype=src.dtype,
                               device=src.device)
             dist.reduce_scatter_tensor(out, src, group=group)
             return out
-        total = all_reduce_sum(src.to(torch.float32, copy=True), group)
+        total = _sum_into(src.to(torch.float32, copy=True), group)
         return total[index * top:(index + 1) * top].to(src.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather_rows(g.contiguous(), ctx.group), None, None
+        src = g.contiguous()
+        with telemetry.span("collective.all_gather"):
+            out = _gather(src, ctx.group,
+                          _staged(src, ctx.group, "all_gather"))
+        return out, None, None
 
 
 def reduce_scatter_blocks(t: torch.Tensor, sizes: Sequence[int],
@@ -267,7 +324,14 @@ def reduce_scatter_blocks(t: torch.Tensor, sizes: Sequence[int],
     pad = torch.cat([torch.nn.functional.pad(b, widths + (0, top - b.shape[0]))
                      for b in t.split(sizes)])
     index = dist.get_rank(group)
-    out = _ReduceScatter.apply(pad, group, index)
+    # NCCL reduce-scatters the blocks; other backends all-reduce them in f32
+    nccl = _nccl(pad, group)
+    op = "reduce_scatter" if nccl else "all_reduce"
+    _counted(op, _nbytes(pad) if nccl else 4 * pad.numel())
+    if pad.requires_grad and torch.is_grad_enabled():
+        _counted("all_gather", _nbytes(pad))   # the backward's
+    with telemetry.span(f"collective.{op}"):
+        out = _ReduceScatter.apply(pad, group, index)
     return out[:sizes[index]]
 
 
@@ -409,6 +473,50 @@ def pad_frozen_for_mesh(frozen, mesh: Mesh):
         inter_z=_pad_rows(frozen.inter_z, m))
 
 
+def block_span(n: int, m: int, index: int) -> Tuple[int, int]:
+    """Rows [lo, hi) of block ``index`` of a table of ``n`` rows zero-padded
+    to a multiple of ``m`` and cut into ``m`` equal blocks; rows at or
+    past ``n`` are the pad."""
+    b = -(-int(n) // int(m))
+    return index * b, (index + 1) * b
+
+
+def frozen_row_blocks(widths: Sequence[int], n_ids: int, n_model: int,
+                      model_index: int) -> Dict:
+    """The padded row range of model rank ``model_index``'s block of each
+    row-sharded table, as ``shard_frozen`` keeps it: {"features": [(lo,
+    hi) of chromosome c's (widths[c], widths[c]) table], "inter_z": (lo,
+    hi) of the (n_ids, ...) table}.  A caller that builds only its block
+    fills rows [lo, min(hi, n)) and leaves the rest of the hi - lo rows
+    zero."""
+    return {"features": [block_span(w, n_model, model_index)
+                         for w in widths],
+            "inter_z": block_span(n_ids, n_model, model_index)}
+
+
+def holds_rank_blocks(frozen, mesh: Optional[Mesh]) -> bool:
+    """Whether ``frozen`` holds this rank's blocks of the row-sharded
+    tables (``frozen_row_blocks``) rather than whole tables: ``inter_z``
+    has fewer rows than there are node ids (``chrom_of_node``).  Raises
+    when the tables are cut but not into this mesh's blocks."""
+    n_ids = int(frozen.chrom_of_node.shape[0])
+    if int(frozen.inter_z.shape[0]) == n_ids:
+        return False
+    m = 1 if mesh is None else mesh.shape["model"]
+    want = frozen_row_blocks([int(f.shape[1]) for f in frozen.features],
+                             n_ids, m, 0 if mesh is None else
+                             mesh.model_index)
+    got = ([int(f.shape[0]) for f in frozen.features],
+           int(frozen.inter_z.shape[0]))
+    if m == 1 or got != ([hi - lo for lo, hi in want["features"]],
+                         want["inter_z"][1] - want["inter_z"][0]):
+        raise ValueError(
+            f"the frozen tables hold {got[1]} rows of inter_z for {n_ids} "
+            f"node ids and {got[0]} feature rows: not the blocks of a model "
+            f"axis of {m} (parallel.mesh.frozen_row_blocks)")
+    return True
+
+
 def shard_frozen(frozen, mesh: Mesh):
     """Row-shard the padded features and inter_z on the model axis: this
     rank keeps block ``model_index`` of each (a copy, so the whole table
@@ -420,8 +528,8 @@ def shard_frozen(frozen, mesh: Mesh):
     frozen = pad_frozen_for_mesh(frozen, mesh)
 
     def block(a):
-        n = a.shape[0] // m
-        return a[i * n:(i + 1) * n].clone()
+        lo, hi = block_span(a.shape[0], m, i)
+        return a[lo:hi].clone()
 
     return frozen._replace(features=tuple(block(f) for f in frozen.features),
                            inter_z=block(frozen.inter_z))

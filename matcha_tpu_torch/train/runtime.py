@@ -36,10 +36,11 @@ N+1 is dispatched, with results equal to the serial loop's
 
 ``Trainer(mesh=)`` trains on a ``parallel.mesh`` of ranks, one process
 each: params replicated, the frozen node-axis tables row-sharded on the
-model axis, every rank computing its block of each step's rows with the
-masks of the whole batch's draw (``TrainSettings.n_shards`` = the data
-axis), the whole loss on every rank scaled by 1 / W and one all-reduce of
-the flat gradient before AdamW.  A mesh run equals a single rank with
+model axis (or handed in already cut to the rank's rows), every rank
+computing its block of each step's rows with the masks of the whole
+batch's draw (``TrainSettings.n_shards`` = the data axis), the whole loss
+on every rank scaled by 1 / W and one all-reduce of the flat gradient
+before AdamW.  A mesh run equals a single rank with
 ``n_shards`` = D up to summation order.  ``tensor_parallel=True`` shards
 the attention weights on the model axis (JAX's rule): each rank keeps its
 block of the heads, whose gradients are summed over the data axis only;
@@ -80,6 +81,7 @@ from matcha_tpu_torch.models.hypersagnn import (FrozenTables, ModelDims,
                                                 node_embeddings)
 from matcha_tpu_torch.models.modules import split_generator
 from matcha_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                            holds_rank_blocks,
                                             replicate_params, shard_frozen,
                                             tp_axes, tp_block, tp_gather,
                                             using_active_mesh)
@@ -547,9 +549,13 @@ class Trainer:
     same arguments): the params are broadcast from rank 0 (replicated),
     the padded frozen tables keep this rank's rows on the model axis,
     ``settings.n_shards`` becomes the data axis, and every call runs under
-    the mesh.  Every rank draws from the same generator stream, samples the
-    whole batch's negatives and computes its rows; each gets the whole
-    step's loss, logits and metrics.
+    the mesh.  Tables that already hold this rank's blocks of rows
+    (``parallel.mesh.holds_rank_blocks``: features and inter_z cut as
+    ``frozen_row_blocks`` says, f_max pad columns included or not) are
+    kept as they are: no copy, no padding.  Every rank draws from the
+    same generator stream, samples the whole batch's negatives and
+    computes its rows; each gets the whole step's loss, logits and
+    metrics.
 
     tensor_parallel: on a mesh with a model axis M > 1, wq, wk, wv and
     fc1's weight keep this rank's block of the heads
@@ -565,7 +571,8 @@ class Trainer:
                  seed: int = 0, mesh=None, tensor_parallel: bool = False):
         self.params = _tree_map(
             lambda t: t.detach().clone().requires_grad_(True), params)
-        if frozen.features:
+        blocks = mesh is not None and holds_rank_blocks(frozen, mesh)
+        if frozen.features and not blocks:
             f_max = max(int(f.shape[1]) for f in frozen.features)
             short = (sum(int(f.shape[1]) for f in frozen.features) + f_max
                      - int(frozen.inter_z.shape[1]))
@@ -583,7 +590,8 @@ class Trainer:
                                            tensor_parallel, dims.n_head)
             if tensor_parallel and mesh.shape["model"] > 1:
                 self._tp_axes = tp_axes(self.params)
-            frozen = shard_frozen(frozen, mesh)
+            if not blocks:
+                frozen = shard_frozen(frozen, mesh)
             settings = settings._replace(n_shards=int(mesh.shape["data"]))
         self.mesh = mesh
         self.frozen = frozen

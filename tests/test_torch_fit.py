@@ -146,8 +146,8 @@ def test_logger_writes_the_host_split(small, tmp_path, monkeypatch,
         host = rec["host"]
         assert host["steps"] == FIT["num_batch_per_iter"]
         assert set(host["ms_per_step"]) == {
-            "optimizer", "encode", "sample", "forward", "loss", "backward",
-            "epoch"}
+            "optimizer", "encode", "sample", "forward", "recon", "loss",
+            "backward", "epoch"}
         assert all(v > 0 for v in host["ms_per_step"].values())
         ks = len(small["train"])
         assert host["syncs_per_step"] == pytest.approx(

@@ -155,7 +155,7 @@ def test_no_record_function_without_a_profiler(problem, monkeypatch):
     req, = telemetry.units("request")
     assert not step.profiled and not req.profiled
     assert set(step.spans) == {"optimizer", "encode", "sample", "forward",
-                               "loss", "backward"}
+                               "recon", "loss", "backward"}
     assert set(req.spans) == {"convert", "encode", "forward", "fetch"}
     # 10 rows of size 3 and 7 of size 2 in chunks of 4: 3 + 2 copies
     assert req.syncs == {"chunk": 5, "fetch": 1}
@@ -258,7 +258,96 @@ def test_an_epoch_unit_holds_its_steps(problem):
     assert set(res[0]) == set(res[1])
 
 
+def test_a_step_counts_its_recon_blocks(problem, monkeypatch):
+    trainer = _trainer(problem)
+    telemetry.reset()
+    trainer.train_step(_batch(problem))
+    # the node rows decoded (N + 1) over the rows a block takes at the
+    # drawn chromosome's width
+    rows = problem["frozen"].chrom_of_node.shape[0]
+    widths = [f.shape[1] for f in problem["frozen"].features]
+    budget = 4 * max(widths) * 5
+    monkeypatch.setattr(th, "RECON_BLOCK_BYTES", budget)
+    trainer.train_step(_batch(problem))
+    one, blocked = telemetry.units("step")
+    assert one.counts["recon_blocks"] == 1
+    assert blocked.counts["recon_blocks"] in {
+        -(-rows // (budget // (4 * w))) for w in widths}
+    assert "recon" in one.spans and "recon_backward" not in one.spans
+    # the CPU runs the backward on the step's thread: its span lands there
+    assert "recon" in blocked.spans and "recon_backward" in blocked.spans
+    assert blocked.spans["forward"] >= blocked.spans["recon"] > 0
+
+
+def _collective_rank(rank, dev, tmp):
+    """Two steps of a Trainer on a 1 x 2 gloo mesh; saves each step unit's
+    collective counts and what the shapes say they should be."""
+    from matcha_tpu_torch.parallel import mesh as pm
+    rng = np.random.default_rng(21)
+    genome = GenomeBins(["chr1", "chr2"], [20_000_000, 14_000_000],
+                        1_000_000)
+    n = genome.num_nodes
+    intra = rng.random((n, n)).astype(np.float32)
+    inter = rng.random((n, n)).astype(np.float32)
+    dims = th.ModelDims(dim=16, n_head=4, num_chroms=2, num_nodes=n)
+    sizes = [int(e - s) for s, e in genome.chrom_range]
+    params = th.init_model(torch.Generator().manual_seed(0), dims, sizes,
+                           device="cpu")
+    buckets = {k: (np.stack([np.sort(rng.choice(np.arange(1, n + 1), k,
+                                                replace=False))
+                             for _ in range(16)]).astype(np.int32),
+                   np.ones(16, np.float32)) for k in KS}
+    trainer = tr.Trainer(params, th.build_frozen_tables(
+        genome, intra + intra.T, inter, device="cpu"), dims,
+        ChromTable.from_genome(genome, device="cpu"),
+        tr.TrainSettings(**SETTINGS), seed=3, mesh=pm.make_mesh(1, 2))
+    telemetry.reset()
+    batch = {k: (torch.as_tensor(e), torch.as_tensor(w))
+             for k, (e, w) in buckets.items()}
+    for _ in range(2):
+        trainer.train_step(batch)
+    d, f32 = dims.dim, 4
+    # encode: each rank's (C x R, d) rows, R the largest block of rows
+    rows = max(-(-s // 2) for s in sizes)
+    encode = 2 * len(sizes) * rows * d * f32
+    # the logits: each rank's rows of every size padded to the largest
+    per_k = 16 * (1 + SETTINGS["neg_num"])
+    logits = 2 * (len(KS) * per_k // 2) * f32
+    loss = 2 * f32                           # the recon loss's partials
+    counts = n + 1                           # the token counts' sum
+    grads = sum(t.numel() for t in tr._leaves(trainer.params))
+    want = {"all_gather": (3, encode + logits + loss),
+            "reduce_scatter": (3, encode + logits + loss),
+            "all_reduce": (2, f32 * (counts + grads))}
+    got = [{op: (u.counts.get(f"collective.{op}", 0),
+                 u.counts.get(f"collective_bytes.{op}", 0)) for op in want}
+           for u in telemetry.units("step")]
+    spans = [sorted(k for k in u.spans if k.startswith("collective."))
+             for u in telemetry.units("step")]
+    torch.save({"want": want, "got": got, "spans": spans},
+               f"{tmp}/rank{rank}.pt")
+
+
+def test_mesh_collectives_are_counted_per_step(tmp_path):
+    from matcha_tpu_torch.parallel import distributed as pd
+    pd.spawn(_collective_rank, 2, str(tmp_path))
+    for r in range(2):
+        out = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert len(out["got"]) == 2
+        for got, spans in zip(out["got"], out["spans"]):
+            # the reduce-scatters are the all-gathers' backward: counted
+            # from the forward's shapes, as on the card, where autograd
+            # runs them on its own thread
+            assert got == out["want"]
+            assert spans == ["collective.all_gather",
+                             "collective.all_reduce"]
+
+
 # ------------------------------------------------------- the benchmark's
+MESH_CELL_READS = ("forward_ms_per_step.train", "backward_ms_per_step.train",
+                   "optimizer_ms_per_step.train", "epoch_ms_per_step.train",
+                   "host_syncs_per_step.train",
+                   "sync_wait_ms_per_step.train")
 NEW = {
     "forward_ms_per_step.train": "train",
     "backward_ms_per_step.train": "train",
@@ -331,8 +420,11 @@ def test_the_new_metrics_are_in_the_benchmark():
     for name, kind in NEW.items():
         m = got[name]
         assert m["source"] == "program_span" and m["better"] == "lower"
-        assert m["workloads"] == (["score_1mb"] if kind == "score" else
-                                  ["train_100kb_b96", "train_1mb_b2048"])
+        want = (["score_1mb"] if kind == "score" else
+                ["train_100kb_b96", "train_1mb_b2048"])
+        if name in MESH_CELL_READS:
+            want = want + ["train_10kb_m4_b96"]
+        assert m["workloads"] == want
 
 
 @pytest.mark.parametrize("name", sorted(NEW))
