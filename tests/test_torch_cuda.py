@@ -17,7 +17,9 @@ rtol = 2e-2), and K2's gradients by up to 3e-2 of each one's largest entry.
 K3 sums in f32 (1e-5); K4 counts exactly.  The last test drives a model
 whose shapes the fixed-width kernels do not take (dim 16, k = 7 proposals)
 through a training step, scoring and the sampler on the card: it launches
-none of K1, K2, K5 and K6 and matches the same computation on the CPU.  The
+none of K1, K2, K5 and K6 and matches the same computation on the CPU.  A
+scoring request, ragged and as an array, equals the per-candidate loop it
+replaced bit for bit and makes one copy and one sync.  The
 last three hold the closed-form pair scorer, a per-occurrence training step
 and the recon decode with bf16 operands on the card against the CPU; then
 a device-resident epoch against the indexed epoch on its rows, bit for
@@ -782,6 +784,43 @@ def _cpu_frozen(frozen):
         attr_table=frozen.attr_table.cpu(), inter_z=frozen.inter_z.cpu(),
         chrom_of_node=frozen.chrom_of_node.cpu(),
         chrom_bounds=frozen.chrom_bounds.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,n_head", [(16, 4), (64, 8)])
+def test_a_scoring_request_makes_one_copy_and_one_sync(cuda, dim, n_head):
+    """A scoring request on the card, ragged lists of sizes 2..5 and a 2-D
+    array of pairs, f32 (dim 16: no kernel; dim 64: K1): the logits equal
+    the per-candidate loop's on the card bit for bit, the probabilities
+    the CPU's (1e-4); the request makes one copy to the card (the count
+    ``copies``) and one sync (``fetch``)."""
+    from matcha_tpu_torch import telemetry
+    from matcha_tpu_torch.apps import predict as pr
+    from matcha_tpu_torch.train import runtime as tr
+    from test_torch_predict_convert import plain_predict_logits
+    genome, dims, params, frozen, _, _, buckets = _small_problem(
+        cuda, ks=(2, 3, 4, 5), dim=dim, n_head=n_head)
+    rows = [r for k in buckets for r in buckets[k][:150].tolist()]
+    ragged = [rows[i]
+              for i in np.random.default_rng(5).permutation(len(rows))]
+    pairs = buckets[2][:200].astype(np.int64)
+    cpu = (tr._tree_map(lambda t: t.cpu(), params), _cpu_frozen(frozen))
+    for samples, route in ((ragged, "convert.ragged"),
+                           (pairs, "convert.array")):
+        telemetry.reset()
+        got = pr.predict_logits(params, frozen, dims, samples, 64)
+        req, = telemetry.units("request")
+        assert req.counts == {route: 1, "copies": 1}
+        assert req.syncs == {"fetch": 1}
+        np.testing.assert_array_equal(
+            got, plain_predict_logits(params, frozen, dims, samples, 64))
+        np.testing.assert_allclose(
+            pr.predict_proba(params, frozen, dims, samples, 64),
+            pr.predict_proba(*cpu, dims, samples, 64), rtol=0, atol=1e-4)
+    telemetry.reset()
+    assert pr.predict_logits(params, frozen, dims, [], 64).shape == (0,)
+    req, = telemetry.units("request")
+    assert "copies" not in req.counts and req.syncs == {}
 
 
 @pytest.mark.cuda

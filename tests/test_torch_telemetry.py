@@ -157,8 +157,10 @@ def test_no_record_function_without_a_profiler(problem, monkeypatch):
     assert set(step.spans) == {"optimizer", "encode", "sample", "forward",
                                "recon", "loss", "backward"}
     assert set(req.spans) == {"convert", "encode", "forward", "fetch"}
-    # 10 rows of size 3 and 7 of size 2 in chunks of 4: 3 + 2 copies
-    assert req.syncs == {"chunk": 5, "fetch": 1}
+    # 10 rows of size 3 and 7 of size 2 in chunks of 4 (3 + 2 forward
+    # calls): one copy to the device, not waited for, and one fetch
+    assert req.syncs == {"fetch": 1}
+    assert req.counts == {"convert.ragged": 1, "copies": 1}
 
 
 def _matcha_events(path):
@@ -186,7 +188,7 @@ def test_the_profiler_trace_holds_every_span_in_its_unit(problem, tmp_path):
     inner = [e for e in events if e["name"] not in outer]
     assert {e["name"] for e in inner} >= {
         "matcha:sample", "matcha:forward", "matcha:backward",
-        "matcha:sync:round", "matcha:sync:chunk", "matcha:convert"}
+        "matcha:sync:round", "matcha:sync:fetch", "matcha:convert"}
 
     def within(e, o):
         return (o["ts"] - 1 <= e["ts"]
