@@ -83,20 +83,17 @@ per size and once more per phase-2 round the sampler ran:
      stage 2 (3 epochs of 10 steps against the filters) with the mixed-size
      eval after each epoch (10,000 pooled test rows -> 4 batches of 2,048),
      the best-AUPRC checkpoint, a resume snapshot per epoch, the embedding
-     export and a profile of epoch 1 (profile_dir), run twice from one
-     state: overlapped (the default: epoch N's host work on a worker thread
-     while epoch N+1 is dispatched) and serial (MATCHA_FIT_OVERLAP=0).  The
-     counts are zeroed just before each stage 2 and read at the start of
-     every epoch's training: each step must launch K1 x3, K2 x3, K3 x1, K4
-     x1, K5 x4, K6 forward and backward x1 and K7 x4, each eval batch K1
-     x1, K4 x1 (the recon loss's counts), K5 x4 and K7 x4, and K7 once more
-     per phase-2 round.  The two runs must be bit-equal:
-     history, final params, every checkpoint and resume snapshot, every
-     embeddings file; each writes one non-empty trace.  Both runs' epoch
-     walls (training part, eval dispatch, total) are printed.  Losses
-     finite, per-k metrics printed; then a fresh Trainer resumes from an
-     overlapped run's epoch-1 snapshot and its epoch 2 must equal the
-     uninterrupted epoch 2.
+     export and a profile of epoch 1 (profile_dir).  The counts are zeroed
+     just before stage 2 and read at the start of every epoch's training:
+     each step must launch K1 x3, K2 x3, K3 x1, K4 x1, K5 x4, K6 forward
+     and backward x1 and K7 x4, each eval batch K1 x1, K4 x1 (the recon
+     loss's counts), K5 x4 and K7 x4, and K7 once more per phase-2 round.
+     One resume snapshot an epoch and one embeddings file an epoch; one
+     non-empty trace; the params after the fit are the best checkpoint's.
+     The epoch walls (training part, eval dispatch, total) are printed.
+     Losses finite, per-k metrics printed; then a fresh Trainer resumes
+     from an epoch-1 snapshot and its epoch 2 must equal the uninterrupted
+     epoch 2.
   9. times: K5 at each k and K6 forward / backward at the main-path shapes
      (CUDA events around the wrapper, and the kernels' device time from
      torch.profiler and K6's achieved TFLOP/s) beside their bounds and plain
@@ -282,7 +279,6 @@ import copy
 import json
 import math
 import os
-import pickle
 import shutil
 import statistics
 import subprocess
@@ -1884,32 +1880,15 @@ def same(a: dict, b: dict, keys=("bce", "recon")) -> float:
     return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in keys)
 
 
-def same_values(a, b) -> bool:
-    """Two checkpoint pickles' contents hold the same values, types and
-    shapes, bit for bit."""
-    if isinstance(a, dict):
-        return set(a) == set(b) and all(same_values(a[k], b[k]) for k in a)
-    if isinstance(a, (list, tuple)):
-        return (type(a) is type(b) and len(a) == len(b)
-                and all(same_values(x, y) for x, y in zip(a, b)))
-    if isinstance(a, np.ndarray):
-        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
-                and a.shape == b.shape and np.array_equal(a, b))
-    return a == b
-
-
-def recorded_fit(trainer, buckets, test, tmp, overlap: bool, log,
-                 **fit_kw) -> dict:
+def recorded_fit(trainer, buckets, test, tmp, log, **fit_kw) -> dict:
     """One stage-2 Trainer.fit of FIT_EPOCHS epochs with the best-AUPRC
     checkpoint, a resume snapshot per epoch, the embedding export and a
-    profile of epoch 1, under MATCHA_FIT_OVERLAP = 1 (the default) or 0.
-    Records every checkpoint / snapshot pickle and embeddings file written,
-    the launch counts and the host clock at the start of each epoch's
-    training dispatch and at the end of the fit (so an epoch's window holds
-    its training and its eval), and the host wall of each eval dispatch
-    (``eval_epoch`` in the serial loop, ``eval_epoch_pinned_launch`` in the
-    overlapped one).  The counts are zeroed just before the fit."""
-    tag = "overlap" if overlap else "serial"
+    profile of epoch 1.  Records the kind of every checkpoint / snapshot
+    pickle and every embeddings file written, the launch counts and the
+    host clock at the start of each epoch's training dispatch and at the
+    end of the fit (so an epoch's window holds its training and its eval),
+    and the host wall of each ``eval_epoch``.  The counts are zeroed just
+    before the fit."""
     writes, embs, marks, eval_walls = [], [], [], []
     launch = trainer.train_epoch_indexed_launch
 
@@ -1917,45 +1896,37 @@ def recorded_fit(trainer, buckets, test, tmp, overlap: bool, log,
         marks.append((time.perf_counter(), launch_counts()))
         return launch(batcher)
     trainer.train_epoch_indexed_launch = marked_launch
-    name = "eval_epoch_pinned_launch" if overlap else "eval_epoch"
-    ev = getattr(trainer, name)
+    ev = trainer.eval_epoch
 
     def timed_eval(*args, **kw):
         t = time.perf_counter()
         res = ev(*args, **kw)
         eval_walls.append(time.perf_counter() - t)
         return res
-    setattr(trainer, name, timed_eval)
+    trainer.eval_epoch = timed_eval
     write_real, save_real = runtime._write_checkpoint, np.save
 
     def write(path, *args):
         write_real(path, *args)
-        with open(path, "rb") as f:
-            writes.append((os.path.basename(path).split("_")[0],
-                           pickle.load(f)))
+        writes.append(os.path.basename(path).split("_")[0])
 
     def save(path, arr, *args, **kw):
         embs.append(np.array(arr))
         save_real(path, arr, *args, **kw)
-    prof = os.path.join(tmp, f"profile_{tag}")
-    os.environ["MATCHA_FIT_OVERLAP"] = "1" if overlap else "0"
-    try:
-        with unittest.mock.patch.object(runtime, "_write_checkpoint",
-                                        write), \
-                unittest.mock.patch.object(np, "save", save):
-            zero_launch_counts()
-            t0 = time.perf_counter()
-            hist = trainer.fit(
-                buckets, test, epochs=FIT_EPOCHS, log=log,
-                checkpoint_path=os.path.join(tmp, f"ckpt_{tag}.chkpt"),
-                resume_path=os.path.join(tmp, f"resume_{tag}.snap"),
-                embeddings_path=os.path.join(tmp, f"emb_{tag}.npy"),
-                profile_dir=prof, **fit_kw)
-            torch.cuda.synchronize()
-            t_end = time.perf_counter()
-            counts = launch_counts()
-    finally:
-        os.environ.pop("MATCHA_FIT_OVERLAP")
+    prof = os.path.join(tmp, "profile")
+    with unittest.mock.patch.object(runtime, "_write_checkpoint", write), \
+            unittest.mock.patch.object(np, "save", save):
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        hist = trainer.fit(
+            buckets, test, epochs=FIT_EPOCHS, log=log,
+            checkpoint_path=os.path.join(tmp, "ckpt_fit.chkpt"),
+            resume_path=os.path.join(tmp, "resume_fit.snap"),
+            embeddings_path=os.path.join(tmp, "emb_fit.npy"),
+            profile_dir=prof, **fit_kw)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = launch_counts()
     traces = [os.path.join(prof, f) for f in os.listdir(prof)
               if f.endswith(".pt.trace.json")] if os.path.isdir(prof) else []
     ends = marks[1:] + [(t_end, counts)]
@@ -1973,11 +1944,9 @@ def fit_phase(problem, genome, card) -> dict:
     """Phase 8: Trainer.fit at full width on the opt-in kernels' path, the
     fused tail and the "pallas" proposals: stage 1, then stage 2 with eval,
     checkpoints, resume snapshots, the embedding export and a profile of
-    epoch 1, overlapped (the default) and serial (MATCHA_FIT_OVERLAP=0)
-    from one state: the two must be bit-equal (history, final params, every
-    checkpoint and snapshot, every embeddings file); each epoch's launches;
-    each run's epoch walls; and a resume from an overlapped run's epoch-1
-    snapshot.  -> the overlapped stage 2's launch counts and the results."""
+    epoch 1; each epoch's launches and walls; the best checkpoint's reload;
+    and a resume from the epoch-1 snapshot.  -> stage 2's launch counts and
+    the results."""
     set_fuse_tail(True)
     dims, params, frozen, buckets, blooms, table = problem
     test = random_buckets(genome, np.random.default_rng(SEED + 12),
@@ -2008,34 +1977,26 @@ def fit_phase(problem, genome, card) -> dict:
         fail(f"fit stage 1 launched {got1}, expected {want1}")
     p1 = _tree_map(lambda t: t.detach().clone(), s1.params)
 
-    # stage 2, overlapped (the default; the opt-in path's run) and serial,
-    # each from the stage-1 params and one seed
+    # stage 2 from the stage-1 params
     tmp = tempfile.mkdtemp()
     s2 = TrainSettings(alpha=1.0, beta=0.001, **common)
     want_epoch = added(scaled(step_counts(True, True), TRAIN_STEPS),
                        scaled(eval_counts(True), n_eval))
-    runs, trainers = {}, {}
-    for overlap in (True, False):
-        trainers[overlap] = Trainer(p1, frozen, dims, table, s2,
-                                    blooms=blooms, seed=SEED + 1)
-        runs[overlap] = run = recorded_fit(trainers[overlap], buckets, test,
-                                           tmp, overlap, log, **fit_kw)
-        what = "overlapped" if overlap else "serial"
-        for i, got in enumerate(run["epoch_counts"]):
-            want = with_rounds(want_epoch, got)
-            print(f"fit stage 2 ({what}) epoch {i}: launches {got} "
-                  f"(expected {want})", flush=True)
-            if got != want:
-                fail(f"fit stage-2 ({what}) epoch {i} launched {got}, "
-                     f"expected {want}")
-        hist = run["hist"]
-        if len(hist) != FIT_EPOCHS or len(run["epoch_counts"]) != FIT_EPOCHS:
-            fail(f"fit ({what}) ran {len(hist)} epochs, expected "
-                 f"{FIT_EPOCHS}")
-        if len(run["trace_bytes"]) != 1 or not run["trace_bytes"][0]:
-            fail(f"fit ({what}) profile_dir holds traces of "
-                 f"{run['trace_bytes']} bytes, expected one non-empty")
-    hist = runs[True]["hist"]
+    trainer = Trainer(p1, frozen, dims, table, s2, blooms=blooms,
+                      seed=SEED + 1)
+    run = recorded_fit(trainer, buckets, test, tmp, log, **fit_kw)
+    for i, got in enumerate(run["epoch_counts"]):
+        want = with_rounds(want_epoch, got)
+        print(f"fit stage 2 epoch {i}: launches {got} (expected {want})",
+              flush=True)
+        if got != want:
+            fail(f"fit stage-2 epoch {i} launched {got}, expected {want}")
+    hist = run["hist"]
+    if len(hist) != FIT_EPOCHS or len(run["epoch_counts"]) != FIT_EPOCHS:
+        fail(f"fit ran {len(hist)} epochs, expected {FIT_EPOCHS}")
+    if len(run["trace_bytes"]) != 1 or not run["trace_bytes"][0]:
+        fail(f"fit profile_dir holds traces of {run['trace_bytes']} bytes, "
+             f"expected one non-empty")
     for i, h in enumerate(h1 + hist):
         vals = [h[p][k] for p in ("train", "valid") for k in ("bce",
                                                               "recon")]
@@ -2043,43 +2004,23 @@ def fit_phase(problem, genome, card) -> dict:
             fail(f"fit epoch results are not finite: {vals}")
         if set(h["valid"]["metrics"]) != {"all", *TRAIN_KS}:
             fail(f"fit valid metrics miss a size: {h['valid']['metrics']}")
-
-    # overlapped == serial, bit for bit
-    ov, se = runs[True], runs[False]
-    keys = ("bce", "recon", "metrics", "fallback_bloom_rate",
-            "fallback_orig_rate")
-    equal = {
-        "history": all(a[p][k] == b[p][k] for a, b in zip(ov["hist"],
-                                                          se["hist"])
-                       for p in ("train", "valid") for k in keys),
-        "final_params": all(torch.equal(a, b) for a, b in zip(
-            _leaves(trainers[True].params), _leaves(trainers[False].params))),
-        "checkpoints_and_snapshots": (
-            [n for n, _ in ov["writes"]] == [n for n, _ in se["writes"]]
-            and all(same_values(a, b) for (_, a), (_, b) in
-                    zip(ov["writes"], se["writes"]))),
-        "embeddings_files": (len(ov["embs"]) == len(se["embs"])
-                             == FIT_EPOCHS
-                             and all(np.array_equal(a, b) for a, b in
-                                     zip(ov["embs"], se["embs"])))}
-    n_snaps = sum(n == "resume" for n, _ in ov["writes"])
-    print(f"fit overlapped vs serial: bit-equal {json.dumps(equal)} "
-          f"({len(ov['writes'])} pickles, {n_snaps} resume snapshots, "
-          f"{len(ov['embs'])} embeddings files)", flush=True)
-    if not all(equal.values()) or n_snaps != FIT_EPOCHS:
-        fail(f"the overlapped fit differs from the serial one: {equal}")
-    best = load_checkpoint(os.path.join(tmp, "ckpt_overlap.chkpt"),
-                           full=True,
-                           device=_leaves(trainers[True].params)[0].device)
+    n_snaps = run["writes"].count("resume")
+    print(f"fit: {len(run['writes'])} pickles, {n_snaps} resume snapshots, "
+          f"{len(run['embs'])} embeddings files", flush=True)
+    if n_snaps != FIT_EPOCHS or len(run["embs"]) != FIT_EPOCHS:
+        fail(f"fit wrote {n_snaps} resume snapshots and "
+             f"{len(run['embs'])} embeddings files, expected {FIT_EPOCHS}")
+    best = load_checkpoint(os.path.join(tmp, "ckpt_fit.chkpt"), full=True,
+                           device=_leaves(trainer.params)[0].device)
     if not all(torch.equal(a, b) for a, b in zip(
-            _leaves(best["params"]), _leaves(trainers[True].params))):
+            _leaves(best["params"]), _leaves(trainer.params))):
         fail("the params after fit are not the best checkpoint's")
-    emb_shape = ov["embs"][-1].shape
+    emb_shape = run["embs"][-1].shape
     if emb_shape != (genome.num_nodes, DIM):
         fail(f"embeddings of shape {emb_shape}")
 
     # resume: a fresh Trainer from the same stage-1 params runs epochs 0-1
-    # overlapped with snapshots, another resumes from the epoch-1 snapshot
+    # with snapshots, another resumes from the epoch-1 snapshot
     snap = os.path.join(tmp, "resume_b.snap")
     quiet = lambda msg: None                                   # noqa: E731
     hb = Trainer(p1, frozen, dims, table, s2, blooms=blooms,
@@ -2101,16 +2042,14 @@ def fit_phase(problem, genome, card) -> dict:
     if len(hc) != 1 or max(diffs.values()) > TOL_RESUME:
         fail("the resumed epoch 2 differs from the uninterrupted one")
 
-    walls = {("overlapped" if o else "serial"): {
-        "fit_s": runs[o]["fit_s"], "epoch_wall_s": runs[o]["epoch_wall_s"],
-        "train_elapsed_s": [h["train"]["elapsed"] for h in runs[o]["hist"]],
-        "eval_wall_s": runs[o]["eval_wall_s"]} for o in (True, False)}
     result = {
         "metric": "fit_stage2", "epochs": FIT_EPOCHS,
         "steps_per_epoch": TRAIN_STEPS, "eval_batches": n_eval,
-        "stage1_s": stage1_s, **walls["overlapped"], "walls": walls,
-        "equal_overlapped_serial": equal,
-        "profile_trace_bytes": runs[True]["trace_bytes"],
+        "stage1_s": stage1_s, "fit_s": run["fit_s"],
+        "epoch_wall_s": run["epoch_wall_s"],
+        "train_elapsed_s": [h["train"]["elapsed"] for h in hist],
+        "eval_wall_s": run["eval_wall_s"],
+        "profile_trace_bytes": run["trace_bytes"],
         "train_hyperedges_per_s": [h["train"]["hyperedges_per_sec"]
                                    for h in hist],
         "fallback_bloom_rate": [h["train"]["fallback_bloom_rate"]
@@ -2123,7 +2062,7 @@ def fit_phase(problem, genome, card) -> dict:
                    for k, v in h["train"]["metrics"].items()} for h in hist],
         "best_epoch": best["epoch"], "resume": diffs, "card": card}
     print(json.dumps(result), flush=True)
-    return {"counts": runs[True]["counts"], "result": result}
+    return {"counts": run["counts"], "result": result}
 
 
 def k5_bytes(args, S: int, md: int) -> int:
@@ -4053,13 +3992,10 @@ def hundred_kb_phase(card, device=torch.device("cuda")) -> dict:
               "peak_during_trainer_gb": torch.cuda.max_memory_allocated()
               / gb,
               "held_after_trainer_gb": torch.cuda.memory_allocated() / gb}
-    del frozen                 # the caller's unpadded tables
-    memory["held_after_dropping_unpadded_gb"] = (torch.cuda.memory_allocated()
-                                                 / gb)
+    if trainer.frozen.inter_z.data_ptr() != frozen.inter_z.data_ptr():
+        fail("100 kb: the Trainer copied the caller's inter_z")
+    del frozen                 # the Trainer holds the same tables
     memory["inter_z_gb"] = host[2].size * 2 / gb
-    memory["inter_z_padded_gb"] = trainer.frozen.inter_z.numel() * 2 / gb
-    memory["pad_columns"] = (int(trainer.frozen.inter_z.shape[1])
-                             - host[2].shape[1])
     print(f"100 kb set-up: {n} nodes, buckets "
           f"{ {k: len(v[0]) for k, v in buckets.items()} }, frozen build "
           f"{build_s:.3f} s (host f32), transfer {transfer_s:.3f} s (bf16), "
@@ -4096,8 +4032,6 @@ def hundred_kb_phase(card, device=torch.device("cuda")) -> dict:
 
     # the card's f32 step against the CPU's, on f32 tables on both sides
     f32 = frozen_on(host, genome, device, torch.float32)
-    f32 = f32._replace(inter_z=torch.nn.functional.pad(
-        f32.inter_z, (0, memory["pad_columns"])))
     view = types.SimpleNamespace(params=trainer.params, frozen=f32,
                                  dims=trainer.dims,
                                  chrom_table=trainer.chrom_table,

@@ -519,9 +519,12 @@ def _padded_recon_parts(params, frozen, r: int):
 
 
 def _round(t: torch.Tensor) -> torch.Tensor:
-    """A recon decode operand as the one-block path takes it: rounded to
-    bf16 under ``MATCHA_RECON_BF16``, else as it is; autograd hands an
-    operand's gradient back through the same rounding."""
+    """A recon decode operand: rounded to bf16 under ``MATCHA_RECON_BF16``
+    (bf16 operands, f32 accumulation and an unrounded f32 result, as the
+    JAX package's preferred_element_type=float32: each product of two bf16
+    values is exact in f32, and TF32, where it is on, leaves bf16 values
+    as they are), else as it is.  The backward rounds the
+    operands' gradients alike, as autograd does through a cast."""
     return t.to(torch.bfloat16).float() if _recon_decode_bf16() else t
 
 
@@ -544,12 +547,11 @@ class _ReconBlocks(torch.autograd.Function):
     """sum_i w_n[i] * mean over chromosome r's F columns of (target_i -
     tanh(h_i) @ w - b)^2 over a rank's node rows h (R, d), in blocks of
     ``step`` rows, so that no float32 intermediate exceeds
-    ``RECON_BLOCK_BYTES``: the columns are r's own (the one-block path
-    decodes f_max padded columns and masks the rest), the bias rides in
-    the product as a row of ones, and no pass over a block is spent on a
-    mask or a scale.  Saves h, the decoder and the weights only; the
-    backward decodes each block again (the telemetry span
-    ``recon_backward``)."""
+    ``RECON_BLOCK_BYTES``: the columns are r's own (inter_z needs no pad
+    columns), the bias rides in the product as a row of ones, and no pass
+    over a block is spent on a mask or a scale.  Saves h, the decoder and
+    the weights only; the backward decodes each block again (the telemetry
+    span ``recon_backward``)."""
 
     @staticmethod
     def forward(ctx, h, w, b, w_n, inter_z, start: int, step: int):
@@ -592,11 +594,10 @@ def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
     """Per-node form of ``recon_loss_with_chrom`` (equal up to f32 summation
     order): every token of a node shares its embedding row, so the
     token-mean MSE is the node MSE weighted by the node's token count (K4
-    on a CUDA tensor).  Decodes N node rows instead of T token rows.  Where
-    the rank's rows times the widest chromosome exceed
-    ``RECON_BLOCK_BYTES`` of float32, they are decoded in blocks of rows
-    (``_ReconBlocks``, the backward decoding each block again); where they
-    fit, the one block runs as plain autograd ops.  The telemetry count
+    on a CUDA tensor).  Decodes N node rows instead of T token rows, in
+    blocks of rows of at most ``RECON_BLOCK_BYTES`` of float32 at
+    chromosome r's width (``_ReconBlocks``, the backward decoding each
+    block again; one block at 1 Mb and 100 kb).  The telemetry count
     ``recon_blocks``.
 
     Under a mesh x_flat is this rank's token block: the counts are summed
@@ -622,42 +623,12 @@ def recon_loss_node(params: Dict, frozen: FrozenTables, dims: ModelDims,
         hi = min(lo + n_z, R)
 
     widths = [int(f.shape[1]) for f in frozen.features]
-    f_max = max(widths)
-    start = sum(widths[:r])
-    if (hi - lo) * f_max * 4 > RECON_BLOCK_BYTES:
-        step = max(1, RECON_BLOCK_BYTES // (4 * widths[r]))
-        telemetry.count("recon_blocks", -(-(hi - lo) // step))
-        dec = params["embed"]["recon"][r]
-        total = _ReconBlocks.apply(node_table[lo:hi], dec["w"], dec["b"],
-                                   w_n[lo:hi], frozen.inter_z, start, step)
-    else:
-        telemetry.count("recon_blocks", 1)
-        w_r, b_r, cols, col_ok, width_r = _padded_recon_parts(params, frozen,
-                                                              r)
-        if frozen.inter_z.shape[1] >= sum(widths) + f_max:
-            # inter_z carries >= f_max zero pad columns (the Trainer adds
-            # them to whole tables): the target is a contiguous slice; the
-            # pad columns are masked
-            target = frozen.inter_z[:hi - lo, start:start + f_max].float()
-        else:
-            target = frozen.inter_z[:hi - lo][:, cols].float()   # (R, F)
-        h_dec = torch.tanh(node_table[lo:hi].float())
-        if _recon_decode_bf16():
-            # bf16 operands, f32 accumulation and an unrounded f32 result,
-            # as the JAX package's preferred_element_type=float32: a bf16 x
-            # bf16 matmul in torch rounds its result to bf16, so the
-            # operands are rounded to bf16 and multiplied as f32, where
-            # each product of two bf16 values is exact (8 + 8 significant
-            # bits <= 24; TF32, where it is on, leaves bf16 values as they
-            # are)
-            recon = (h_dec.to(torch.bfloat16).float()
-                     @ w_r.to(torch.bfloat16).float() + b_r)     # (R, F)
-        else:
-            recon = h_dec @ w_r + b_r                            # (R, F)
-        sq = torch.where(col_ok[None, :], (target - recon) ** 2,
-                         torch.zeros((), device=recon.device))
-        per_node = sq.sum(dim=-1) / width_r
-        total = (per_node * w_n[lo:hi]).sum()
+    step = max(1, RECON_BLOCK_BYTES // (4 * widths[r]))
+    telemetry.count("recon_blocks", -(-(hi - lo) // step))
+    dec = params["embed"]["recon"][r]
+    total = _ReconBlocks.apply(node_table[lo:hi], dec["w"], dec["b"],
+                               w_n[lo:hi], frozen.inter_z, sum(widths[:r]),
+                               step)
     loss = torch.where(denom > 0, total / denom.clamp_min(1.0),
                        torch.zeros((), device=denom.device))
     if sharded:

@@ -29,10 +29,7 @@ scalars; their params are the JAX package's tree, so its
 ``load_checkpoint`` reads them.  The regress task mode (the reference's
 pairwise-ranking variant) keeps the JAX package's per-bucket path: a padded
 ``forward`` per k, a softplus MSE against the quantile weights, and a per-k
-eval.  Indexed epochs overlap: epoch N's host work (fetches, logging,
-checkpoint pickles, the embeddings file) runs on a worker thread while epoch
-N+1 is dispatched, with results equal to the serial loop's
-(``MATCHA_FIT_OVERLAP=0``).
+eval.
 
 ``Trainer(mesh=)`` trains on a ``parallel.mesh`` of ranks, one process
 each: params replicated, the frozen node-axis tables row-sharded on the
@@ -57,7 +54,6 @@ bundle written by either package loads in the other.
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import os
 import pickle
@@ -398,13 +394,10 @@ class _HostFetch:
         else:
             self.host = flat
 
-    def wait(self) -> None:
+    def result(self) -> Dict[str, np.ndarray]:
         with telemetry.sync("fetch"):
             if self.event is not None:
                 self.event.synchronize()
-
-    def result(self) -> Dict[str, np.ndarray]:
-        self.wait()
         host = self.host.numpy()
         out, i = {}, 0
         for n, shape in self.shapes.items():
@@ -448,111 +441,26 @@ def _pool_test_rows(test_buckets):
     return ks, np.concatenate(xs), np.concatenate(szs), np.concatenate(ws)
 
 
-class _Snapshot:
-    """The training state at the end of an epoch on its way to the host: the
-    params (and with ``state`` AdamW's exp_avg, exp_avg_sq and step, and the
-    generator's state), and with ``emb`` the node embeddings of those
-    params.
-
-    One ``torch.cat`` on the current stream copies the params and moments
-    into a device buffer (the device snapshot: the next epoch's in-place
-    AdamW updates do not reach it), the embeddings are computed from that
-    buffer, and a side stream that waits on an event after both copies them
-    into pinned host memory, behind another event; the sources are kept
-    alive for the side stream with ``record_stream``.  ``result()`` waits on
-    that event and gives host values only.  On the CPU the copies are the
-    host values."""
-
-    def __init__(self, trainer: "Trainer", state: bool, emb: bool):
-        leaves = _leaves(trainer.params)
-        self.template = trainer.params
-        self.shapes = [tuple(t.shape) for t in leaves]
-        self.state = state
-        self.key = trainer.generator.get_state().numpy() if state else None
-        self.step = []
-        parts = [t.detach() for t in leaves]
-        if state:
-            opt = [trainer.optimizer.state.get(t, {}) for t in leaves]
-            self.step = [float(st["step"]) if "step" in st else 0.0
-                         for st in opt]
-            for name in ("exp_avg", "exp_avg_sq"):
-                parts += [st[name] if name in st else torch.zeros_like(t)
-                          for st, t in zip(opt, leaves)]
-        with torch.no_grad():
-            flat = torch.cat([t.reshape(-1).float() for t in parts])
-            emb_dev = None
-            if emb:
-                params = _tree_unflatten(self.template, [
-                    v.view(shape) for v, shape in zip(
-                        flat[:sum(t.numel() for t in leaves)].split(
-                            [t.numel() for t in leaves]), self.shapes)])
-                emb_dev = node_embeddings(params, trainer.frozen,
-                                          trainer.dims).float()
-        self.event = None
-        if not flat.is_cuda:
-            self.flat, self.emb = flat, emb_dev
-            return
-        ready = torch.cuda.Event()
-        ready.record()
-        side = torch.cuda.Stream(device=flat.device)
-        side.wait_event(ready)
-        with torch.cuda.stream(side):
-            self.flat = torch.empty(flat.shape, dtype=flat.dtype,
-                                    pin_memory=True)
-            self.flat.copy_(flat, non_blocking=True)
-            flat.record_stream(side)
-            self.emb = None
-            if emb_dev is not None:
-                self.emb = torch.empty(emb_dev.shape, dtype=emb_dev.dtype,
-                                       pin_memory=True)
-                self.emb.copy_(emb_dev, non_blocking=True)
-                emb_dev.record_stream(side)
-            self.event = torch.cuda.Event()
-            self.event.record(side)
-
-    def result(self) -> Dict:
-        """-> {"params": numpy tree, "opt_state": AdamW's state dict as
-        ``_adamw_state`` gives it (with ``state``), "key", "emb"}."""
-        if self.event is not None:
-            self.event.synchronize()
-        host = self.flat.numpy()
-        arrays, i = [], 0
-        for _ in range(3 if self.state else 1):
-            for shape in self.shapes:
-                n = int(np.prod(shape))
-                arrays.append(host[i:i + n].reshape(shape))
-                i += n
-        n_leaves = len(self.shapes)
-        out = {"params": _tree_unflatten(self.template, arrays[:n_leaves]),
-               "opt_state": None, "key": self.key,
-               "emb": None if self.emb is None else self.emb.numpy()}
-        if self.state:
-            out["opt_state"] = {
-                "exp_avg": arrays[n_leaves:2 * n_leaves],
-                "exp_avg_sq": arrays[2 * n_leaves:],
-                "step": self.step}
-        return out
-
-
 class Trainer:
     """Drives training steps over bucketed batches on one device, or on a
     mesh of ranks (one process each).
 
     The Trainer copies ``params`` (its own leaves, each a tensor that
-    requires grad), pads ``frozen.inter_z`` with f_max zero columns (the
-    recon target is then a contiguous slice) and hoists the chromosome
-    ranges to host constants for the sampler.  ``seed`` seeds its CPU
+    requires grad), takes ``frozen.inter_z`` as it comes (with or without
+    f_max zero pad columns: the recon loss reads chromosome r's own
+    columns) and hoists the chromosome ranges to host constants for the
+    sampler.  ``seed`` seeds its CPU
     generator, from which every step splits its table, negative and
     forward streams.
 
     mesh: a ``parallel.mesh.Mesh`` (every rank builds its Trainer with the
     same arguments): the params are broadcast from rank 0 (replicated),
-    the padded frozen tables keep this rank's rows on the model axis,
+    the frozen tables keep this rank's rows on the model axis,
     ``settings.n_shards`` becomes the data axis, and every call runs under
     the mesh.  Tables that already hold this rank's blocks of rows
     (``parallel.mesh.holds_rank_blocks``: features and inter_z cut as
     ``frozen_row_blocks`` says, f_max pad columns included or not) are
-    kept as they are: no copy, no padding.  Every rank draws from the
+    kept as they are: no copy.  Every rank draws from the
     same generator stream, samples the whole batch's negatives and
     computes its rows; each gets the whole step's loss, logits and
     metrics.
@@ -572,13 +480,6 @@ class Trainer:
         self.params = _tree_map(
             lambda t: t.detach().clone().requires_grad_(True), params)
         blocks = mesh is not None and holds_rank_blocks(frozen, mesh)
-        if frozen.features and not blocks:
-            f_max = max(int(f.shape[1]) for f in frozen.features)
-            short = (sum(int(f.shape[1]) for f in frozen.features) + f_max
-                     - int(frozen.inter_z.shape[1]))
-            if short > 0:
-                frozen = frozen._replace(inter_z=torch.nn.functional.pad(
-                    frozen.inter_z, (0, short)))
         if settings.chrom_bounds is None:
             settings = settings._replace(chrom_bounds=tuple(
                 (int(s), int(e)) for s, e in
@@ -971,42 +872,6 @@ class Trainer:
             out["pred"] = host["pred"].astype(np.float32).reshape(-1)
         return out
 
-    def _pin_eval_pool(self, test_buckets, batch_size: int,
-                       max_samples: int = 10_000) -> Optional[Dict]:
-        """The pooled, padded test rows (as ``eval_epoch`` pools them) on
-        the params' device, once per stage, with the batch plan; each
-        ``eval_epoch_pinned_launch`` then copies only its drawn indices.
-        None for an empty or too small test set, and in the regress mode
-        (its per-k eval has no pool)."""
-        test_buckets = {k: v for k, v in test_buckets.items()
-                        if len(v[0]) > 0}
-        if not test_buckets or self.settings.task_mode == "regress":
-            return None
-        ks, xs, szs, ws = _pool_test_rows(test_buckets)
-        take = min(len(xs), max_samples)
-        bs = self._eval_batch(min(batch_size, take))
-        if bs == 0:
-            return None
-        dev = _leaves(self.params)[0].device
-        return {"pool": tuple(torch.as_tensor(a, device=dev)
-                              for a in (xs, szs, ws)),
-                "szs_host": szs, "n_rows": len(xs), "ks": ks, "bs": bs,
-                "n_batches": take // bs}
-
-    def eval_epoch_pinned_launch(self, pinned: Dict, seed: int = 0) -> Dict:
-        """Dispatch one mixed-size eval over the pinned pool
-        (``_pin_eval_pool``) -> a handle for ``_finish_eval``.  It draws the
-        rows ``eval_epoch(seed=seed)`` draws and gathers them on the device,
-        so the result is ``eval_epoch``'s bit for bit."""
-        bs, n_b = pinned["bs"], pinned["n_batches"]
-        indices = np.random.default_rng(seed).permutation(
-            pinned["n_rows"])[:n_b * bs]
-        sizes_drawn = pinned["szs_host"][indices].reshape(n_b, bs)
-        xs, szs, ws = pinned["pool"]
-        idx = to_device(indices.reshape(n_b, bs), xs.device)
-        return self._launch_eval(pinned["ks"], xs[idx], szs[idx], ws[idx],
-                                 sizes_drawn)
-
     def _eval_epoch_perk(self, test_buckets, batch_size: int,
                          max_samples: int, seed: int) -> Dict:
         """The per-k eval of the regress mode: up to max_samples / (number
@@ -1078,37 +943,20 @@ class Trainer:
           params at the start of every epoch.
         profile_dir: a ``torch.profiler`` trace of epoch 1's training and
           eval (the first epoch after the warm-up epoch 0) under this
-          directory (``telemetry.profile_trace``); the same window whether
-          or not the epochs overlap.
+          directory (``telemetry.profile_trace``).
         checkpoint_format: "pickle" (one file, ``save_checkpoint``) or
           "orbax": ``checkpoint_path`` and ``resume_path`` are directories
           of ``train/checkpoint.OrbaxCheckpointer`` step checkpoints
           (``torch.distributed.checkpoint``, written in the background; the
-          JAX package's argument, not orbax's format); its epochs run in the
-          serial loop.
+          JAX package's argument, not orbax's format).
 
         Under a mesh every rank runs ``fit`` with the same arguments: only
         rank 0 logs and writes the pickles, the metrics log and the
         embeddings (every rank takes part in an "orbax" save); every rank
-        reads the best checkpoint back at the end.  The epochs there run in
-        the serial loop (the overlapped pipeline is single-process).
-
-        Indexed epochs outside the regress mode overlap (MATCHA_FIT_OVERLAP,
-        default "1"; "0" runs the serial loop): epoch N's host work (the
-        fetches of its results, the logging, the history, the metrics log,
-        the checkpoint and resume pickles and the embeddings file) runs on
-        one worker thread while this thread dispatches epoch N+1.  This
-        thread still dispatches everything the device runs, in the serial
-        order (train N, eval N over the pinned pool, train N+1), so the
-        generator's stream and every result equal the serial loop's; after
-        eval N it takes a snapshot of the params, AdamW's state and the
-        generator (``_Snapshot``), from which the worker writes.  The worker
-        sees host arrays only.  A failure there is raised here at the next
-        join (after epoch N+1's dispatch, or at the end)."""
+        reads the best checkpoint back at the end."""
         if checkpoint_format not in ("pickle", "orbax"):
             raise ValueError(f"checkpoint_format must be 'pickle' or "
                              f"'orbax', got {checkpoint_format!r}")
-        multi = self.mesh is not None and self.mesh.size > 1
         rank0 = self.mesh is None or self.mesh.rank == 0
         if not rank0:
             log, metrics_logger = (lambda *a, **k: None), None
@@ -1157,40 +1005,9 @@ class Trainer:
                 log(f"resumed from {resume_path}: continuing at epoch "
                     f"{start_epoch} (best {best:.4f})")
 
-        def post_epoch(epoch, tr, ev, save, split):
-            """An epoch's bookkeeping: the log lines, the history, the
-            metrics log (with ``split``, the epoch's
-            ``telemetry.epoch_split``), the checkpoint on the best AUPRC
-            and the resume snapshot; save(path, epoch, best or None for a
-            checkpoint) writes the epoch's state."""
-            nonlocal best
-            roc, aupr, _ = format_metrics(tr["metrics"])
-            fb = ""
-            if tr["fallback_bloom_rate"] or tr["fallback_orig_rate"]:
-                fb = (f" sampler-fallback bloom "
-                      f"{tr['fallback_bloom_rate']:.2e}"
-                      f" orig {tr['fallback_orig_rate']:.2e}")
-            log(f"[epoch {epoch}] train bce {tr['bce']:.4f} recon "
-                f"{tr['recon']:.4f} auc: {roc} aupr: {aupr} "
-                f"({tr['hyperedges_per_sec']:.0f} hyperedges/s, "
-                f"{tr['elapsed']:.1f}s){fb}")
-            roc, aupr, _ = format_metrics(ev["metrics"])
-            log(f"[epoch {epoch}] valid bce {ev['bce']:.4f} recon "
-                f"{ev['recon']:.4f} auc: {roc} aupr: {aupr}")
-            history.append({"train": tr, "valid": ev})
-            if metrics_logger is not None:
-                metrics_logger.log_epoch(stage, epoch, tr, ev, host=split)
-            val_aupr = ev["metrics"].get(
-                max_k, ev["metrics"].get("all", {"auprc": 0.0}))["auprc"]
-            if np.isnan(val_aupr):
-                val_aupr = -float(ev["bce"])
-            if checkpoint_path and val_aupr >= best:
-                best = val_aupr
-                save(checkpoint_path, epoch, None)
-            if resume_path:
-                save(resume_path, epoch, best)
-
         def save_live(path, epoch, best_):
+            """Write the epoch's state: a checkpoint (``best_`` None) or a
+            resume snapshot with the generator and the best so far."""
             key = (None if best_ is None
                    else self.generator.get_state().numpy())
             if checkpoint_format == "orbax":
@@ -1205,74 +1022,43 @@ class Trainer:
                     _write_checkpoint(path, params_to_numpy(params), opt,
                                       epoch, key, best_)
 
-        def finalize(epoch, aux, elapsed, ev_handle, snap, split):
-            """Epoch ``epoch``'s host work, on the worker thread."""
-            ev = self._finish_eval(ev_handle)
-            tr = self._finish_indexed(aux, elapsed)
-            host = snap.result() if snap is not None else {"emb": None}
-
-            def save_host(path, ep, best_):
-                _write_checkpoint(path, host["params"], host["opt_state"],
-                                  ep, None if best_ is None else host["key"],
-                                  best_)
-            post_epoch(epoch, tr, ev, save_host, split)
-            if host["emb"] is not None:
-                # the serial loop's export at the top of epoch + 1
-                np.save(embeddings_path, host["emb"])
-
-        overlap = (use_indexed and self.settings.task_mode != "regress"
-                   and checkpoint_format == "pickle" and not multi
-                   and os.environ.get("MATCHA_FIT_OVERLAP", "1") == "1")
-        if multi and use_indexed:
-            log("fit under a mesh of several ranks: serial epoch loop (the "
-                "overlapped pipeline is single-process)")
-        pinned_eval = (self._pin_eval_pool(test_buckets, batch_size)
-                       if overlap else None)
-        worker = (concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="matcha-fit")
-            if overlap else None)
-        pending = None
         try:
             for epoch in range(start_epoch, epochs):
-                if embeddings_path is not None and (not overlap
-                                                    or epoch == start_epoch):
-                    # later epochs' exports come from the snapshots
+                if embeddings_path is not None:
                     self.export_embeddings(embeddings_path)
-                # the trace covers the epoch's training and eval either way
-                prof = telemetry.profile_trace(profile_dir if epoch == 1
-                                               else None)
-                if overlap:
-                    with prof:
-                        t0 = time.perf_counter()
-                        with self._epoch_unit():
-                            aux = self.train_epoch_indexed_launch(batcher)
-                            aux["fetch"].wait()
-                        elapsed = time.perf_counter() - t0
-                        split = telemetry.epoch_split(self.last_epoch)
-                        ev_handle = (self.eval_epoch_pinned_launch(
-                            pinned_eval, seed=seed + epoch)
-                            if pinned_eval is not None else None)
-                    state = bool(checkpoint_path or resume_path)
-                    emb = embeddings_path is not None and epoch + 1 < epochs
-                    snap = (_Snapshot(self, state=state, emb=emb)
-                            if state or emb else None)
-                    if pending is not None:
-                        pending.result()
-                    pending = worker.submit(finalize, epoch, aux, elapsed,
-                                            ev_handle, snap, split)
-                    continue
-                with prof:
+                with telemetry.profile_trace(profile_dir if epoch == 1
+                                             else None):
                     tr = (self.train_epoch_indexed(batcher) if use_indexed
                           else self.train_epoch(batcher))
                     split = telemetry.epoch_split(self.last_epoch)
                     ev = self.eval_epoch(test_buckets, batch_size=batch_size,
                                          seed=seed + epoch)
-                post_epoch(epoch, tr, ev, save_live, split)
-            if pending is not None:
-                pending.result()
+                roc, aupr, _ = format_metrics(tr["metrics"])
+                fb = ""
+                if tr["fallback_bloom_rate"] or tr["fallback_orig_rate"]:
+                    fb = (f" sampler-fallback bloom "
+                          f"{tr['fallback_bloom_rate']:.2e}"
+                          f" orig {tr['fallback_orig_rate']:.2e}")
+                log(f"[epoch {epoch}] train bce {tr['bce']:.4f} recon "
+                    f"{tr['recon']:.4f} auc: {roc} aupr: {aupr} "
+                    f"({tr['hyperedges_per_sec']:.0f} hyperedges/s, "
+                    f"{tr['elapsed']:.1f}s){fb}")
+                roc, aupr, _ = format_metrics(ev["metrics"])
+                log(f"[epoch {epoch}] valid bce {ev['bce']:.4f} recon "
+                    f"{ev['recon']:.4f} auc: {roc} aupr: {aupr}")
+                history.append({"train": tr, "valid": ev})
+                if metrics_logger is not None:
+                    metrics_logger.log_epoch(stage, epoch, tr, ev, host=split)
+                val_aupr = ev["metrics"].get(
+                    max_k, ev["metrics"].get("all", {"auprc": 0.0}))["auprc"]
+                if np.isnan(val_aupr):
+                    val_aupr = -float(ev["bce"])
+                if checkpoint_path and val_aupr >= best:
+                    best = val_aupr
+                    save_live(checkpoint_path, epoch, None)
+                if resume_path:
+                    save_live(resume_path, epoch, best)
         finally:
-            if worker is not None:
-                worker.shutdown(wait=True)
             for mgr in (resume_mgr, ckpt_mgr):
                 if mgr is not None:
                     mgr.close()

@@ -8,14 +8,17 @@ draw enters the predictions) on the same params and rows: predictions and
 bce at 1e-5.  Checkpoints: a port checkpoint's params load in JAX's
 load_checkpoint, and a JAX checkpoint written without an optimizer state
 loads in the port.  fit: the empty-bucket drop, the best-AUPRC checkpoint and
-its reload, a resumed stage equal bit for bit to the uninterrupted one, and
-the indexed and host epoch paths on one trajectory.  Last, a two-stage fit of
+its reload, the checkpoints, resume snapshots and embeddings file it
+writes, a failing write raised out of it, a profile of epoch 1, its log
+order, a resumed stage equal bit for bit to the uninterrupted one, and the
+indexed and host epoch paths on one trajectory.  Last, a two-stage fit of
 each package from the same params on a learnable problem (hyperedges of
 nearby bins): their random streams differ, so the final validation AUROC of
 the largest k is held to within 0.15 of JAX's, both above 0.75.
 """
 
 import json
+import os
 import pickle
 
 import numpy as np
@@ -127,14 +130,11 @@ def test_logger_passes_lines_through():
     mlog.close()
 
 
-@pytest.mark.parametrize("overlap", ["1", "0"])
-def test_logger_writes_the_host_split(small, tmp_path, monkeypatch,
-                                      overlap):
+def test_logger_writes_the_host_split(small, tmp_path):
     """Each epoch's record holds its host time per step by span, its syncs
     (one per size and phase-2 round in a step; one per size for the
     epoch's indices and its one fetch, over its steps), its sampler rounds
     and its kernel launches per step (none on the CPU)."""
-    monkeypatch.setenv("MATCHA_FIT_OVERLAP", overlap)
     mlog = MetricsLogger(str(tmp_path))
     _trainer(small).fit(small["train"], small["test"], epochs=2,
                         metrics_logger=mlog, **FIT)
@@ -147,7 +147,7 @@ def test_logger_writes_the_host_split(small, tmp_path, monkeypatch,
         assert host["steps"] == FIT["num_batch_per_iter"]
         assert set(host["ms_per_step"]) == {
             "optimizer", "encode", "sample", "forward", "recon", "loss",
-            "backward", "epoch"}
+            "backward", "recon_backward", "epoch"}
         assert all(v > 0 for v in host["ms_per_step"].values())
         ks = len(small["train"])
         assert host["syncs_per_step"] == pytest.approx(
@@ -321,6 +321,126 @@ def test_resume_mid_stage_is_exact(small, tmp_path):
     for i in sa["state"]:
         for key in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(sa["state"][i][key], sb["state"][i][key])
+
+
+@pytest.mark.parametrize("which", ["checkpoint", "resume"])
+def test_fit_checkpoint_and_snapshot_hold_the_epoch_state(small, tmp_path,
+                                                          monkeypatch,
+                                                          which):
+    """Every pickle fit writes, read back through
+    ``load_checkpoint(full=True)`` as it is written, holds the Trainer's
+    params, AdamW moments and step counts at that epoch; a resume snapshot
+    every epoch with the generator's state and the best AUPRC so far, a
+    checkpoint the epochs that reach the best, with neither.  The resume
+    case writes checkpoints too, so that it has a best to record."""
+    t = _trainer(small)
+    paths = {"checkpoint_path": str(tmp_path / "checkpoint.pkl")}
+    if which == "resume":
+        paths["resume_path"] = str(tmp_path / "resume.pkl")
+    seen = []
+    write = tr._write_checkpoint
+
+    def write_and_check(p, *args):
+        write(p, *args)
+        if p != paths[f"{which}_path"]:
+            return
+        got = tr.load_checkpoint(p, full=True, device="cpu")
+        for a, b in zip(_leaves_np(got["params"]), _leaves_np(t.params)):
+            np.testing.assert_array_equal(a, b)
+        opt = got["opt_state"]
+        for i, leaf in enumerate(tr._leaves(t.params)):
+            st = t.optimizer.state[leaf]
+            np.testing.assert_array_equal(opt["exp_avg"][i],
+                                          st["exp_avg"].numpy())
+            np.testing.assert_array_equal(opt["exp_avg_sq"][i],
+                                          st["exp_avg_sq"].numpy())
+            assert opt["step"][i] == float(st["step"]) == \
+                (got["epoch"] + 1) * FIT["num_batch_per_iter"]
+        if which == "resume":
+            np.testing.assert_array_equal(got["key"],
+                                          t.generator.get_state().numpy())
+        else:
+            assert got["key"] is None and got["best"] is None
+        seen.append((got["epoch"], got["best"]))
+    monkeypatch.setattr(tr, "_write_checkpoint", write_and_check)
+    hist = t.fit(small["train"], small["test"], epochs=3, **paths, **FIT)
+    aupr = [h["valid"]["metrics"][3]["auprc"] for h in hist]
+    best = np.maximum.accumulate(aupr)
+    if which == "resume":
+        assert seen == [(e, pytest.approx(best[e])) for e in range(3)]
+    else:
+        assert seen == [(e, None) for e in range(3) if aupr[e] >= best[e]]
+
+
+def test_fit_writes_the_epoch_start_embeddings(small, tmp_path):
+    """The embeddings file of a 3-epoch fit holds the node embeddings of
+    the params at the start of its last epoch: those of a 2-epoch fit of
+    the same Trainer state and seed."""
+    emb = str(tmp_path / "emb.npy")
+    _trainer(small).fit(small["train"], small["test"], epochs=3,
+                        embeddings_path=emb, **FIT)
+    two = _trainer(small)
+    two.fit(small["train"], small["test"], epochs=2, **FIT)
+    want = two.export_embeddings(str(tmp_path / "want.npy"))
+    got = np.load(emb)
+    assert got.dtype == np.float32
+    assert got.shape == (small["genome"].num_nodes, 16)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["checkpoint", "resume", "embeddings"])
+def test_a_failing_checkpoint_write_raises_out_of_fit(small, tmp_path,
+                                                      which):
+    """The file's directory cannot be made (a file stands there): the
+    write fails and fit raises it; the log lines of the epochs before the
+    failure keep their order (the embeddings are written at the top of
+    epoch 0, the checkpoint and the snapshot at its end)."""
+    blocker = tmp_path / "a_file"
+    blocker.write_text("")
+    lines = []
+    with pytest.raises(OSError):
+        _trainer(small).fit(small["train"], small["test"], epochs=3,
+                            **{f"{which}_path": str(blocker / "f.pkl")},
+                            **{**FIT, "log": lines.append})
+    if which == "embeddings":
+        assert lines == []
+    else:
+        assert len(lines) == 2
+        assert lines[0].startswith("[epoch 0] train bce")
+        assert lines[1].startswith("[epoch 0] valid bce")
+
+
+def test_profile_dir_traces_epoch_one(small, tmp_path, monkeypatch):
+    """One trace per run, and it holds epoch 1's eval as well as its
+    training (the eval dispatch is marked with a span here)."""
+    launch_eval = tr.Trainer._launch_eval
+
+    def marked(self, *args, **kw):
+        with torch.profiler.record_function("eval_dispatch"):
+            return launch_eval(self, *args, **kw)
+    monkeypatch.setattr(tr.Trainer, "_launch_eval", marked)
+    lines = []
+    prof = tmp_path / "prof"
+    _trainer(small).fit(small["train"], small["test"], epochs=2,
+                        profile_dir=str(prof),
+                        **{**FIT, "log": lines.append})
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    assert os.path.getsize(prof / traces[0]) > 0
+    text = (prof / traces[0]).read_text()
+    assert "eval_dispatch" in text
+    assert [ln.split("]")[0] for ln in lines] == [
+        "[epoch 0", "[epoch 0", "[epoch 1", "[epoch 1"]
+
+
+def test_log_lines_keep_the_serial_order(small):
+    """Each epoch logs its training line, then its validation line."""
+    got = []
+    _trainer(small).fit(small["train"], small["test"], epochs=3,
+                        **{**FIT, "log": got.append})
+    assert [ln.split(" bce")[0] for ln in got] == [
+        f"[epoch {e}] {part}" for e in range(3)
+        for part in ("train", "valid")]
 
 
 def test_indexed_and_host_epochs_share_one_trajectory(small):

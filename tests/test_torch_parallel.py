@@ -925,7 +925,7 @@ def test_torchrun_train_equals_one_rank_with_n_shards(tmp_path, monkeypatch):
         timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.count("train sizes:") == 1        # rank 0 logs
-    assert "fit under a mesh of several ranks" in res.stdout
+    assert res.stdout.count("] valid bce") == 3         # one per epoch
     import matcha_tpu_torch.pipeline as pl
     settings = pl.TrainSettings
     monkeypatch.setattr(pl, "TrainSettings",

@@ -1,11 +1,13 @@
 """The recon loss in row blocks and tables handed in already cut to a rank's
 rows (``parallel.mesh.frozen_row_blocks``), on the CPU.
 
-* ``recon_loss_node`` with ``RECON_BLOCK_BYTES`` patched small decodes a
-  rank's rows in blocks (``_ReconBlocks``, the backward decoding each block
-  again) and equals the one-block loss and every gradient (the node rows',
-  the decoder's weight and bias), on inter_z with and without the f_max pad
-  columns and with the bf16 decode operands;
+* ``recon_loss_node`` (``_ReconBlocks``, the backward decoding each block
+  again) in one block and, with ``RECON_BLOCK_BYTES`` patched small, in
+  several equals the per-token oracle ``recon_loss_with_chrom`` (held
+  against the JAX package in ``test_torch_forward_buckets.py``): the loss
+  and every gradient (the node rows', the decoder's weight and bias), on
+  inter_z with and without the f_max pad columns, with the bf16 decode
+  operands, for every chromosome and on f32 and bf16 node tables;
 * ``frozen_row_blocks`` names the rows ``shard_frozen`` keeps, for every
   rank of model axes 1 to 4, and ``holds_rank_blocks`` tells whole tables
   from a rank's blocks and refuses a cut that is not the mesh's;
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.genome import GenomeBins
 from matcha_tpu_torch.models import hypersagnn as th
 from matcha_tpu_torch.parallel import distributed as pd
@@ -55,17 +58,28 @@ def _padded(frozen):
                                                            (0, f_max)))
 
 
-def _recon_and_grads(params, frozen, dims, x, r):
+def _recon_and_grads(params, frozen, dims, x, r, oracle=False):
+    """The recon loss of chromosome r over the tokens x of a random node
+    table and its gradients (decoder weight, bias, table): per node
+    (``recon_loss_node``), or with ``oracle`` per token
+    (``recon_loss_with_chrom`` on the tokens' rows, gathered in f32)."""
     dec = params["embed"]["recon"][r]
     leaves = [dec["w"].detach().clone().requires_grad_(True),
               dec["b"].detach().clone().requires_grad_(True)]
+    w = leaves[0]
+    if oracle and th._recon_decode_bf16():
+        w = w.to(torch.bfloat16).float()
     p = {**params, "embed": {**params["embed"], "recon": [
-        {"w": leaves[0], "b": leaves[1]} if c == r else d
+        {"w": w, "b": leaves[1]} if c == r else d
         for c, d in enumerate(params["embed"]["recon"])]}}
     table = torch.randn(dims.num_nodes + 1, dims.dim,
                         generator=torch.Generator().manual_seed(r),
                         dtype=dims.cdt).requires_grad_(True)
-    loss = th.recon_loss_node(p, frozen, dims, x, table, r)
+    if oracle:
+        loss = th.recon_loss_with_chrom(p, frozen, dims, x, table.float()[x],
+                                        r)
+    else:
+        loss = th.recon_loss_node(p, frozen, dims, x, table, r)
     loss.backward()
     return [loss.detach()] + [t.grad for t in leaves] + [table.grad]
 
@@ -74,24 +88,69 @@ def _recon_and_grads(params, frozen, dims, x, r):
 @pytest.mark.parametrize("pad_columns", [False, True])
 def test_blocked_recon_equals_one_block(monkeypatch, pad_columns,
                                         bf16_decode):
+    """One block and several against each other, and both against the
+    per-token oracle.  With the bf16 decode the oracle takes the same bf16
+    operands: the decoder's weight and tanh's output rounded through
+    autograd casts, which round their gradients alike; and its tokens are
+    every node once, since the oracle rounds each token's gradient where
+    the per-node decode rounds the node's sum."""
     _, dims, params, frozen, _ = _problem()
     if pad_columns:
         frozen = _padded(frozen)
     monkeypatch.setattr(th, "_RECON_BF16", bf16_decode)
-    x = torch.as_tensor(np.random.default_rng(1).integers(
-        0, dims.num_nodes + 1, 300))
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.integers(0, dims.num_nodes + 1, 300))
+    x_oracle = (torch.as_tensor(rng.permutation(dims.num_nodes + 1))
+                if bf16_decode else x)
     f_max = max(f.shape[1] for f in frozen.features)
+
+    def one_and_blocked(tokens, r):
+        with telemetry.unit("step") as one_unit:
+            one = _recon_and_grads(params, frozen, dims, tokens, r)
+        with monkeypatch.context() as m, \
+                telemetry.unit("step") as blocked_unit:
+            # blocks of the node rows at chromosome r's own width, the last
+            # short
+            m.setattr(th, "RECON_BLOCK_BYTES", 4 * f_max * 7)
+            blocked = _recon_and_grads(params, frozen, dims, tokens, r)
+        assert one_unit.counts["recon_blocks"] == 1
+        assert blocked_unit.counts["recon_blocks"] > 1
+        return one, blocked
+
     for r in range(dims.num_chroms):
-        one = _recon_and_grads(params, frozen, dims, x, r)
-        # under the f_max-wide rows of the one-block path: blocks of the
-        # node rows at chromosome r's own width, the last short
-        monkeypatch.setattr(th, "RECON_BLOCK_BYTES", 4 * f_max * 7)
-        blocked = _recon_and_grads(params, frozen, dims, x, r)
-        monkeypatch.undo()
-        monkeypatch.setattr(th, "_RECON_BF16", bf16_decode)
+        one, blocked = one_and_blocked(x, r)
         assert float(one[0]) > 0
         for a, b in zip(one, blocked):
             torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+        if bf16_decode:
+            one, blocked = one_and_blocked(x_oracle, r)
+        with monkeypatch.context() as m:
+            if bf16_decode:
+                tanh = torch.tanh
+                m.setattr(torch, "tanh",
+                          lambda t: tanh(t).to(torch.bfloat16).float())
+            want = _recon_and_grads(params, frozen, dims, x_oracle, r,
+                                    oracle=True)
+        for a, b, c in zip(want, one, blocked):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(c, a, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [0, 1, 2])
+def test_recon_loss_node_equals_the_per_token_oracle(r, dtype):
+    """The per-node loss of chromosome r on an f32 or a bf16 node table
+    (its gradient cast back to the table's dtype) against the per-token
+    oracle: tokens drawn with repeats, so each node's weight is its count."""
+    _, dims, params, frozen, _ = _problem()
+    dims = dims._replace(compute_dtype=dtype)
+    x = torch.as_tensor(np.random.default_rng(2).integers(
+        0, dims.num_nodes + 1, 300))
+    want = _recon_and_grads(params, frozen, dims, x, r, oracle=True)
+    got = _recon_and_grads(params, frozen, dims, x, r)
+    assert float(want[0]) > 0 and got[3].dtype == dims.cdt
+    for a, b in zip(want, got):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
 
 
 def test_the_blocked_recon_on_bf16_rows_returns_their_dtype(monkeypatch):
@@ -223,9 +282,9 @@ def _same(a, b, **tol):
 def test_rank_blocks_train_the_step_of_whole_tables(worlds, m):
     for out in worlds[m]:
         assert out["kept_padTrue"] and out["kept_padFalse"]
-        # the same rows, the same contiguous target slice: the same bits
+        # the same rows and chromosome r's own columns: the same bits,
+        # whether or not the given blocks carry the pad columns
         _same(out["whole"], out["blocks_padTrue"], rtol=0, atol=0)
-        # without the pad columns the target is gathered column by column
         _same(out["whole"], out["blocks_padFalse"], rtol=0, atol=0)
         _same(out["whole"], out["blocks_blocked_recon"], rtol=1e-5,
               atol=1e-6)

@@ -155,7 +155,7 @@ def test_no_record_function_without_a_profiler(problem, monkeypatch):
     req, = telemetry.units("request")
     assert not step.profiled and not req.profiled
     assert set(step.spans) == {"optimizer", "encode", "sample", "forward",
-                               "recon", "loss", "backward"}
+                               "recon", "loss", "backward", "recon_backward"}
     assert set(req.spans) == {"convert", "encode", "forward", "fetch"}
     # 10 rows of size 3 and 7 of size 2 in chunks of 4 (3 + 2 forward
     # calls): one copy to the device, not waited for, and one fetch
@@ -275,8 +275,9 @@ def test_a_step_counts_its_recon_blocks(problem, monkeypatch):
     assert one.counts["recon_blocks"] == 1
     assert blocked.counts["recon_blocks"] in {
         -(-rows // (budget // (4 * w))) for w in widths}
-    assert "recon" in one.spans and "recon_backward" not in one.spans
-    # the CPU runs the backward on the step's thread: its span lands there
+    # one block or several, the recon runs through _ReconBlocks; the CPU
+    # runs the backward on the step's thread: its span lands there
+    assert "recon" in one.spans and "recon_backward" in one.spans
     assert "recon" in blocked.spans and "recon_backward" in blocked.spans
     assert blocked.spans["forward"] >= blocked.spans["recon"] > 0
 

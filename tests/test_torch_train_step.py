@@ -282,7 +282,7 @@ def test_labels_for_batch_match_jax(prob):
 
 def test_indexed_epochs_train_on_cpu(prob):
     """A stage-1 epoch, then three stage-2 steps against Bloom filters:
-    finite losses, every parameter moves, the inter_z pad and the host
+    finite losses, every parameter moves, the caller's inter_z and the host
     chromosome bounds are in place."""
     tp, tf, td, tt = prob["t"]
     td = td._replace(compute_dtype="float32")
@@ -298,8 +298,9 @@ def test_indexed_epochs_train_on_cpu(prob):
                          tr.TrainSettings(alpha=1.0, beta=0.001,
                                           token_stream="merged"),
                          blooms=blooms, seed=1)
-    f_max = max(f.shape[1] for f in tf.features)
-    assert trainer.frozen.inter_z.shape[1] == tf.inter_z.shape[1] + f_max
+    # the caller's inter_z, kept without a copy or pad columns
+    assert trainer.frozen.inter_z.data_ptr() == tf.inter_z.data_ptr()
+    assert trainer.frozen.inter_z.shape == tf.inter_z.shape
     assert trainer.settings.chrom_bounds == tuple(
         (int(s), int(e)) for s, e in prob["genome"].chrom_range)
     before = [t.detach().clone() for t in tr._leaves(trainer.params)]
