@@ -8,12 +8,15 @@ walk pretraining and multi-rank training on one NVIDIA GPU.
 Phases, all in this process; any failure exits non-zero before the last line.
 Wherever a phase checks the launch counts of a stage-2 step or eval batch
 (the sampler against filters, k <= 6, on the card), K7 also launches once
-per size and once more per phase-2 round the sampler ran:
+per size and once more per phase-2 round the sampler ran; every training
+step launches K8's keep, forward and backward once, and every eval, embeddings
+export or scoring call one K8 forward (its encode of the node table):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile every kernel from csrc/ with nvcc (sm_90a), one nvcc per
      source, all at once: K1 (attention forward), K2 (attention backward),
      K3 (scatter-add) and K4 (bincount), K5 (phase-1 proposals), K6 (the
-     fused classifier tail, forward and backward), K7 (the sampler's chain).
+     fused classifier tail, forward and backward), K7 (the sampler's chain),
+     K8 (the node-table encode: keep bits, forward, backward).
   3. kernels vs plain: each kernel's wrapper against its plain PyTorch version
      on the card, over the shapes the main paths give it (f32 with TF32 off,
      and bf16), with the tolerances stated below; the Bloom hashes computed
@@ -105,7 +108,11 @@ per size and once more per phase-2 round the sampler ran:
      and the fit's epoch and eval walls; K7 beside K5 at 2,048 and 96
      positives per k = 2..5 (K7's phase 1 alone by events and device time,
      the bytes bound; the whole per-size sampler call, draws and rounds
-     included, on K7 and, as the plain column, on the eager chain).
+     included, on K7 and, as the plain column, on the eager chain); K8 at
+     the hg38 1 Mb and 100 kb encodes (f32 tables, bf16, dim 64): its keep,
+     forward and backward by events and device time beside their bytes
+     bounds, against the eager chain's forward and backward on the same
+     draws (time and values).
  10. shapes the kernels do not take: a dim-16, 4-head model (f32, k = 2, 3,
      the hg38 genome) with the fused tail on; the counts are zeroed just
      before and read just after one Trainer.train_step ("xla" proposals:
@@ -313,6 +320,7 @@ from matcha_tpu_torch.models.hypersagnn import (ModelDims,
 from matcha_tpu_torch.models.modules import (dropout, layer_norm, mha_init,
                                              pff, split_generator)
 from matcha_tpu_torch.ops import fused_tail as ft
+from matcha_tpu_torch.ops import node_encode as ne
 from matcha_tpu_torch.ops import propose as tp
 from matcha_tpu_torch.ops import sample_negatives as sn
 from matcha_tpu_torch.ops import table_scatter as ts
@@ -324,8 +332,9 @@ from matcha_tpu_torch.ops.incidence import PaddedIncidence, pair_cooccurrence
 from matcha_tpu_torch.parallel.distributed import (free_port,
                                                    init_distributed, spawn)
 from matcha_tpu_torch.parallel.mesh import (all_gather_blocks,
-                                            frozen_nbytes, make_mesh,
-                                            model_group_rows, rank_rows,
+                                            block_span, frozen_nbytes,
+                                            make_mesh, model_group_rows,
+                                            rank_rows,
                                             reduce_scatter_blocks, tp_gather,
                                             using_active_mesh)
 from matcha_tpu_torch.parallel.stream import shard_concat
@@ -382,6 +391,11 @@ FIT_EPOCHS, TEST_PER_K, EVAL_SAMPLES = 3, 4_000, 10_000
 # chain by a bf16 ulp (2e-2 relative to each output's max, the scale floored
 # at 1e-3 of the largest gradient, as in phase 6)
 TOL_K6 = {"float32": 1e-4, "bfloat16": 2e-2}
+# K8 (bf16) against the eager chain on the same draws: the output as K1's
+# (the same roundings, sums in another order); each gradient within 3e-2 of
+# its largest entry (the eager chain rounds dW1 and dW2 to bf16, K8 sums
+# them in f32)
+TOL_K8_OUT, TOL_K8_GRAD = 2e-2, 3e-2
 # resume on the card: every kernel of the step is deterministic and the
 # resumed Trainer replays the snapshot's generator state, so epoch 2 should
 # repeat bit for bit; 1e-6 relative leaves room for a library reduction that
@@ -1092,6 +1106,191 @@ def time_k7(device, card) -> dict:
     return out
 
 
+def k8_case(device, label: str):
+    """K8's inputs at one of time_k8's shapes, dim 64 -> (features, w1s,
+    w2s, rows, first (each chromosome's first draw row), widths, draw
+    (c -> chromosome c's draw, made anew from its own seed), batched)."""
+    res = {"1mb": 1_000_000, "100kb": RES_100KB, "10kb": 10_000}[label]
+    genome = GenomeBins(HG38_NAMES, HG38, res)
+    widths = [int(e - s) for s, e in genome.chrom_range]
+    C, W = len(widths), max(widths)
+    batched = C * W * W * 4 <= (64 << 20)
+    g = torch.Generator(device=device).manual_seed(SEED + 95)
+
+    def uniform(*shape, scale=1.0):
+        return (torch.rand(shape, device=device, generator=g) * 2
+                - 1) * scale
+    if label == "10kb":
+        # model rank 3 of a 1 x 4 model axis: bf16 rows [3b, 4b) of each
+        # table padded to 4b rows (pad rows zero, reading the draw's last
+        # row), as train_10kb_m4_b96's last rank holds them
+        spans = [block_span(n, 4, 3) for n in widths]
+        rows = [hi - lo for lo, hi in spans]
+        first = [lo for lo, _ in spans]
+        feats = []
+        for (lo, _), b, n in zip(spans, rows, widths):
+            x = uniform(b, n).to(torch.bfloat16)
+            x[max(0, n - lo):] = 0
+            feats.append(x)
+    else:
+        rows, first = widths, [0] * C
+        feats = [uniform(n, n) for n in widths]
+    w1s = [uniform(n, DIM, scale=n ** -0.5).requires_grad_(True)
+           for n in widths]
+    w2s = [uniform(DIM, DIM, scale=DIM ** -0.5).requires_grad_(True)
+           for _ in widths]
+
+    def draw(c):
+        gc = torch.Generator(device=device).manual_seed(SEED + 300 + c)
+        if batched:
+            return torch.rand((W, W), device=device, generator=gc)
+        return torch.rand((widths[c], widths[c]), device=device,
+                          generator=gc)
+    return feats, w1s, w2s, rows, first, widths, draw, batched
+
+
+def time_k8(device, card) -> dict:
+    """Phase 9: K8 at the training cells' encode shapes, dim 64, bf16
+    compute: hg38 at 1 Mb (23 chromosomes, one (C, W, W) draw) and at 100 kb
+    (a draw per chromosome) on f32 tables, and at 10 kb the last rank of
+    train_10kb_m4_b96's 1 x 4 model axis (bf16 rows offset by the rank,
+    clipped to the draw's last row, the keep packed over several launches
+    under KEEP_GROUP_BYTES).  The keep bits against ``pack_bits(keep_plain
+    (...))`` bit for bit; the output and gradients against the plain version
+    (the eager chain on the same draws: the keep test, the masked products
+    and autograd's backward) within TOL_K8_OUT and TOL_K8_GRAD; the keep
+    packing, the forward and the backward by CUDA events around their
+    wrappers and their device time by the profiler, the plain version by
+    events; the bound: the bytes each launch reads and writes at 3.35 TB/s.
+    At 10 kb also the peak of the draws and bits held while the keep is
+    packed, at KEEP_GROUP_BYTES and one launch a draw."""
+    out = {}
+    rate = 0.2
+    for label in ("1mb", "100kb", "10kb"):
+        feats, w1s, w2s, rows, first, widths, draw, batched = k8_case(
+            device, label)
+        C, W = len(widths), max(widths)
+        plan = ne.plan(feats, w1s, w2s, torch.bfloat16,
+                       [W] * C if batched else widths, first,
+                       label != "10kb")
+
+        def keep_streamed():
+            """The step's order: each draw made, handed to Keep, let go."""
+            k = ne.Keep(plan, rate)
+            if batched:
+                k.add(torch.stack([draw(c) for c in range(C)]))
+            else:
+                for c in range(C):
+                    k.add(draw(c))
+            return k.finish()
+        peak = {}
+        for group in (ne.KEEP_GROUP_BYTES, 0):
+            real = ne.KEEP_GROUP_BYTES
+            ne.KEEP_GROUP_BYTES = group
+            try:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                n0 = ne.keep_cuda.launches
+                got_bits = keep_streamed()
+                torch.cuda.synchronize()
+                peak[group] = (torch.cuda.max_memory_allocated(device)
+                               - base, ne.keep_cuda.launches - n0)
+            finally:
+                ne.KEEP_GROUP_BYTES = real
+            if group:
+                bits, keep_launches = got_bits, peak[group][1]
+            elif not torch.equal(got_bits, bits):
+                fail(f"K8 at {label}: the keep bits differ between one "
+                     f"launch a draw and KEEP_GROUP_BYTES groups")
+        del got_bits
+        keeps = []
+        for c in range(C):
+            kp = ne.keep_plain(draw(c), rows[c], first[c], widths[c], rate)
+            f = plan.fields[c]
+            o, n = int(f[ne.F_BITS]), int(f[ne.F_ROWS] * f[ne.F_WORDS])
+            if not torch.equal(bits[o:o + n],
+                               ne.pack_bits(kp).view(-1)):
+                fail(f"K8 at {label}: chromosome {c}'s keep bits differ "
+                     f"from pack_bits(keep_plain(...))")
+            keeps.append(kp)
+        draws = [torch.stack([draw(c) for c in range(C)])] if batched \
+            else [draw(c) for c in range(C)]
+        us = list(draws[0]) if batched else draws
+
+        def keep():
+            k = ne.Keep(plan, rate)
+            for u in draws:
+                k.add(u)
+            return k.finish()
+        _, t = ne.encode_fwd_cuda(plan, bits, rate, True)
+        dh = torch.randn((plan.out_rows, DIM), device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(SEED + 96)).to(torch.bfloat16)
+
+        def plain():
+            ks = [ne.keep_plain(u, r, f0, n, rate)
+                  for u, r, f0, n in zip(us, rows, first, widths)]
+            h = ne.node_encode_plain(feats, w1s, w2s, torch.bfloat16, ks,
+                                     rate, label != "10kb")
+            return h, torch.autograd.grad(h, w1s + w2s, dh)
+        h = ne.node_encode(plan, feats, bits, rate, w1s, w2s)
+        got = torch.autograd.grad(h, w1s + w2s, dh)
+        ref = ne.node_encode_plain(feats, w1s, w2s, torch.bfloat16, keeps,
+                                   rate, label != "10kb")
+        want = torch.autograd.grad(ref, w1s + w2s, dh)
+        err = float((h - ref).detach().float().abs().max())
+        gerr = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(got, want))
+        del keeps, h, got, ref, want
+        esize = feats[0].element_size()
+        x_bytes = sum(r * n * esize for r, n in zip(rows, widths))
+        u_bytes = sum(r * n * 4 for r, n in zip(rows, widths))
+        words = plan.n_words * 4
+        rows_bytes = plan.t_rows * DIM * 2
+        grad_bytes = plan.n_grad * 4
+        bound = {"keep": (u_bytes + words) / PEAK_BYTES * 1e3,
+                 "fwd": (x_bytes + words + plan.out_rows * DIM * 2
+                         + rows_bytes) / PEAK_BYTES * 1e3,
+                 "bwd": (x_bytes + words + plan.out_rows * DIM * 2
+                         + rows_bytes + grad_bytes) / PEAK_BYTES * 1e3}
+        calls = {"keep": keep,
+                 "fwd": lambda: ne.encode_fwd_cuda(plan, bits, rate, True),
+                 "bwd": lambda: ne.encode_bwd_cuda(plan, bits, rate, dh, t)}
+        row = {"chromosomes": C, "nodes": plan.t_rows, "batched": batched,
+               "table_dtype": str(feats[0].dtype).replace("torch.", ""),
+               "first_rows": first[:3], "x_mbytes": x_bytes / 1e6,
+               "draw_rows_mbytes": u_bytes / 1e6, "max_abs_err": err,
+               "grad_err_rel_to_max": gerr, "bits_equal": True,
+               "keep_launches": keep_launches,
+               "keep_group_bytes": ne.KEEP_GROUP_BYTES,
+               "keep_peak_gb": peak[ne.KEEP_GROUP_BYTES][0] / 1e9,
+               "keep_peak_gb_one_launch_a_draw": peak[0][0] / 1e9,
+               "plain_ms": cuda_ms(plain, iters=5),
+               "plain_note": "the eager chain's keep test, forward and "
+                             "backward on the same draws"}
+        for name, fn in calls.items():
+            row[f"{name}_ms"] = cuda_ms(fn)
+            row[f"{name}_device_ms"] = device_ms_per_call(fn)
+            row[f"{name}_bound_ms"] = bound[name]
+        row["ms"] = sum(row[f"{n}_ms"] for n in calls)
+        row["bound_ms"] = sum(bound.values())
+        out[f"K8_{label}"] = row
+        print(f"K8 at {label}: {json.dumps(row)}", flush=True)
+        if err > TOL_K8_OUT or gerr > TOL_K8_GRAD:
+            fail(f"K8 at {label} disagrees with the eager chain: output "
+                 f"{err:.3e} (tol {TOL_K8_OUT}), gradients {gerr:.3e} of "
+                 f"their largest entries (tol {TOL_K8_GRAD})")
+        if label == "10kb" and keep_launches < 2:
+            fail(f"K8 at 10 kb packed its keep in {keep_launches} launch: "
+                 f"the split under KEEP_GROUP_BYTES went unchecked")
+        del feats, w1s, w2s, draws, us, plan, bits, t, dh
+        torch.cuda.empty_cache()
+    print(json.dumps({"metric": "k8_node_encode", **out, "card": card}),
+          flush=True)
+    return out
+
+
 def tail_inputs(device, T, dtype, seed):
     """y and h like the attention output and the static stream, and the
     tail's params at full width (d = 64) with LayerNorms off 1/0."""
@@ -1409,6 +1608,9 @@ def launch_counts() -> dict:
             "K6_fwd": ft.fused_tail_fwd_cuda.launches,
             "K6_bwd": ft.fused_tail_bwd_cuda.launches,
             "K7": sn.sample_negatives_cuda.launches,
+            "K8_fwd": ne.encode_fwd_cuda.launches,
+            "K8_bwd": ne.encode_bwd_cuda.launches,
+            "K8_keep": ne.keep_cuda.launches,
             "rounds": _rounds_run[0]}
 
 
@@ -1422,6 +1624,9 @@ def zero_launch_counts():
     ft.fused_tail_fwd_cuda.launches = 0
     ft.fused_tail_bwd_cuda.launches = 0
     sn.sample_negatives_cuda.launches = 0
+    ne.encode_fwd_cuda.launches = 0
+    ne.encode_bwd_cuda.launches = 0
+    ne.keep_cuda.launches = 0
     _rounds_run[0] = 0
 
 
@@ -1429,12 +1634,15 @@ def step_counts(fused: bool, pallas: bool, filters: bool = True) -> dict:
     """One training step's launches: K1 and K2 once per k >= 3, K3 and K4
     once, K5 once per k with the "pallas" proposals against filters, K6
     forward and backward once with the fused tail, K7 once per k against
-    filters (stage 2) and once more per phase-2 round (``with_rounds``)."""
+    filters (stage 2) and once more per phase-2 round (``with_rounds``),
+    K8's forward, backward and keep once (every feature-dropout draw of a
+    step at 1 Mb and 100 kb fits one keep launch)."""
     n_attn = sum(1 for k in TRAIN_KS if k >= 3)
     return {"K1": n_attn, "K2": n_attn, "K3": 1, "K4": 1,
             "K5": len(TRAIN_KS) if pallas and filters else 0,
             "K6_fwd": int(fused), "K6_bwd": int(fused),
-            "K7": len(TRAIN_KS) if filters else 0}
+            "K7": len(TRAIN_KS) if filters else 0,
+            "K8_fwd": 1, "K8_bwd": 1, "K8_keep": 1}
 
 
 def with_rounds(want: dict, got: dict) -> dict:
@@ -1864,10 +2072,18 @@ def eval_counts(pallas: bool, filters: bool = True) -> dict:
     """One eval batch's launches: K1 once (the padded forward, L = 5), K4
     once (the recon loss's counts), K5 once per k with the "pallas"
     proposals against filters, K7 once per k against filters (and once
-    more per phase-2 round: ``with_rounds``)."""
+    more per phase-2 round: ``with_rounds``).  An eval encodes the node
+    table once for all its batches (``with_encodes``)."""
     return {"K1": 1, "K2": 0, "K3": 0, "K4": 1,
             "K5": len(TRAIN_KS) if pallas and filters else 0, "K6_fwd": 0,
-            "K6_bwd": 0, "K7": len(TRAIN_KS) if filters else 0}
+            "K6_bwd": 0, "K7": len(TRAIN_KS) if filters else 0,
+            "K8_fwd": 0, "K8_bwd": 0, "K8_keep": 0}
+
+
+def with_encodes(want: dict, n: int) -> dict:
+    """``want`` plus n eval-mode encodes of the node table (an eval, an
+    embeddings export, a scoring request): one K8 forward each."""
+    return {**want, "K8_fwd": want["K8_fwd"] + n}
 
 
 def counts_match(got: dict, want: dict) -> bool:
@@ -1968,10 +2184,9 @@ def fit_phase(problem, genome, card) -> dict:
     h1 = s1.fit(buckets, test, epochs=1, log=log, **fit_kw)
     stage1_s = time.perf_counter() - t0
     got1 = launch_counts()
-    want1 = with_rounds(added(scaled(step_counts(True, False, False),
-                                     TRAIN_STEPS),
-                              scaled(eval_counts(False, False), n_eval)),
-                        got1)
+    want1 = with_rounds(with_encodes(added(
+        scaled(step_counts(True, False, False), TRAIN_STEPS),
+        scaled(eval_counts(False, False), n_eval)), 1), got1)
     print(f"fit stage 1: launches {got1} (expected {want1})", flush=True)
     if got1 != want1:
         fail(f"fit stage 1 launched {got1}, expected {want1}")
@@ -1986,7 +2201,10 @@ def fit_phase(problem, genome, card) -> dict:
                       seed=SEED + 1)
     run = recorded_fit(trainer, buckets, test, tmp, log, **fit_kw)
     for i, got in enumerate(run["epoch_counts"]):
-        want = with_rounds(want_epoch, got)
+        # the eval's encode, and the next epoch's embeddings export (made
+        # before its training launch, so in this epoch's window)
+        want = with_rounds(with_encodes(want_epoch,
+                                        1 + (i < FIT_EPOCHS - 1)), got)
         print(f"fit stage 2 epoch {i}: launches {got} (expected {want})",
               flush=True)
         if got != want:
@@ -2313,7 +2531,7 @@ def small_model_phase(genome, device, card) -> dict:
     torch.cuda.synchronize()
     step = launch_counts()
     want = {k: 0 for k in step}
-    want.update(K3=1, K4=1, K7=len(ks))
+    want.update(K3=1, K4=1, K7=len(ks), K8_fwd=1, K8_bwd=1, K8_keep=1)
     want = with_rounds(want, step)
     losses = [float(aux["bce"]), float(aux["recon"])]
     print(f"small model (dim {dim}, {n_head} heads, k = {list(ks)}): one "
@@ -2527,10 +2745,11 @@ def cli_kmers_and_train(cfg: str, tmp: str, temp: str, genome, out: dict,
         fail(f"run_train's embeddings: shape {emb.shape}, finite "
              f"{bool(np.isfinite(emb).all())}")
     launched = out["launches"]
-    if not all(launched[k] for k in ("K1", "K2", "K3", "K4", "K7")) or any(
+    if not all(launched[k] for k in ("K1", "K2", "K3", "K4", "K7", "K8_fwd",
+                                     "K8_bwd", "K8_keep")) or any(
             launched[k] for k in ("K5", "K6_fwd", "K6_bwd")):
-        fail(f"run_train launched {launched}: expected K1-K4 and K7, and "
-             f"no K5 or K6 on the shipped path")
+        fail(f"run_train launched {launched}: expected K1-K4, K7 and K8, "
+             f"and no K5 or K6 on the shipped path")
 
 
 # ----------------------------------------------------- walk pretraining
@@ -2846,8 +3065,10 @@ def denoise_phase(bundle, genome, device, card) -> dict:
         fail(f"denoise gave {len(bal)} pixels, expected {want}")
     if not np.isfinite(bal).all() or (bal < 0).any() or (bal > 1).any():
         fail("denoised values are not finite or outside [0, 1]")
-    if any(launched.values()):
-        fail(f"denoise launched {launched}: the closed form needs no kernel")
+    if launched["K8_fwd"] != genome.num_chroms or any(
+            v for k, v in launched.items() if k != "K8_fwd"):
+        fail(f"denoise launched {launched}: the closed form needs only the "
+             f"node table's encode, one K8 forward per chromosome")
 
     f32 = dims._replace(compute_dtype="float32")
     p_card = pairwise_proba_matrix(params, frozen, f32, genome, 0)
@@ -2938,6 +3159,7 @@ def outlier_phase(model, cpu_model, samples, genome, card,
     rows = sum(len(x) for x, _ in sets.values())
     want = {key: 0 for key in launched}
     want["K1"] = sum(-(-len(x) // BATCH) for x, _ in sets.values())
+    want["K8_fwd"] = len(sets)          # one encode per scoring call
     out = {"metric": metric, "value": rows / wall,
            "rows": {k: len(x) for k, (x, _) in sets.items()},
            "wall_s": wall, "generate_s": gen_s,
@@ -3022,7 +3244,8 @@ def modes_phase(problem, genome, card) -> dict:
     torch.cuda.synchronize()
     step = launch_counts()
     want_step = {**none, "K1": n_attn, "K2": n_attn, "K4": len(TRAIN_KS),
-                 "K7": len(TRAIN_KS)}
+                 "K7": len(TRAIN_KS), "K8_fwd": 1, "K8_bwd": 1,
+                 "K8_keep": 1}
     test = random_buckets(genome, np.random.default_rng(SEED + 50),
                           TEST_PER_K)
     per_k = EVAL_SAMPLES // len(TRAIN_KS)
@@ -3031,6 +3254,7 @@ def modes_phase(problem, genome, card) -> dict:
     want_fit["K1"] += n_attn * n_eval
     want_fit["K4"] += len(TRAIN_KS) * n_eval
     want_fit["K7"] += len(TRAIN_KS) * n_eval
+    want_fit = with_encodes(want_fit, 1)            # the eval's encode
     logs = []
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "model.chkpt")
@@ -3080,7 +3304,8 @@ def modes_phase(problem, genome, card) -> dict:
     epoch = launch_counts()
     want = with_rounds({**none, "K1": n_attn * TRAIN_STEPS,
                         "K2": n_attn * TRAIN_STEPS,
-                        "K7": len(TRAIN_KS) * TRAIN_STEPS}, epoch)
+                        "K7": len(TRAIN_KS) * TRAIN_STEPS,
+                        "K8_fwd": TRAIN_STEPS}, epoch)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3787,7 +4012,7 @@ def occ_check(ranks, ref, names, want_step) -> dict:
     = D (TOL_MESH_GRAD of each gradient's max); the peak memory per
     rank."""
     occ = [r["occ"] for r in ranks]
-    want = {**want_step, "K3": 0, "K4": 0}
+    want = {**want_step, "K3": 0, "K4": 0, "K8_bwd": 0, "K8_keep": 0}
     ref_loss, ref_grads = ref
     worst = max(max(grad_errors(o["grads_f32"], ref_grads, names).values())
                 for o in occ)
@@ -3822,9 +4047,11 @@ def mesh_fit_check(ranks) -> dict:
     rank, finite histories, params equal across the ranks, the resume ran
     the one remaining epoch."""
     n_eval = EVAL_SAMPLES // TRAIN_BATCH
-    want = added(scaled(step_counts(True, True),
-                        MESH_FIT_EPOCHS * TRAIN_STEPS),
-                 scaled(eval_counts(True), MESH_FIT_EPOCHS * n_eval))
+    want = with_encodes(added(scaled(step_counts(True, True),
+                                     MESH_FIT_EPOCHS * TRAIN_STEPS),
+                              scaled(eval_counts(True),
+                                     MESH_FIT_EPOCHS * n_eval)),
+                        MESH_FIT_EPOCHS)
     fits = [r["fit"] for r in ranks]
     out = {"launches_per_rank": [f["counts"] for f in fits],
            "expected": want, "wall_s": [f["wall_s"] for f in fits],
@@ -4083,10 +4310,10 @@ def hundred_kb_phase(card, device=torch.device("cuda")) -> dict:
         saved = load_checkpoint(ckpt, device="cpu")
     del trainer.train_epoch_indexed_launch
     eval_batches = (len(TRAIN_KS) * TEST_PER_K_100KB) // TRAIN_BATCH
-    want = with_rounds(added(
+    want = with_rounds(with_encodes(added(
         scaled(step_counts(False, False), FIT_EPOCHS_100KB * STEPS_100KB),
         scaled(eval_counts(False), FIT_EPOCHS_100KB * eval_batches)),
-        fit_counts)
+        2 * FIT_EPOCHS_100KB), fit_counts)
     print(f"100 kb fit launches {fit_counts} (expected {want})", flush=True)
     if fit_counts != want:
         fail(f"the 100 kb fit launched {fit_counts}, expected {want}")
@@ -4263,8 +4490,10 @@ def denoise_100kb(params, frozen, dims, genome, intra, cpu_model,
              f"{PIXELS_100KB}")
     if not np.isfinite(bal).all() or (bal < 0).any() or (bal > 1).any():
         fail("denoised values at 100 kb are not finite or outside [0, 1]")
-    if any(launched.values()):
-        fail(f"denoise launched {launched}: the closed form needs no kernel")
+    if launched["K8_fwd"] != genome.num_chroms or any(
+            v for k, v in launched.items() if k != "K8_fwd"):
+        fail(f"denoise launched {launched}: the closed form needs only the "
+             f"node table's encode, one K8 forward per chromosome")
 
     rng = np.random.default_rng(SEED + 91)
     devs = []
@@ -4329,6 +4558,7 @@ def predict_multiway_100kb(bundle, qpath, genome, dims, cpu_model, tmp,
     want = {key: 0 for key in launched}
     want["K1"] = sum(-(-int((sizes == k).sum()) // BATCH) for k in KS
                      if k >= 3)
+    want["K8_fwd"] = 1                  # the request's one encode
     out = {"metric": "predict_multiway_hyperedges_per_s_100kb",
            "value": len(proba) / wall, "wall_s": wall,
            "candidates": len(proba),
@@ -4601,6 +4831,7 @@ def main():
     counts = fit["counts"]
     nk = time_new_kernels(device, card)
     k7t = time_k7(device, card)
+    k8t = time_k8(device, card)
     step_ab(train["problem"], card)
 
     # 10. shapes the kernels do not take
@@ -4826,6 +5057,34 @@ def main():
                     "before; sampler_ms against plain_ms: the whole "
                     "per-size call, draws and rounds included, on K7 and "
                     "on the eager chain",
+         "library_ms": None},
+        {"name": "node_encode", "route": "cuda",
+         "source": "matcha_tpu_torch/csrc/node_encode.cu",
+         "replaces": "none: the eager encode chain "
+                     "(matcha_tpu_torch/models/hypersagnn.py:"
+                     "encode_node_table)",
+         "tc_route": "bf16: wgmma, one warpgroup per 64-row tile (forward) "
+                     "or 64-column block (backward); f32: CUDA cores",
+         "launches": counts["K8_fwd"], "launches_bwd": counts["K8_bwd"],
+         "launches_keep": counts["K8_keep"],
+         "launches_step_path": {k: step_path[k] for k in
+                                ("K8_fwd", "K8_bwd", "K8_keep")},
+         **mesh_launches("K8_fwd"),
+         "max_abs_err": k8t["K8_100kb"]["max_abs_err"],
+         "ms": k8t["K8_100kb"]["ms"], "plain_ms": k8t["K8_100kb"]["plain_ms"],
+         "device_ms": {n: k8t["K8_100kb"][f"{n}_device_ms"]
+                       for n in ("keep", "fwd", "bwd")},
+         "bound_ms": k8t["K8_100kb"]["bound_ms"], "bound_by": "bytes",
+         "at_10kb_rank": {key: k8t["K8_10kb"][key] for key in (
+             "ms", "bound_ms", "plain_ms", "keep_ms", "keep_bound_ms",
+             "fwd_ms", "fwd_bound_ms", "bwd_ms", "bwd_bound_ms",
+             "keep_device_ms", "fwd_device_ms", "bwd_device_ms",
+             "max_abs_err", "grad_err_rel_to_max", "bits_equal",
+             "keep_launches")},
+         "ms_note": "100 kb (and at_10kb_rank: train_10kb_m4_b96's last "
+                    "model rank, bf16 rows): keep + forward + backward by "
+                    "events; plain_ms the eager chain's keep test, forward "
+                    "and backward",
          "library_ms": None}]}),
           flush=True)
     print(card, flush=True)

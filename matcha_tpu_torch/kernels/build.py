@@ -23,7 +23,8 @@ PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 KERNELS = ("hyperedge_attention_fwd", "hyperedge_attention_bwd",
-           "table_scatter", "propose", "fused_tail", "sample_negatives")
+           "table_scatter", "propose", "fused_tail", "sample_negatives",
+           "node_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

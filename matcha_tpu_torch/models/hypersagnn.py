@@ -18,7 +18,9 @@ fused tail on (``configure_fuse_tail`` / ``MATCHA_FUSE_TAIL``),
 (K6 on a CUDA tensor).  ``MATCHA_RECON_BF16=1`` runs the recon decode with
 bf16 operands and f32 accumulation.  Feature dropout is drawn per node row
 of the table (``per_node``, the default) or per token occurrence
-(``per_occurrence``, the reference's placement).
+(``per_occurrence``, the reference's placement).  On the card the node
+table's encode after the feature-dropout draws is K8 (``ops/node_encode.py``,
+one launch a direction for every chromosome).
 
 ``forward_buckets(n_shards=ns)`` lays the merged stream out shard-major
 (``parallel/stream.py``), as a mesh of ns data shards does.  Under an
@@ -42,6 +44,7 @@ data row's rows (``models/modules.py:mha_dynamic``).
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -50,12 +53,13 @@ import torch
 
 from matcha_tpu_torch import telemetry
 from matcha_tpu_torch.device import resolve_device, to_device
-from matcha_tpu_torch.models.modules import (dropout, encoder_layer,
+from matcha_tpu_torch.models.modules import (encoder_layer,
                                              encoder_layer_init, feed_forward,
                                              feed_forward_init, layer_norm,
                                              layer_norm_init, linear,
                                              linear_init, mha_dynamic, pff,
                                              pff_init, rand, split_generator)
+from matcha_tpu_torch.ops import node_encode
 from matcha_tpu_torch.ops.fused_tail import (D as TAIL_D, fused_tail,
                                              fused_tail_sharded, pack_ln6)
 from matcha_tpu_torch.ops.table_scatter import (bincount, bincount_sharded,
@@ -281,6 +285,10 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
     step; in the ``per_occurrence`` mode the table stays clean (the
     dropout is drawn on the gathered rows, ``_per_occurrence_embed``).
 
+    On a CUDA tensor of a width K8 takes (``ops/node_encode.py``), the
+    chain after the draws is K8: one launch a direction for every
+    chromosome (``_encode_k8``); the draws are the same either way.
+
     Under a mesh with a model axis, each feature table holds this rank's
     block of its (padded) rows: the rank encodes its rows with the masks of
     the whole table's draw, and an autograd all-gather over the model axis
@@ -301,6 +309,18 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
     R, W = max(rows), max(widths)
     rate = dims.feature_dropout
     drop = train and generator is not None and rate > 0.0
+    # the JAX package's gate (pad-independent table volume): all chromosomes
+    # as one zero-padded batched chain, else a per-chromosome loop
+    batched = len(feats) > 1 and len(feats) * W * W * 4 <= (64 << 20)
+    draws = _feature_draws(generator, widths, batched,
+                           feats[0].device) if drop else None
+    if node_encode.takes(feats, dims.dim):
+        local = _encode_k8(params, feats, dims, draws, batched,
+                           mesh if sharded else None)
+        if not sharded:
+            return local
+        offsets = np.concatenate([[0], np.cumsum(rows)[:-1]]).tolist()
+        return _node_rows(local, rows, offsets, widths, mesh)
     zero_row = torch.zeros((1, dims.dim), dtype=cdt, device=feats[0].device)
 
     def global_rows(c, n, top):
@@ -309,9 +329,7 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
         their features are zero)."""
         return np.minimum(mesh.model_index * rows[c] + np.arange(n), top - 1)
 
-    # the JAX package's gate (pad-independent table volume): all chromosomes
-    # as one zero-padded batched chain, else a per-chromosome loop
-    if len(feats) > 1 and len(feats) * W * W * 4 <= (64 << 20):
+    if batched:
         x = torch.stack([torch.nn.functional.pad(
             f.to(cdt), (0, W - f.shape[1], 0, R - f.shape[0]))
             for f in feats])                                     # (C, R, W)
@@ -319,7 +337,8 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
             # the mask is drawn at the pad-independent shape (C, W, W) (a
             # corrcoef table's true row count is its width) and its rows
             # are those of the rank's rows, as the JAX package draws it
-            keep = rand(generator, (len(feats), W, W), x.device) < 1.0 - rate
+            (u,) = draws
+            keep = u < 1.0 - rate
             if sharded:
                 keep = keep[to_device(np.arange(len(feats))[:, None],
                                       x.device),
@@ -340,30 +359,97 @@ def encode_node_table(params: Dict, frozen: FrozenTables, dims: ModelDims,
         local = h.reshape(len(feats) * R, dims.dim)
         offsets = [c * R for c in range(len(feats))]
     else:
-        gens = split_generator(generator if drop else None, len(feats))
         blocks = []
         for c, x in enumerate(feats):
             ae = params["embed"]["ae"][c]
-            x = dropout(x.to(cdt), rate, train, gens[c],
-                        (widths[c], to_device(global_rows(
-                            c, rows[c], widths[c]), x.device))
-                        if sharded else None)
+            x = x.to(cdt)
+            if drop:
+                keep = next(draws) < 1.0 - rate
+                if sharded:
+                    keep = keep[to_device(global_rows(c, rows[c], widths[c]),
+                                          x.device)]
+                x = torch.where(keep, x / (1.0 - rate),
+                                torch.zeros((), dtype=cdt, device=x.device))
             h = torch.tanh(x @ ae["w1"].to(cdt)) @ ae["w2"].to(cdt)
             blocks.append(h if sharded else h[:x.shape[1]])
         if not sharded:
             return torch.cat([zero_row] + blocks, dim=0)
         local = torch.cat(blocks)
         offsets = np.concatenate([[0], np.cumsum(rows)[:-1]]).tolist()
-    # row gather: node id i (1-based) -> (rank m, chrom c, local row) of the
-    # model axis's blocks (one rank without a model axis)
+    return _node_rows(local, rows, offsets, widths, mesh if sharded else None)
+
+
+def _feature_draws(generator: torch.Generator, widths, batched: bool,
+                   device):
+    """The feature-dropout uniforms of one encode, drawn lazily through
+    this module's ``rand`` (the name the harness's recorder patches): one
+    (C, W, W) draw when ``batched``, else one (n_c, n_c) draw per
+    chromosome from ``split_generator``'s children, in chromosome order.
+    Both the eager chain and K8 take their draws from here."""
+    C, W = len(widths), max(widths)
+    if batched:
+        yield rand(generator, (C, W, W), device)
+    else:
+        for c, g in enumerate(split_generator(generator, C)):
+            yield rand(g, (widths[c], widths[c]), device)
+
+
+def _encode_k8(params: Dict, feats, dims: ModelDims, draws, batched: bool,
+               mesh) -> torch.Tensor:
+    """The encode by K8 (``ops/node_encode.py``) on the feature-dropout
+    draws of ``_feature_draws`` (None: no dropout): one keep, forward and
+    backward launch for every chromosome.  Chromosome c's row j on model
+    rank i reads row min(i x rows_c + j, m - 1) of its (m, m) draw (m = W
+    batched, else n_c), as the eager chain indexes it.  -> the node table
+    (N+1, d), or under a model axis (``mesh``) the rank's rows of every
+    chromosome in order."""
+    ae = params["embed"]["ae"]
+    rows = [int(f.shape[0]) for f in feats]
+    widths = [int(f.shape[1]) for f in feats]
+    C, W = len(feats), max(widths)
+    first = 0 if mesh is None else mesh.model_index
+    w1s = [p["w1"] for p in ae]
+    w2s = [p["w2"] for p in ae]
+    plan = node_encode.plan(
+        feats, w1s, w2s, dims.cdt, [W] * C if batched else widths,
+        [first * r for r in rows], whole=mesh is None)
+    rate = dims.feature_dropout
+    bits = None
+    if draws is not None:
+        keep = node_encode.Keep(plan, rate)
+        for u in draws:
+            keep.add(u)
+        bits = keep.finish()
+    return node_encode.node_encode(plan, feats, bits, rate, w1s, w2s)
+
+
+def _node_rows(local: torch.Tensor, rows, offsets, widths,
+               mesh) -> torch.Tensor:
+    """The node table from the chromosomes' encoded rows ``local``
+    (chromosome c's block at offsets[c]): under a model axis (``mesh``)
+    gathered over it first; node id i (1-based) -> (rank m, chrom c, local
+    row) of the model axis's blocks (one rank without a model axis), after
+    a zero row."""
     size = local.shape[0]
-    if sharded:
+    if mesh is not None:
         local = all_gather_rows(local, mesh.model_group)
-    flat_idx = to_device(np.concatenate(
-        [(g // rows[c]) * size + offsets[c] + g % rows[c]
-         for c, g in ((c, np.arange(w)) for c, w in enumerate(widths))]),
-        local.device)
-    return torch.cat([zero_row, local[flat_idx]], dim=0)
+    flat_idx = _node_row_index(tuple(rows), tuple(offsets), tuple(widths),
+                               size, local.device)
+    return torch.cat([local.new_zeros((1, local.shape[1])),
+                      local[flat_idx]], dim=0)
+
+
+@functools.lru_cache(maxsize=16)
+def _node_row_index(rows, offsets, widths, size: int,
+                    device) -> torch.Tensor:
+    """``_node_rows``' gather index on ``device``, made once per layout
+    (outside inference mode, so a later training step may save it for its
+    backward)."""
+    with torch.inference_mode(False):
+        return to_device(np.concatenate(
+            [(g // rows[c]) * size + offsets[c] + g % rows[c]
+             for c, g in ((c, np.arange(w)) for c, w in enumerate(widths))]),
+            device)
 
 
 def _per_occurrence_embed(params: Dict, frozen: FrozenTables,

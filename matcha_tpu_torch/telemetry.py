@@ -217,6 +217,7 @@ def kernel_launches() -> Dict[str, int]:
     where it launches its kernel)."""
     from matcha_tpu_torch.ops import fused_tail as ft
     from matcha_tpu_torch.ops import hyperedge_attention as ha
+    from matcha_tpu_torch.ops import node_encode as ne
     from matcha_tpu_torch.ops import propose as pp
     from matcha_tpu_torch.ops import sample_negatives as sn
     from matcha_tpu_torch.ops import table_scatter as ts
@@ -226,7 +227,10 @@ def kernel_launches() -> Dict[str, int]:
             "K5": pp.propose_phase1.launches,
             "K6_fwd": ft.fused_tail_fwd_cuda.launches,
             "K6_bwd": ft.fused_tail_bwd_cuda.launches,
-            "K7": sn.sample_negatives_cuda.launches}
+            "K7": sn.sample_negatives_cuda.launches,
+            "K8_fwd": ne.encode_fwd_cuda.launches,
+            "K8_bwd": ne.encode_bwd_cuda.launches,
+            "K8_keep": ne.keep_cuda.launches}
 
 
 def epoch_split(epoch: Unit) -> Dict:

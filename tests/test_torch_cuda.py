@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 (attention forward), K2 (its backward), K3 (scatter-add), K4 (bincount),
 K5 (phase-1 proposals), K6 (the fused classifier tail, forward and
-backward) and K7 (the sampler's chain, against the eager chain bit for
-bit).
+backward), K7 (the sampler's chain, against the eager chain bit for
+bit) and K8 (the node-table encode, against the eager chain).
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -648,6 +648,204 @@ def test_k6_masks(cuda):
     a = tf.fused_tail(*args, 11, 0.3, 0.4, True)
     assert torch.equal(a, tf.fused_tail(*args, 11, 0.3, 0.4, True))
     assert not torch.equal(a, tf.fused_tail(*args, 12, 0.3, 0.4, True))
+
+
+# hg38 at 1 Mb (chr1-22, X: one (C, W, W) draw), four 100 kb chromosomes
+# (one draw each), and rank 3 of a 1 x 4 model axis of each (its padded
+# block of rows, the last reading the clipped draw row)
+K8_LAYOUTS = {
+    "1mb": ([249, 243, 199, 191, 182, 171, 160, 146, 139, 134, 136, 134,
+             115, 108, 102, 91, 84, 81, 59, 65, 47, 51, 157], True, None),
+    "100kb": ([2491, 1353, 811, 467], False, None),
+    "1mb_rank": ([249, 199, 65, 47, 157], True, (4, 3)),
+    "100kb_rank": ([2491, 811, 467], False, (4, 3)),
+}
+
+
+def _k8_case(device, layout, dim, table_dtype, seed=0):
+    """The tables, f32 weights (needing gradients), and the layout of the
+    draws: (features, w1s, w2s, draw widths, first draw rows, whole,
+    batched)."""
+    sizes, batched, mesh = K8_LAYOUTS[layout]
+    g = torch.Generator().manual_seed(seed)
+    feats, w1s, w2s = [], [], []
+    for n in sizes:
+        f = torch.rand((n, n), generator=g) * 2 - 1
+        if mesh is not None:
+            m, i = mesh
+            per = -(-n // m)
+            f = torch.nn.functional.pad(f, (0, 0, 0, per * m - n))
+            f = f[i * per:(i + 1) * per]
+        feats.append(f.to(device, table_dtype).contiguous())
+        w1s.append(((torch.rand((n, dim), generator=g) * 2 - 1)
+                    / n ** 0.5).to(device).requires_grad_(True))
+        w2s.append(((torch.rand((dim, dim), generator=g) * 2 - 1)
+                    / dim ** 0.5).to(device).requires_grad_(True))
+    W = max(sizes)
+    first = 0 if mesh is None else mesh[1]
+    return (feats, w1s, w2s, [W] * len(sizes) if batched else list(sizes),
+            [first * f.shape[0] for f in feats], mesh is None, batched)
+
+
+def _k8_draws(device, case, seed=1):
+    feats, _, _, widths, _, _, batched = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    if batched:
+        return [torch.rand((len(feats), widths[0], widths[0]), device=device,
+                           generator=g)]
+    return [torch.rand((w, w), device=device, generator=g) for w in widths]
+
+
+def _k8_counts():
+    from matcha_tpu_torch.ops import node_encode as ne
+    return (ne.keep_cuda.launches, ne.encode_fwd_cuda.launches,
+            ne.encode_bwd_cuda.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(K8_LAYOUTS))
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [16, 64])
+@pytest.mark.parametrize("train", [True, False])
+def test_k8_matches_the_eager_chain(cuda, layout, cdt, dim, train):
+    """K8 against the eager chain (``node_encode_plain``) on the same draws:
+    the keep bits bit for bit; the forward and both gradients (through a
+    fixed random projection) in f32 at 1e-4 (summation order), in bf16 at
+    2e-2 of the output and 3e-2 of each gradient's largest entry (the eager
+    chain rounds X~W1, dH W2^T, G and dW1, dW2 to bf16, K8 sums dW1, dW2 in
+    f32; the forward's roundings are the same, its sums in another order).
+    The rank layouts hold bf16 tables.  One keep launch (every draw under
+    KEEP_GROUP_BYTES), one forward and one backward."""
+    from matcha_tpu_torch.ops import node_encode as ne
+    tdt = torch.bfloat16 if layout.endswith("rank") else torch.float32
+    case = _k8_case(cuda, layout, dim, tdt)
+    feats, w1s, w2s, widths, first, whole, batched = case
+    rate = 0.2
+    plan = ne.plan(feats, w1s, w2s, cdt, widths, first, whole)
+    before = _k8_counts()
+    bits, keeps = None, None
+    if train:
+        draws = _k8_draws(cuda, case)
+        keep = ne.Keep(plan, rate)
+        for u in draws:
+            keep.add(u)
+        bits = keep.finish()
+        us = list(draws[0]) if batched else draws
+        keeps = [ne.keep_plain(u, f.shape[0], r, f.shape[1], rate)
+                 for u, f, r in zip(us, feats, first)]
+        want_bits = torch.cat([ne.pack_bits(k).view(-1) for k in keeps])
+        assert torch.equal(bits, want_bits)
+    out = ne.node_encode(plan, feats, bits, rate, w1s, w2s)
+    ref = ne.node_encode_plain(feats, w1s, w2s, cdt, keeps, rate, whole)
+    assert out.dtype == cdt and out.shape == ref.shape
+    tol = TOL[cdt]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    r = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    got = torch.autograd.grad((out.float() * r).sum(), w1s + w2s)
+    want = torch.autograd.grad((ref.float() * r).sum(), w1s + w2s)
+    gtol = 1e-4 if cdt == torch.float32 else 3e-2
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        err = float((a - b).abs().max())
+        assert err <= gtol * float(b.abs().max()), (err, float(b.abs().max()))
+    assert [a - b for a, b in zip(_k8_counts(), before)] == [int(train), 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_k8_reads_tables_that_start_at_any_element(cuda, tdt):
+    """Feature tables that are views starting 1 to 7 elements past a
+    16-byte boundary (K8 copies x in aligned 16-byte chunks and finds each
+    row's first column in them) give what the same tables freshly
+    allocated give, bit for bit, output and both gradients."""
+    from matcha_tpu_torch.ops import node_encode as ne
+    feats, w1s, w2s, widths, first, whole, _ = _k8_case(cuda, "100kb_rank",
+                                                        64, tdt)
+    shifted = []
+    for c, f in enumerate(feats):
+        buf = torch.empty(f.numel() + 8, dtype=tdt, device=cuda)
+        v = buf[1 + c % 7:1 + c % 7 + f.numel()].view(f.shape)
+        v.copy_(f)
+        assert v.data_ptr() % 16
+        shifted.append(v)
+    runs = []
+    for tables in (feats, shifted):
+        plan = ne.plan(tables, w1s, w2s, torch.bfloat16, widths, first,
+                       whole)
+        keep = ne.Keep(plan, 0.2)
+        for u in _k8_draws(cuda, (tables, w1s, w2s, widths, first, whole,
+                                  False)):
+            keep.add(u)
+        out = ne.node_encode(plan, tables, keep.finish(), 0.2, w1s, w2s)
+        runs.append([out] + list(torch.autograd.grad(out.float().sum(),
+                                                     w1s + w2s)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_k8_is_deterministic_and_eval_saves_nothing(cuda):
+    """Two runs give the same bits (no float atomics); under no_grad one
+    forward launch, no backward."""
+    from matcha_tpu_torch.ops import node_encode as ne
+    case = _k8_case(cuda, "100kb", 64, torch.float32)
+    feats, w1s, w2s, widths, first, whole, _ = case
+    plan = ne.plan(feats, w1s, w2s, torch.bfloat16, widths, first, whole)
+    runs = []
+    for _ in range(2):
+        keep = ne.Keep(plan, 0.2)
+        for u in _k8_draws(cuda, case):
+            keep.add(u)
+        bits = keep.finish()
+        out = ne.node_encode(plan, feats, bits, 0.2, w1s, w2s)
+        runs.append([out] + list(torch.autograd.grad(out.float().sum(),
+                                                     w1s + w2s)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    before = _k8_counts()
+    with torch.no_grad():
+        ne.node_encode(plan, feats, None, 0.2, w1s, w2s)
+    assert [a - b for a, b in zip(_k8_counts(), before)] == [0, 1, 0]
+
+
+@pytest.mark.cuda
+def test_k8_is_one_launch_a_direction_in_the_encode(cuda, monkeypatch):
+    """``encode_node_table`` on the card at 1 Mb (one batched draw) and on
+    100 kb chromosomes (a draw each): one keep, one forward and one
+    backward launch a training encode, whatever the chromosome count; the
+    draws go through ``models.hypersagnn.rand`` and the table equals the
+    eager chain's on them (bf16, 2e-2)."""
+    from matcha_tpu_torch.models import hypersagnn as th
+    from matcha_tpu_torch.ops import node_encode as ne
+    orig = th.rand
+    for layout in ("1mb", "100kb"):
+        feats, w1s, w2s, widths, first, _, batched = _k8_case(
+            cuda, layout, 64, torch.float32)
+        dims = th.ModelDims(dim=64, n_head=8, num_chroms=len(feats),
+                            num_nodes=sum(f.shape[0] for f in feats),
+                            compute_dtype="bfloat16")
+        params = {"embed": {"ae": [{"w1": a, "w2": b}
+                                   for a, b in zip(w1s, w2s)]}}
+        frozen = th.FrozenTables(tuple(feats), None, None, None, None)
+        draws = []
+
+        def rand(gen, shape, device, draws=draws):
+            u = orig(gen, shape, device)
+            draws.append(u)
+            return u
+        monkeypatch.setattr(th, "rand", rand)
+        before = _k8_counts()
+        h = th.encode_node_table(params, frozen, dims, train=True,
+                                 generator=torch.Generator().manual_seed(4))
+        h.float().sum().backward()
+        assert [a - b for a, b in zip(_k8_counts(), before)] == [1, 1, 1]
+        assert len(draws) == (1 if batched else len(feats))
+        us = list(draws[0]) if batched else draws
+        keeps = [ne.keep_plain(u, f.shape[0], 0, f.shape[1], 0.2)
+                 for u, f in zip(us, feats)]
+        ref = ne.node_encode_plain(feats, w1s, w2s, torch.bfloat16, keeps,
+                                   0.2, True)
+        torch.testing.assert_close(h.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 def _small_problem(device, ks=(2, 3), dim=16, n_head=4, seed=0):

@@ -155,7 +155,7 @@ def test_logger_writes_the_host_split(small, tmp_path):
         assert host["sync_wait_ms_per_step"] > 0
         assert host["launches_per_step"] == {
             k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6_fwd",
-                             "K6_bwd", "K7")}
+                             "K6_bwd", "K7", "K8_fwd", "K8_bwd", "K8_keep")}
 
 
 # --------------------------------------------------------------- the setup
